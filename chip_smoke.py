@@ -9,9 +9,12 @@ Phases (any failure exits non-zero and prints no result):
 2. build the hand-written CUDA kernels (nvcc, sm_90a) from the checkout;
 3. hold each kernel against its plain PyTorch version on the card, at the
    flagship widths and main-path shapes: the bf16 tensor-core kernels the
-   main path runs (with a band shown to see a faulty RDB kernel) and the f32
-   SIMT kernels of the same sources; time kernel, plain version and library
-   call with CUDA events (one ``{"kernels": [...]}`` JSON line);
+   main path runs (with a band shown to see a faulty RDB kernel), the conv
+   kernel on ragged grids, batch 1, Cin 4 and Cout 3 in both modes, and the
+   f32 SIMT kernels of the same sources; time each kernel with its weight
+   layout built once (as the forward runs it), its plain version and the
+   library call with CUDA events, per conv site (one ``{"kernels": [...]}``
+   JSON line);
 4. answer requests through the CEM-wrapped flagship forward
    (RRDBNet nf=64 nb=23 gc=32 x4 nz=1, bf16 kernels, seeded Kaiming weights):
    shape, finiteness, CEM residual, Z diversity, launch counts, PSNR against
@@ -19,7 +22,8 @@ Phases (any failure exits non-zero and prints no result):
    forward against the f32 plain path at nb=2;
 5. time the flagship forward at B16 x LR 128: kernel path, kernel path with
    the weight layout rebuilt in every call, and bf16 plain path; profile
-   two kernel-path forwards (device time by kernel, busy share).
+   two kernel-path forwards (device time by kernel, busy share, the conv
+   kernel's time per forward beside the library calls').
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -42,10 +46,17 @@ from esr_tpu_torch.models import define_G, make_eval_forward
 from esr_tpu_torch.models.blocks import upsample_nearest
 from esr_tpu_torch.ops import tensor2img
 from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv
-from esr_tpu_torch.ops.cuda.kpack_conv import conv3x3_reference, kpack_conv3x3
+from esr_tpu_torch.ops.cuda.kpack_conv import (
+    conv3x3_reference,
+    conv_kernel_weights,
+    conv_launch,
+    kpack_conv3x3,
+)
 from esr_tpu_torch.ops.cuda.rdb_conv import (
     fused_rdb5c,
     fused_rdb5c_tiled,
+    rdb5c_kernel_weights,
+    rdb5c_launch,
     rdb5c_params_from_module,
     rdb5c_reference,
 )
@@ -143,6 +154,44 @@ def convT_weight(kernel: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ka,lb,abio->iokl", fold, fold, kernel)
 
 
+def conv_row(per_site: list[dict], **keys) -> dict:
+    """A conv mode's row of the kernels line: times and bounds summed over its
+    sites, each site listed; bound_by is what bounds the larger share."""
+    total = {k: sum(site[k] for site in per_site) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_ops = sum(site["bound_ms"] for site in per_site if site["bound_by"] == "operations")
+    for site in per_site:
+        print(f"  {site['site']:<11s} {site['shape']:<28s} kernel {site['ms']:.4f} ms, library "
+              f"{site['library_ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, bound {site['bound_ms']:.4f} ms "
+              f"({site['bound_by']})", flush=True)
+    return {"name": keys.pop("name"), "route": "cuda", **keys, **total,
+            "bound_by": "operations" if by_ops >= total["bound_ms"] - by_ops else "bytes", "sites": per_site}
+
+
+def conv_edge_checks() -> None:
+    """The bf16 conv kernel in both modes where TMA and the persistent tiling
+    can go wrong: ragged grids, batch 1, conv_first's Cin 4 (plain window
+    loads, no TMA), conv_last's Cout 3 (pixels as M, wgmma n8, 2-byte
+    stores), both act values; each within the bf16 band and counted as one
+    launch."""
+    for shape in ((2, 37, 53), (1, 16, 40)):
+        for cin, cout in ((3 + NZ, NF), (NF, NF), (NF, 3)):
+            x = gen(shape + (cin,), 80 + cin + cout).bfloat16()
+            w = gen((3, 3, cin, cout), 81, math.sqrt(2.0 / (9 * cin)))
+            bias = gen((cout,), 82, 0.01)
+            for act in (False, True):
+                for ksize, counter, plain in ((3, kpack_conv.LAUNCHES, conv3x3_reference),
+                                              (2, kpack_conv.LAUNCHES_UP, upsample2x_conv3x3_reference)):
+                    kw = conv_kernel_weights(w, bias, torch.bfloat16, x.device, ksize)
+                    before = counter.count
+                    got = conv_launch(x, kw, act)
+                    ran = counter.count == before + 1
+                    ref = plain(x.float(), w, bias, act)
+                    tol = conv_bf16_band(ref, max_err(plain(x, w, bias, act), ref))
+                    e = max_err(got, ref) if got.shape == ref.shape else math.inf
+                    check(ran and e <= tol, f"conv bf16 {ksize}x{ksize} mode {shape} {cin}->{cout} act={act}: "
+                          f"max err {e:.3g} <= {tol:.3g}, one launch counted {ran}")
+
+
 # -- phase 1 -------------------------------------------------------------------
 
 
@@ -181,9 +230,10 @@ def phase_build() -> None:
 @torch.no_grad()
 def phase_kernels() -> list[dict]:
     """Each kernel against its plain version. The main path runs the bf16
-    tensor-core (mma.sync) kernels; the f32 checks run the f32 SIMT kernels
-    of the same sources, which only f32 callers reach. Each row's
-    ``max_abs_err`` is the bf16 kernel's, ``f32_simt_max_abs_err`` the f32 one's."""
+    tensor-core kernels (rdb5c: mma.sync; the conv: wgmma); the f32 checks
+    run the f32 SIMT kernels of the same sources, which only f32 callers
+    reach. Each row's ``max_abs_err`` is the bf16 kernel's,
+    ``f32_simt_max_abs_err`` the f32 one's."""
     rows = []
     print(f"tolerances: f32 SIMT kernels vs f32 plain {F32_TOL} (up to 9 x 192 products summed in "
           "another order than cuDNN's, TF32 off). bf16 tensor-core kernels vs f32 plain on the same "
@@ -226,8 +276,9 @@ def phase_kernels() -> list[dict]:
                   f"<= {tol:.3g} (bf16 plain version's err {plain_err:.3g})")
             bf16_errs.append(e)
     xb = xm.bfloat16()
+    kw5 = rdb5c_kernel_weights(p, torch.bfloat16, xb.device)  # built once, as the forward does
     for tile in (8, 12):  # the default bf16 tile is 16 x 16; smaller ones recompute more halo
-        ms = cuda_ms(lambda: fused_rdb5c(xb, p, strip=tile))
+        ms = cuda_ms(lambda: rdb5c_launch(xb, kw5, tile, tile))
         print(f"rdb5c bf16 (16,128,128,64) with {tile}x{tile} tiles: {ms:.3f} ms", flush=True)
     flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * B * LR * LR
     nbytes = 2 * xb.numel() * 2 + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items())
@@ -238,17 +289,20 @@ def phase_kernels() -> list[dict]:
         "tpu_kernel": "K1 fused_rdb5c + K2 fused_rdb5c_tiled",
         "shape": "x (16,128,128,64) bf16, nf 64 gc 32",
         "max_abs_err": max(bf16_errs), "f32_simt_max_abs_err": max(f32_errs),
-        "ms": cuda_ms(lambda: fused_rdb5c(xb, p)),
+        "ms": cuda_ms(lambda: rdb5c_launch(xb, kw5)),
         "plain_ms": cuda_ms(lambda: rdb5c_reference(xb, p)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "launches_per_forward": 3 * NB,
     })
 
-    # K3, 3x3 SAME mode: conv_first, trunk_conv, HRconv, conv_last
+    # K3, 3x3 SAME mode: conv_first, trunk_conv, HRconv, conv_last. Kernel
+    # times through conv_launch with the weight image built once, as the
+    # forward runs it; the library call with its operands prepared outside
+    # the timed call.
     hr = LR * SCALE
     sites = [("conv_first", LR, 3 + NZ, NF, False), ("trunk_conv", LR, NF, NF, False),
              ("HRconv", hr, NF, NF, True), ("conv_last", hr, NF, 3, False)]
-    f32_errs, bf16_errs, t_k, t_p, t_l, bounds = [], [], 0.0, 0.0, 0.0, []
+    f32_errs, bf16_errs, per_site = [], [], []
     for i, (site, s, cin, cout, act) in enumerate(sites):
         x = gen((B, s, s, cin), 20 + i)
         w = gen((3, 3, cin, cout), 30 + i, math.sqrt(2.0 / (9 * cin)))
@@ -257,33 +311,33 @@ def phase_kernels() -> list[dict]:
         check(e <= F32_TOL, f"conv3x3 f32 SIMT {site} {cin}->{cout} at {s}x{s}: max err {e:.3g} <= {F32_TOL}")
         f32_errs.append(e)
         xb = x.bfloat16()
+        kw = conv_kernel_weights(w, bias, torch.bfloat16, xb.device)
         ref_b = conv3x3_reference(xb.float(), w, bias, act)
         plain_err = max_err(conv3x3_reference(xb, w, bias, act), ref_b)
-        eb = max_err(kpack_conv3x3(xb, w, bias, act), ref_b)
+        eb = max(max_err(kpack_conv3x3(xb, w, bias, act), ref_b), max_err(conv_launch(xb, kw, act), ref_b))
         tol = conv_bf16_band(ref_b, plain_err)
         check(eb <= tol, f"conv3x3 bf16 tensor cores {site}: max err {eb:.3g} <= {tol:.3g} "
               f"(plain {plain_err:.3g})")
         bf16_errs.append(eb)
-        wb, xc = w.permute(3, 2, 0, 1).bfloat16(), xb.permute(0, 3, 1, 2)
-        t_k += cuda_ms(lambda: kpack_conv3x3(xb, w, bias, act))
-        t_p += cuda_ms(lambda: conv3x3_reference(xb, w, bias, act))
-        t_l += cuda_ms(lambda: F.conv2d(xc, wb, bias.bfloat16(), padding=1))
-        bounds.append(bound(2 * 9 * cin * cout * B * s * s, 2 * B * s * s * (cin + cout) + 2 * w.numel()))
-    rows.append({
-        "name": "conv3x3", "route": "cuda", "source": "esr_tpu_torch/ops/cuda/csrc/conv3x3.cuh",
-        "replaces": "esr_tpu/ops/pallas/kpack_conv.py:61 (kpack_conv3x3)",
-        "tpu_kernel": "K3 kpack_conv3x3",
-        "shape": "B16 bf16: conv_first 4->64 @128, trunk_conv 64->64 @128, "
-                 "HRconv 64->64 @512, conv_last 64->3 @512 (times summed over the four)",
-        "max_abs_err": max(bf16_errs), "f32_simt_max_abs_err": max(f32_errs),
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-        "bound_ms": sum(b for b, _ in bounds),
-        "bound_by": "operations" if sum(b for b, by in bounds if by == "operations") >= sum(b for b, by in bounds if by == "bytes") else "bytes",
-        "launches_per_forward": 4,
-    })
+        wb, xc, bb = w.permute(3, 2, 0, 1).bfloat16(), xb.permute(0, 3, 1, 2), bias.bfloat16()
+        b_ms, b_by = bound(2 * 9 * cin * cout * B * s * s, 2 * B * s * s * (cin + cout) + 2 * w.numel())
+        per_site.append({
+            "site": site, "shape": f"B{B} {s}x{s} {cin}->{cout}" + (" lrelu" if act else ""),
+            "ms": cuda_ms(lambda: conv_launch(xb, kw, act)),
+            "plain_ms": cuda_ms(lambda: conv3x3_reference(xb, w, bias, act)),
+            "library_ms": cuda_ms(lambda: F.conv2d(xc, wb, bb, padding=1)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    rows.append(conv_row(
+        per_site, name="conv3x3", source="esr_tpu_torch/ops/cuda/csrc/conv3x3.cuh",
+        replaces="esr_tpu/ops/pallas/kpack_conv.py:61 (kpack_conv3x3)", tpu_kernel="K3 kpack_conv3x3",
+        shape="B16 bf16: conv_first 4->64 @128, trunk_conv 64->64 @128, HRconv 64->64 @512, "
+              "conv_last 64->3 @512 (times summed over the four; library: F.conv2d, channels_last)",
+        max_abs_err=max(bf16_errs), f32_simt_max_abs_err=max(f32_errs), launches_per_forward=4,
+    ))
 
     # K3, 2x2 parity mode: the two fused nearest-2x upsample convs
-    f32_errs, bf16_errs, t_k, t_p, t_l, bounds = [], [], 0.0, 0.0, 0.0, []
+    f32_errs, bf16_errs, per_site = [], [], []
     for i, s in enumerate((LR, 2 * LR)):
         x = gen((B, s, s, NF), 50 + i)
         w = gen((3, 3, NF, NF), 60 + i, math.sqrt(2.0 / (9 * NF)))
@@ -298,30 +352,34 @@ def phase_kernels() -> list[dict]:
                     .permute(0, 2, 3, 1), ref)
         check(e <= F32_TOL, f"library call F.conv_transpose2d computes the same at {s}: max err {e:.3g}")
         xb = x.bfloat16()
+        kw = conv_kernel_weights(w, bias, torch.bfloat16, xb.device, ksize=2)
         ref_b = conv3x3_reference(upsample_nearest(xb.float(), 2), w, bias, act=True)
         plain_err = max_err(upsample2x_conv3x3_reference(xb, w, bias, act=True), ref_b)
-        eb = max_err(upsample2x_conv3x3(xb, w, bias, act=True), ref_b)
+        eb = max(max_err(upsample2x_conv3x3(xb, w, bias, act=True), ref_b),
+                 max_err(conv_launch(xb, kw, True), ref_b))
         tol = conv_bf16_band(ref_b, plain_err)
         check(eb <= tol, f"upsample2x_conv3x3 bf16 tensor cores at {s}: max err {eb:.3g} <= {tol:.3g} "
               f"(plain {plain_err:.3g})")
         bf16_errs.append(eb)
         w4b, xcb, bb = convT_weight(w).bfloat16(), xb.permute(0, 3, 1, 2), bias.bfloat16()
-        t_k += cuda_ms(lambda: upsample2x_conv3x3(xb, w, bias, act=True))
-        t_p += cuda_ms(lambda: upsample2x_conv3x3_reference(xb, w, bias, act=True))
-        t_l += cuda_ms(lambda: F.conv_transpose2d(xcb, w4b, bb, stride=2, padding=1))
-        bounds.append(bound(2 * 16 * NF * NF * B * s * s, 2 * B * s * s * NF * 5 + 2 * 16 * NF * NF))
-    rows.append({
-        "name": "upsample2x_conv3x3", "route": "cuda", "source": "esr_tpu_torch/ops/cuda/csrc/conv3x3.cuh",
-        "replaces": "esr_tpu/ops/pallas/kpack_conv.py:61 (kpack_conv3x3, 2x2 window) "
-                    "for esr_tpu/ops/fused.py:32 (upsample2x_conv3x3)",
-        "tpu_kernel": "K3 kpack_conv3x3 (2x2 parity window)",
-        "shape": "B16 bf16 64->64: 128->256 and 256->512 (times summed over the two; "
-                 "library: F.conv_transpose2d stride 2 with the folded 4x4 weight, channels_last)",
-        "max_abs_err": max(bf16_errs), "f32_simt_max_abs_err": max(f32_errs),
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-        "bound_ms": sum(b for b, _ in bounds), "bound_by": bounds[0][1],
-        "launches_per_forward": 2,
-    })
+        b_ms, b_by = bound(2 * 16 * NF * NF * B * s * s, 2 * B * s * s * NF * 5 + 2 * 16 * NF * NF)
+        per_site.append({
+            "site": f"upconv{i + 1}", "shape": f"B{B} {s}->{2 * s} 64->64 lrelu",
+            "ms": cuda_ms(lambda: conv_launch(xb, kw, True)),
+            "plain_ms": cuda_ms(lambda: upsample2x_conv3x3_reference(xb, w, bias, act=True)),
+            "library_ms": cuda_ms(lambda: F.conv_transpose2d(xcb, w4b, bb, stride=2, padding=1)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    rows.append(conv_row(
+        per_site, name="upsample2x_conv3x3", source="esr_tpu_torch/ops/cuda/csrc/conv3x3.cuh",
+        replaces="esr_tpu/ops/pallas/kpack_conv.py:61 (kpack_conv3x3, 2x2 window) "
+                 "for esr_tpu/ops/fused.py:32 (upsample2x_conv3x3)",
+        tpu_kernel="K3 kpack_conv3x3 (2x2 parity window)",
+        shape="B16 bf16 64->64: 128->256 and 256->512 (times summed over the two; "
+              "library: F.conv_transpose2d stride 2 with the folded 4x4 weight, channels_last)",
+        max_abs_err=max(bf16_errs), f32_simt_max_abs_err=max(f32_errs), launches_per_forward=2,
+    ))
+    conv_edge_checks()
     return rows
 
 
@@ -426,7 +484,7 @@ def phase_requests() -> dict[str, int]:
 
 
 @torch.no_grad()
-def phase_timing(card: str) -> None:
+def phase_timing(card: str, rows: list[dict]) -> None:
     opt = {"network_G": {"nf": NF, "nb": NB, "gc": GC, "num_latent_channels": NZ},
            "scale": SCALE, "bf16": True}
     g = define_G(opt, device="cuda", seed=0)
@@ -456,6 +514,8 @@ def phase_timing(card: str) -> None:
         m = statistics.mean(ms)
         print(f"flagship forward B{B} LR{LR} x{SCALE} ({name}): {m:.2f} ms/forward "
               f"({', '.join(f'{v:.2f}' for v in ms)}), {hr_mp / (m / 1e3):.3f} HR MP/s on {card}", flush=True)
+    print(f"kernel path / bf16 plain path: {statistics.mean(t['kernels']) / statistics.mean(t['plain']):.3f} "
+          "of the time per forward", flush=True)
 
     # where the kernel path's time goes: device time by kernel over two forwards
     from torch.profiler import ProfilerActivity, profile
@@ -473,6 +533,14 @@ def phase_timing(card: str) -> None:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}", flush=True)
+    conv = [e for e in kernels if "conv_tc_kernel" in e.key]
+    conv_ms = sum(e.self_device_time_total for e in conv) / 1e3 / 2
+    lib_ms = sum(r["library_ms"] for r in rows if r["name"] != "rdb5c")
+    print(f"conv_tc_kernel (3x3 and 2x2 modes, {sum(e.count for e in conv) // 2} launches): "
+          f"{conv_ms:.3f} ms of device time per forward; the library calls for the same six convs "
+          f"(phase 3): {lib_ms:.3f} ms", flush=True)
+    for e in sorted(conv, key=lambda e: e.key):
+        print(f"  {e.self_device_time_total / 1e3 / 2:9.3f} ms/forward x{e.count // 2:<3d} {e.key[:90]}", flush=True)
 
 
 def main() -> int:
@@ -482,7 +550,7 @@ def main() -> int:
     totals = phase_requests()
     for r in rows:
         r["launches"] = totals[r["name"]]
-    phase_timing(env["card"])
+    phase_timing(env["card"], rows)
     print(json.dumps({"kernels": rows, "card": env["card"]}), flush=True)
     print(env["card"], flush=True)
     if FAILURES:

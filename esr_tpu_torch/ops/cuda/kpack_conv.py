@@ -28,6 +28,8 @@ __all__ = [
     "conv_launch",
     "kpack_conv3x3",
     "parity_kernels",
+    "sw128_rows",
+    "wgmma_weight_image",
 ]
 
 LAUNCHES = lib.LaunchCounter("conv3x3")
@@ -67,15 +69,46 @@ def parity_kernels(kernel: torch.Tensor) -> torch.Tensor:
     )
 
 
+def sw128_rows(m: torch.Tensor) -> torch.Tensor:
+    """Rows of 64 two-byte values [..., R, 64] -> the same rows with 16-byte
+    chunk c of row r stored at chunk c ^ (r % 8): the 128-byte swizzle that
+    TMA writes and wgmma reads (``csrc/hopper.cuh``). It is its own inverse."""
+    *lead, r, k = m.shape
+    if k != 64:
+        raise ValueError(f"sw128_rows: rows of 64 values expected, got {k}")
+    t = m.reshape(*lead, r, 8, 8)
+    rows = torch.arange(r, device=m.device) % 8
+    idx = (torch.arange(8, device=m.device)[None, :] ^ rows[:, None])[..., None].expand(r, 8, 8)
+    return torch.gather(t, -2, idx.expand(*lead, r, 8, 8)).reshape(m.shape)
+
+
+def wgmma_weight_image(wt: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """Per-tap weights [parities, taps, Cin, Cout] (Cin, Cout <= 64) -> the
+    bf16 kernel's shared-memory image [parities * taps, Cout_pad, 64], with
+    Cin_pad and Cout_pad: each tap a K-major wgmma operand of Cout_pad (8 or
+    64) rows of 64 K values, zero-padded and 128B-swizzled (the B operand
+    when Cout <= 8, the A operand of out^T = W^T x^T otherwise), of which the
+    kernel reads the first Cin_pad (16 or 64). Keeps ``wt``'s dtype."""
+    cin, cout = wt.shape[-2:]
+    if cin > 64 or cout > 64:
+        raise ValueError(f"conv3x3: the bf16 kernel takes Cin and Cout up to 64, got {cin}, {cout}")
+    cin_pad, cout_pad = (16 if cin <= 16 else 64), (8 if cout <= 8 else 64)
+    wt = F.pad(wt, (0, cout_pad - cout, 0, 64 - cin))
+    return sw128_rows(wt.transpose(-1, -2).reshape(-1, cout_pad, 64)).contiguous(), cin_pad, cout_pad
+
+
 class ConvKernelWeights(NamedTuple):
     """One conv's weights in the kernel's layout, for one dtype and device."""
 
-    wt: torch.Tensor  # bf16: per parity, B-fragment order; f32: [parities][taps][Cin][Cout_pad]
-    bias: torch.Tensor | None  # f32
+    # bf16: the wgmma operand image [parities * taps][cout_pad][64] (K-major
+    # rows, 128B-swizzled); f32: [parities][taps][Cin][Cout_pad]
+    wt: torch.Tensor
+    bias: torch.Tensor | None  # f32, zero-padded to cout_pad
     ksize: int  # 3: SAME 3x3; 2: the four parity 2x2 convs of a nearest-2x upsample
     cin: int
-    cin_pad: int
+    cin_pad: int  # bf16: the K the kernel reads per tap (16 or 64)
     cout: int
+    cout_pad: int  # bf16: 8 (Cout <= 8) or 64; f32: Cout rounded up to 8
 
 
 @torch.no_grad()
@@ -85,10 +118,10 @@ def conv_kernel_weights(
 ) -> ConvKernelWeights:
     """HWIO 3x3 ``kernel`` (and ``bias``) -> the kernel's layout in ``dtype``.
 
-    ``ksize=2`` takes the parity kernels of the nearest-2x rewrite. Cout is
-    zero-padded to a multiple of 8. bf16 (tensor cores): Cin is zero-padded
-    to the smallest width the swizzled window takes (>= 16) and each parity's
-    [taps * Cin_pad, Cout_pad] matrix goes to B-fragment order."""
+    ``ksize=2`` takes the parity kernels of the nearest-2x rewrite. bf16
+    (tensor cores; Cin and Cout at most 64): :func:`wgmma_weight_image`,
+    which the kernel copies into shared memory as it is. f32: Cout is
+    zero-padded to a multiple of 8."""
     if dtype not in _DTYPES:
         raise TypeError(f"conv3x3: dtype {dtype} not supported (bfloat16, float32)")
     if kernel.dim() != 4 or tuple(kernel.shape[:2]) != (3, 3):
@@ -100,19 +133,15 @@ def conv_kernel_weights(
         wt = kernel.reshape(1, 9, cin, cout)
     else:
         wt = parity_kernels(kernel).reshape(4, 4, cin, cout)
-    cin_pad = cin
+    wt = wt.to(device=device, dtype=dtype)
     if dtype == torch.bfloat16:
-        cin_pad = 16
-        while not lib.mma_channels_ok(cin_pad) or cin_pad < cin:
-            cin_pad += 16
-    wt = F.pad(wt.to(device=device, dtype=dtype), (0, -cout % 8, 0, cin_pad - cin))
-    if dtype == torch.bfloat16:
-        wt = lib.mma_fragments(wt.reshape(wt.shape[0], ksize * ksize * cin_pad, wt.shape[-1]))
+        wt, cin_pad, cout_pad = wgmma_weight_image(wt)
     else:
-        wt = wt.contiguous()
+        cin_pad, cout_pad = cin, -(-cout // 8) * 8
+        wt = F.pad(wt, (0, cout_pad - cout)).contiguous()
     if bias is not None:
-        bias = bias.to(device=device, dtype=torch.float32).contiguous()
-    return ConvKernelWeights(wt, bias, ksize, cin, cin_pad, cout)
+        bias = F.pad(bias.to(device=device, dtype=torch.float32), (0, cout_pad - cout)).contiguous()
+    return ConvKernelWeights(wt, bias, ksize, cin, cin_pad, cout, cout_pad)
 
 
 def kpack_conv3x3(
@@ -141,19 +170,23 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool) -> torch.Tens
     so = lib.load("conv3x3")
     n, h, w, cin = x.shape
     up = 2 if kw.ksize == 2 else 1
-    out = torch.empty((n, up * h, up * w, kw.cout), device=x.device, dtype=x.dtype)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    # the bf16 kernel writes Cout 8 < Cout < 64 as 64 channels (its TMA stores
+    # take whole 128-byte pixels); the padding is sliced off below
+    cout = kw.cout_pad if is_bf16 and kw.cout_pad == 64 else kw.cout
+    out = torch.empty((n, up * h, up * w, cout), device=x.device, dtype=x.dtype)
     x = lib.aligned16(x)
-    smem = so.esr_conv_smem_bytes(kw.cin_pad, kw.ksize, x.element_size())
+    smem = so.esr_conv_smem_bytes(is_bf16, cin, kw.cout_pad, kw.ksize)
     if smem > 232448:
         raise ValueError(f"{what}: Cin={cin} needs {smem} B of shared memory, "
                          "more than the 232448 B a block can use")
     err = so.esr_conv(
-        int(x.dtype == torch.bfloat16), lib.ptr(x), lib.ptr(kw.wt), lib.ptr(kw.bias), lib.ptr(out),
-        n, h, w, cin, kw.cin_pad, kw.cout, -(-kw.cout // 8) * 8, kw.ksize, int(act), lib.stream(x),
+        is_bf16, lib.ptr(x), lib.ptr(kw.wt), lib.ptr(kw.bias), lib.ptr(out),
+        n, h, w, cin, kw.cin_pad, cout, kw.cout_pad, kw.ksize, int(act), lib.stream(x),
     )
     lib.check(so, err, f"{what} launch")
     (LAUNCHES if kw.ksize == 3 else LAUNCHES_UP).count += 1
-    return out
+    return out if cout == kw.cout else out[..., : kw.cout].contiguous()
 
 
 def _require_cuda(x: torch.Tensor, what: str) -> None:

@@ -42,7 +42,7 @@ _SIGNATURES = {
     },
     "conv3x3": {
         "esr_conv": ([_I] + [_VP] * 4 + [_I] * 9 + [_VP], _I),
-        "esr_conv_smem_bytes": ([_I] * 3, _SZ),
+        "esr_conv_smem_bytes": ([_I] * 4, _SZ),
     },
 }
 

@@ -135,3 +135,36 @@ def test_cuda_prepared_kernel_weights_match_per_call(cuda, dtype):
         assert g.RRDB_trunk[0].RDB1.kernel_weights is not None
         prepared = g(lr)
     torch.testing.assert_close(prepared, per_call, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 16, 16), (1, 5, 40)], ids=["ragged", "b1-one-tile", "b1-thin"])
+@pytest.mark.parametrize("cin,cout", [(4, 64), (64, 64), (64, 3), (16, 32)])
+@pytest.mark.parametrize("act", [False, True])
+def test_cuda_conv_tc_prepared_within_band(cuda, shape, cin, cout, act):
+    """The bf16 tensor-core kernel in both modes through conv_launch with its
+    weight image built once (as the forward runs it), on ragged grids and
+    batch 1, conv_first's Cin 4 (plain window loads), conv_last's Cout 3
+    (pixels as M, wgmma n8, 2-byte stores) and a Cout of 32 (written as 64
+    channels and sliced): within the bf16 band of the f32 plain version on
+    the same bf16 inputs, one counted launch each."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + cin + cout)
+    x = torch.randn(*shape, cin, device=cuda, generator=g).bfloat16()
+    w = torch.randn(3, 3, cin, cout, device=cuda, generator=g) * (2.0 / (9 * cin)) ** 0.5
+    b = 0.1 * torch.randn(cout, device=cuda, generator=g)
+    for ksize, counter, plain in (
+        (3, kpack_conv.LAUNCHES, kpack_conv.conv3x3_reference),
+        (2, kpack_conv.LAUNCHES_UP, upsample2x_conv3x3_reference),
+    ):
+        kw = kpack_conv.conv_kernel_weights(w, b, torch.bfloat16, cuda, ksize)
+        before = counter.count
+        with torch.no_grad():
+            got = kpack_conv.conv_launch(x, kw, act)
+        torch.cuda.synchronize()
+        assert counter.count == before + 1
+        ref = plain(x.float(), w, b, act)
+        assert got.shape == ref.shape
+        plain_err = (plain(x, w, b, act).float() - ref).abs().max().item()
+        tol = max(2 * plain_err, 2.0**-6 * ref.abs().max().item())
+        err = (got.float() - ref).abs().max().item()
+        assert err <= tol, (ksize, err, tol)
