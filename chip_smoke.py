@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
 2. build the hand-written CUDA kernels (nvcc, sm_90a) from the checkout;
 3. hold each kernel against its plain PyTorch version on the card, at the
    flagship widths and main-path shapes: the bf16 tensor-core kernels the
-   main path runs (with a band shown to see a faulty RDB kernel), the conv
+   main path runs (with a band shown to see a faulty RDB kernel), the RDB
+   kernel on ragged grids, batch 1 and an image smaller than a tile, the conv
    kernel on ragged grids, batch 1, Cin 4 and Cout 3 in both modes, and the
    f32 SIMT kernels of the same sources; time each kernel with its weight
    layout built once (as the forward runs it), its plain version and the
@@ -22,8 +23,8 @@ Phases (any failure exits non-zero and prints no result):
    forward against the f32 plain path at nb=2;
 5. time the flagship forward at B16 x LR 128: kernel path, kernel path with
    the weight layout rebuilt in every call, and bf16 plain path; profile
-   two kernel-path forwards (device time by kernel, busy share, the conv
-   kernel's time per forward beside the library calls').
+   two kernel-path forwards (device time by kernel, busy share, the RDB
+   kernel's time per forward, the conv kernel's beside the library calls').
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -167,6 +168,25 @@ def conv_row(per_site: list[dict], **keys) -> dict:
             "bound_by": "operations" if by_ops >= total["bound_ms"] - by_ops else "bytes", "sites": per_site}
 
 
+def rdb5c_edge_checks(p: dict) -> None:
+    """The bf16 RDB kernel where its TMA window and tile walk can go wrong:
+    ragged grids, batch 1, an image smaller than one tile, H and W that are
+    not multiples of the tile; weights built once, as the forward runs it.
+    Each within the bf16 band of the f32 plain version on the same bf16
+    inputs, counted as one launch."""
+    kw = rdb5c_kernel_weights(p, torch.bfloat16, torch.device("cuda"))
+    for i, shape in enumerate(((2, 37, 53), (1, 16, 40), (1, 5, 7), (1, 33, 18))):
+        xb = gen(shape + (NF,), 90 + i).bfloat16()
+        ref = rdb5c_reference(xb.float(), p)
+        tol = 2.0 * max_err(rdb5c_reference(xb, p), ref)
+        before = rdb_conv.LAUNCHES.count
+        got = rdb5c_launch(xb, kw)
+        ran = rdb_conv.LAUNCHES.count == before + 1
+        e = max_err(got, ref) if got.shape == ref.shape else math.inf
+        check(ran and e <= tol, f"rdb5c bf16 tensor cores {shape}: max err {e:.3g} <= {tol:.3g}, "
+              f"one launch counted {ran}")
+
+
 def conv_edge_checks() -> None:
     """The bf16 conv kernel in both modes where TMA and the persistent tiling
     can go wrong: ragged grids, batch 1, conv_first's Cin 4 (plain window
@@ -218,9 +238,15 @@ def phase_build() -> None:
     secs = lib.build_all()
     for name in lib._SIGNATURES:
         lib.load(name)
-        report = lib._lib_path(name).with_suffix(".log")
-        usage = [ln.strip() for ln in report.read_text().splitlines() if "registers" in ln or "spill" in ln]
+        report = lib._lib_path(name).with_suffix(".log").read_text().splitlines()
+        usage = [ln.strip() for ln in report if "registers" in ln or "spill" in ln or "C75" in ln]
         print(f"ptxas {name}: " + " | ".join(usage), flush=True)
+        if name == "rdb5c":  # the main path's RDB kernel: wgmma pipelined, nothing in local memory
+            tc = [i for i, ln in enumerate(report) if "Function properties" in ln and "rdb5c_tc_kernel" in ln]
+            spills = report[tc[0] + 1].strip() if tc else "no report"
+            serialized = [ln for ln in report if "are serialized" in ln and "rdb5c_tc_kernel" in ln]
+            check(spills.startswith("0 bytes stack frame, 0 bytes spill stores") and not serialized,
+                  f"ptxas rdb5c_tc_kernel: {spills}; wgmma serialization warnings: {len(serialized)}")
     print(f"build: {secs:.1f} s (nvcc, all sources in parallel)", flush=True)
 
 
@@ -230,7 +256,7 @@ def phase_build() -> None:
 @torch.no_grad()
 def phase_kernels() -> list[dict]:
     """Each kernel against its plain version. The main path runs the bf16
-    tensor-core kernels (rdb5c: mma.sync; the conv: wgmma); the f32 checks
+    tensor-core kernels (both wgmma); the f32 checks
     run the f32 SIMT kernels of the same sources, which only f32 callers
     reach. Each row's ``max_abs_err`` is the bf16 kernel's,
     ``f32_simt_max_abs_err`` the f32 one's."""
@@ -257,7 +283,7 @@ def phase_kernels() -> list[dict]:
         f32_errs.append(e)
     bf16_errs = []
     for x, calls in (
-        (xr, {"tiled 8x12": lambda t: fused_rdb5c_tiled(t, p, strip=8, wtile=12),
+        (xr, {"tiled 16x16": lambda t: fused_rdb5c_tiled(t, p, strip=16, wtile=16),
               "fused_rdb5c 16x16": lambda t: fused_rdb5c(t, p)}),
         (xm, {"fused_rdb5c 16x16": lambda t: fused_rdb5c(t, p)}),
     ):
@@ -277,14 +303,19 @@ def phase_kernels() -> list[dict]:
             bf16_errs.append(e)
     xb = xm.bfloat16()
     kw5 = rdb5c_kernel_weights(p, torch.bfloat16, xb.device)  # built once, as the forward does
-    for tile in (8, 12):  # the default bf16 tile is 16 x 16; smaller ones recompute more halo
-        ms = cuda_ms(lambda: rdb5c_launch(xb, kw5, tile, tile))
-        print(f"rdb5c bf16 (16,128,128,64) with {tile}x{tile} tiles: {ms:.3f} ms", flush=True)
+    try:
+        fused_rdb5c_tiled(xr.bfloat16(), p, strip=12, wtile=8)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "rdb5c bf16 refuses a tile other than 16x16 (ValueError)")
+    rdb5c_edge_checks(p)
     flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * B * LR * LR
     nbytes = 2 * xb.numel() * 2 + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items())
     b_ms, b_by = bound(flops, nbytes)
     rows.append({
-        "name": "rdb5c", "route": "cuda", "source": "esr_tpu_torch/ops/cuda/csrc/rdb5c.cuh",
+        "name": "rdb5c", "route": "cuda",
+        "source": "esr_tpu_torch/ops/cuda/csrc/rdb5c.cuh (rdb5c_tc_kernel; f32: rdb5c_kernel)",
         "replaces": "esr_tpu/ops/pallas/rdb_conv.py:163 (fused_rdb5c), :215 (fused_rdb5c_tiled)",
         "tpu_kernel": "K1 fused_rdb5c + K2 fused_rdb5c_tiled",
         "shape": "x (16,128,128,64) bf16, nf 64 gc 32",
@@ -533,6 +564,12 @@ def phase_timing(card: str, rows: list[dict]) -> None:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}", flush=True)
+    rdb = [e for e in kernels if "rdb5c" in e.key]
+    rdb_ms = sum(e.self_device_time_total for e in rdb) / 1e3 / 2
+    rdb_n = sum(e.count for e in rdb) // 2
+    print(f"rdb5c (rdb5c_tc_kernel, {rdb_n} launches): {rdb_ms:.3f} ms of device time per forward, "
+          f"{rdb_ms / max(rdb_n, 1):.4f} ms per launch, {100 * 2 * rdb_ms / busy_ms:.1f}% of device busy time",
+          flush=True)
     conv = [e for e in kernels if "conv_tc_kernel" in e.key]
     conv_ms = sum(e.self_device_time_total for e in conv) / 1e3 / 2
     lib_ms = sum(r["library_ms"] for r in rows if r["name"] != "rdb5c")

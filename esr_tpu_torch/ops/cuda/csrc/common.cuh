@@ -2,8 +2,8 @@
 //
 // Each kernel comes in two forms, both implicit-GEMM convolutions over a
 // feature window kept in shared memory, accumulating in f32:
-//  - bf16 (the main path): tensor cores, mma.sync m16n8k16 (second half of
-//    this file);
+//  - bf16 (the main path): tensor cores, wgmma (hopper.cuh), windows in the
+//    swizzled layout of the second half of this file;
 //  - f32 (exact comparisons): SIMT FMAs over a planar [channel][row][col]
 //    window, so that the 32 lanes of a warp, which own 32 neighbouring output
 //    pixels, read 32 neighbouring addresses. Weights are [tap][cin][cout]; all
@@ -107,85 +107,14 @@ __device__ __forceinline__ void load_window(T* dst, const T* __restrict__ img, i
 // neighbouring pixels, same chunk) fall into the 8 different 16-byte bank
 // groups. An output pixel's A row for tap (ty, tx) is simply the window pixel
 // shifted by ty * row + tx, so the implicit GEMM needs no im2col copy.
-// Weights are pre-arranged by the wrapper in mma B-fragment order,
-// [k/16][n/8][lane] x 8 bytes, so each lane's fragment is one coalesced load.
 // ---------------------------------------------------------------------------
 
-// A warp item is kMT 16-pixel m-tiles x kNT 8-channel n-tiles: 64 pixels x
-// 32 channels, 64 f32 accumulators a lane. Each B fragment (from L2) then
-// feeds 4 mma and each A fragment (from shared memory) 4. Of the item shapes
-// tried on an H100 (32 x 32, 64 x 16, 128 x 8, 128 x 16, 64 x 32), and of this
-// loop against one that prefetches the next step's B fragments, this was the
-// fastest.
-constexpr int kMT = 4;
-constexpr int kNT = 4;
-
 // Element offset of channel chunk q of pixel p, ch = 16-byte chunks per pixel
-// (2, 4 or a multiple of 8).
+// (2, 4 or a multiple of 8). For ch = 8 it is TMA's 128-byte swizzle of a
+// 1024-byte aligned buffer (hopper.cuh).
 __device__ __forceinline__ int swz(int p, int q, int ch) {
   const int s = ch >= 8 ? (p & 7) : ((p * ch) >> 3) & (ch - 1);
   return (p * ch + (q ^ s)) * 8;
-}
-
-// Copy the NHWC bf16 image window with top-left corner (gy0, gx0), size
-// wh x ww, into swizzled HWC shared memory with c_pad (a multiple of 16)
-// channels, zero outside the image and for channels c..c_pad-1.
-__device__ __forceinline__ void load_window_hwc(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* __restrict__ img, int n, int h,
-                                                int w, int c, int c_pad, int gy0, int gx0, int wh,
-                                                int ww) {
-  const int ch = c_pad / 8, total = wh * ww * ch;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int q = i % ch, p = i / ch;
-    const int gy = gy0 + p / ww, gx = gx0 + p % ww;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w && q * 8 < c) {
-      const __nv_bfloat16* src = img + (((size_t)n * h + gy) * w + gx) * c + q * 8;
-      if (c % 8 == 0) {
-        v = __ldg(reinterpret_cast<const uint4*>(src));
-      } else {  // ragged channel edge (conv_first's Cin = 4): element by element
-        const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
-        uint32_t u[4] = {0, 0, 0, 0};
-        for (int e = 0; e < 8 && q * 8 + e < c; ++e) u[e / 2] |= uint32_t(s16[e]) << (16 * (e % 2));
-        v = make_uint4(u[0], u[1], u[2], u[3]);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + swz(p, q, ch)) = v;
-  }
-}
-
-// acc[m][n] += sum over taps (ty < kh, tx < kw) and channels c < cin (a
-// multiple of 16) of A[m-tile m rows][tap, c] * B[tap, c][n-tile n], where
-// the A row of this lane's m-tile-m pixel at tap (0, 0) is window pixel
-// base[m]. wf points at this feature's first k-block and this item's first
-// n-tile of a B matrix with nb_total n-tiles and kb_tap k-blocks per tap; only
-// the first nt (<= kNT) n-tiles are live.
-__device__ __forceinline__ void mma_accumulate(float (&acc)[kMT][kNT][4],
-                                               const __nv_bfloat16* feat, int ch, int row,
-                                               const int (&base)[kMT], int cin, int kh, int kw,
-                                               const uint2* __restrict__ wf, int nb_total,
-                                               int kb_tap, int nt) {
-  const int lane = threadIdx.x & 31, half = lane >> 4;
-  for (int ty = 0; ty < kh; ++ty) {
-    for (int tx = 0; tx < kw; ++tx) {
-      const int toff = ty * row + tx;
-      const uint2* wt = wf + (size_t)(ty * kw + tx) * kb_tap * nb_total * 32 + lane;
-      for (int cb = 0; cb < cin / 16; ++cb) {
-        uint32_t af[kMT][4];
-#pragma unroll
-        for (int m = 0; m < kMT; ++m) ldmatrix_x4(af[m], feat + swz(base[m] + toff, cb * 2 + half, ch));
-        const uint2* wk = wt + (size_t)cb * nb_total * 32;
-#pragma unroll
-        for (int n = 0; n < kNT; ++n) {
-          if (n < nt) {
-            const uint2 b = __ldg(wk + n * 32);
-#pragma unroll
-            for (int m = 0; m < kMT; ++m) mma_bf16_16816(acc[m][n], af[m], b.x, b.y);
-          }
-        }
-      }
-    }
-  }
 }
 
 }  // namespace esr

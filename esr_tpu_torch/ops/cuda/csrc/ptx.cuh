@@ -1,6 +1,6 @@
-// Warp-level tensor-core instructions used by the bf16 kernels (sm_80+ PTX,
-// run here on sm_90a): ldmatrix to load A fragments from shared memory,
-// mma.sync m16n8k16 bf16 x bf16 -> f32, and an L2 prefetch.
+// Warp-level instructions used by the bf16 kernels (sm_80+ PTX, run here on
+// sm_90a): ldmatrix to load wgmma A fragments (the mma.sync m16n8k16 A
+// layout) from shared memory, and bf16 packing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,27 +8,15 @@
 
 namespace esr {
 
-// Four 8x8 b16 matrices; lane l gives the row address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
+// Four 8x8 b16 matrices; lane l gives the shared-memory address of row l % 8
+// of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t saddr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+               : "r"(saddr));
 }
-
-// d += a (16x16, row) * b (16x8, col), f32 accumulators.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Start fetching the 128-byte line at global address p into L2; does not wait.
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" : : "l"(p));
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
+  ldmatrix_x4(r, static_cast<uint32_t>(__cvta_generic_to_shared(smem_row)));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -1,27 +1,66 @@
-// C interface of the fused RDB kernel (rdb5c.cuh), loaded with ctypes.
+// C interface of the fused RDB kernels (rdb5c.cuh), loaded with ctypes.
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "rdb5c.cuh"
 
 namespace {
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, const void* x, void* out, const void* const* wt, const void* const* b,
-           int n, int h, int w, int nf, int gc, int strip, int wtile, cudaStream_t stream) {
-  esr::RdbArgs<T> a;
-  a.x = static_cast<const T*>(x);
-  a.out = static_cast<T*>(out);
+// Error codes of the bf16 launch besides cudaError_t values.
+constexpr int kErrNoEncoder = -1;      // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncodeBase = -1000;  // -1000 - CUresult of cuTensorMapEncodeTiled
+constexpr int kErrShape = -2;          // nf, gc or tile the bf16 kernel does not take
+
+int launch_f32(const void* x, void* out, const void* const* wt, const void* const* b, int n, int h,
+               int w, int nf, int gc, int strip, int wtile, cudaStream_t stream) {
+  esr::RdbArgs<float> a;
+  a.x = static_cast<const float*>(x);
+  a.out = static_cast<float*>(out);
   for (int k = 0; k < 5; ++k) {
-    a.wt[k] = static_cast<const T*>(wt[k]);
+    a.wt[k] = static_cast<const float*>(wt[k]);
     a.b[k] = static_cast<const float*>(b[k]);
   }
   a.n = n; a.h = h; a.w = w; a.nf = nf; a.gc = gc; a.strip = strip; a.wtile = wtile;
-  const size_t smem = esr::rdb5c_smem_bytes(nf, gc, strip, wtile, sizeof(T));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = esr::rdb5c_smem_bytes(nf, gc, strip, wtile, sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(esr::rdb5c_kernel<float>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((w + wtile - 1) / wtile, (h + strip - 1) / strip, n);
-  kernel<<<grid, esr::kThreads, smem, stream>>>(a);
+  esr::rdb5c_kernel<float><<<grid, esr::kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* x, void* out, const void* wimg, const void* const* b, int n, int h,
+                int w, int nf, int gc, int strip, int wtile, cudaStream_t stream) {
+  if (nf != 64 || gc != 32 || strip != esr::kRdbTile || wtile != esr::kRdbTile) return kErrShape;
+  esr::RdbTcArgs a;
+  a.wimg = static_cast<const unsigned char*>(wimg);
+  for (int k = 0; k < 5; ++k) a.b[k] = static_cast<const float*>(b[k]);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.n = n; a.h = h; a.w = w;
+  a.tiles_x = (w + esr::kRdbTile - 1) / esr::kRdbTile;
+  a.tiles_y = (h + esr::kRdbTile - 1) / esr::kRdbTile;
+  a.n_tiles = n * a.tiles_x * a.tiles_y;
+  if (a.n_tiles == 0) return 0;
+  CUtensorMap xmap;
+  memset(&xmap, 0, sizeof(xmap));
+  const int e = esr::encode_nhwc64_map(&xmap, x, n, h, w, esr::kRdbWin, esr::kRdbWin);
+  if (e != 0) return e == -1 ? kErrNoEncoder : kErrEncodeBase - e;
+  const size_t smem = esr::rdb_tc_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(esr::rdb5c_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, esr::rdb5c_tc_kernel,
+                                                      esr::kRdbThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  // persistent: at most one wave of blocks, each walking tiles t, t + grid, ..
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = a.n_tiles < resident ? a.n_tiles : resident;
+  esr::rdb5c_tc_kernel<<<grid, esr::kRdbThreads, smem, stream>>>(xmap, a);
   return (int)cudaGetLastError();
 }
 
@@ -29,9 +68,11 @@ int launch(Kernel kernel, const void* x, void* out, const void* const* wt, const
 
 extern "C" {
 
-// x, out: (n, h, w, nf) NHWC. bf16 (is_bf16 = 1): the tensor-core kernel, wt_k in
-// B-fragment order (nf, gc multiples of 32); f32: the SIMT kernel, wt_k [9][cin_k][cout_k]
-// (nf, gc multiples of 8). b_k: f32 [cout_k]. Returns the cudaError_t of the launch.
+// x, out: (n, h, w, nf) NHWC; b_k: f32 [cout_k]. bf16 (is_bf16 = 1): the
+// tensor-core kernel, nf 64, gc 32, 16 x 16 tiles; w1 is the weight image of
+// rdb5c_kernel_weights (w2..w5 unused). f32: the SIMT kernel, any strip x
+// wtile tile, w_k [9][cin_k][cout_k] (nf, gc multiples of 8). Returns 0, a
+// cudaError_t of the launch, or one of the negative codes above.
 int esr_rdb5c(int is_bf16, const void* x, void* out, const void* w1, const void* w2,
               const void* w3, const void* w4, const void* w5, const void* b1, const void* b2,
               const void* b3, const void* b4, const void* b5, int n, int h, int w, int nf,
@@ -39,16 +80,25 @@ int esr_rdb5c(int is_bf16, const void* x, void* out, const void* w1, const void*
   const void* wt[5] = {w1, w2, w3, w4, w5};
   const void* b[5] = {b1, b2, b3, b4, b5};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(esr::rdb5c_mma_kernel, x, out, wt, b, n, h, w, nf, gc,
-                                         strip, wtile, s)
-                 : launch<float>(esr::rdb5c_kernel<float>, x, out, wt, b, n, h, w, nf, gc, strip,
-                                 wtile, s);
+  return is_bf16 ? launch_bf16(x, out, w1, b, n, h, w, nf, gc, strip, wtile, s)
+                 : launch_f32(x, out, wt, b, n, h, w, nf, gc, strip, wtile, s);
 }
 
-size_t esr_rdb5c_smem_bytes(int nf, int gc, int strip, int wtile, int elem) {
-  return esr::rdb5c_smem_bytes(nf, gc, strip, wtile, (size_t)elem);
+// Dynamic shared memory of one block: the bf16 kernel's is fixed, the f32
+// kernel's depends on nf, gc and the tile.
+size_t esr_rdb5c_smem_bytes(int is_bf16, int nf, int gc, int strip, int wtile) {
+  return is_bf16 ? esr::rdb_tc_smem_bytes()
+                 : esr::rdb5c_smem_bytes(nf, gc, strip, wtile, sizeof(float));
 }
 
-const char* esr_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+// Bytes of the bf16 kernel's weight image.
+size_t esr_rdb5c_weight_image_bytes() { return esr::kRdbWBytes; }
+
+const char* esr_error_string(int err) {
+  if (err == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+  if (err == kErrShape) return "the bf16 kernel takes nf 64, gc 32 and 16 x 16 tiles";
+  if (err <= kErrEncodeBase) return "cuTensorMapEncodeTiled refused the input's tensor map";
+  return cudaGetErrorString((cudaError_t)err);
+}
 
 }  // extern "C"

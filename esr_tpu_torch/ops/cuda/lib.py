@@ -22,8 +22,7 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "LaunchCounter", "aligned16", "build_all", "check", "forward_only", "load",
-    "mma_channels_ok", "mma_fragments", "ptr", "stream",
+    "LaunchCounter", "aligned16", "build_all", "check", "forward_only", "load", "ptr", "stream",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -39,6 +38,7 @@ _SIGNATURES = {
     "rdb5c": {
         "esr_rdb5c": ([_I] + [_VP] * 12 + [_I] * 7 + [_VP], _I),
         "esr_rdb5c_smem_bytes": ([_I] * 5, _SZ),
+        "esr_rdb5c_weight_image_bytes": ([], _SZ),
     },
     "conv3x3": {
         "esr_conv": ([_I] + [_VP] * 4 + [_I] * 9 + [_VP], _I),
@@ -137,23 +137,6 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous with a 16-byte aligned start (the kernels' vector loads)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
-
-
-def mma_channels_ok(c: int) -> bool:
-    """Whether a bf16 feature of ``c`` channels fits the tensor-core kernels'
-    swizzled shared-memory layout: 16-byte chunks per pixel 2, 4 or a multiple of 8."""
-    return c % 16 == 0 and (c // 8 in (2, 4) or c % 64 == 0)
-
-
-def mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """B matrices [..., K, N] (K % 16 == 0, N % 8 == 0) -> mma.sync m16n8k16
-    B-fragment order [..., K/16, N/8, lane, 4]: lane = 4 * (n % 8) + (k % 8) // 2
-    holds B[k0 + 2 (lane % 4) + {0, 1}, n] and B[k0 + 8 + 2 (lane % 4) + {0, 1}, n],
-    so that each lane's fragment is one 8-byte load."""
-    *lead, k, n = w.shape
-    t = w.reshape(*lead, k // 16, 2, 4, 2, n // 8, 8)  # kb, k-half, k-quad, k-pair, nb, n
-    d = len(lead)
-    return t.permute(*range(d), *(d + i for i in (0, 4, 5, 2, 1, 3))).contiguous()
 
 
 def forward_only(what: str, *tensors: torch.Tensor | None) -> None:

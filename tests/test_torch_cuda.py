@@ -67,14 +67,44 @@ def test_cuda_conv3x3_matches_plain(cuda, cin, cout, act):
 
 @pytest.mark.cuda
 def test_cuda_rdb5c_bf16_within_band(cuda):
+    """The bf16 tensor-core kernel through both wrappers (16 x 16 tiles, the
+    only ones it takes; others raise) within twice the bf16 plain version's
+    error against the f32 plain version on the same bf16 inputs."""
     p = _rdb_params(64, 32, cuda)
     x = torch.randn(2, 21, 37, 64, device=cuda).bfloat16()
     ref = rdb_conv.rdb5c_reference(x.float(), p)
     plain_err = (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
     with torch.no_grad():
-        for strip, wtile in ((16, 16), (12, 8)):
-            err = (rdb_conv.fused_rdb5c_tiled(x, p, strip=strip, wtile=wtile).float() - ref).abs().max().item()
-            assert err <= 2 * plain_err, (strip, wtile, err, plain_err)
+        for got in (rdb_conv.fused_rdb5c_tiled(x, p, strip=16, wtile=16), rdb_conv.fused_rdb5c(x, p)):
+            err = (got.float() - ref).abs().max().item()
+            assert err <= 2 * plain_err, (err, plain_err)
+        with pytest.raises(ValueError, match="16x16"):
+            rdb_conv.fused_rdb5c_tiled(x, p, strip=12, wtile=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 16, 40), (1, 5, 7), (1, 33, 18), (3, 48, 32)],
+                         ids=["ragged", "b1", "smaller-than-a-tile", "h-w-not-tile-multiples", "whole-tiles"])
+def test_cuda_rdb5c_tc_prepared_within_band(cuda, shape):
+    """rdb5c_tc_kernel through rdb5c_launch with its weight image built once
+    (as the forward runs it) on ragged grids, batch 1 and images smaller than
+    a tile: within the bf16 band of the f32 plain version on the same bf16
+    inputs, one counted launch each, deterministic from call to call."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    p = _rdb_params(64, 32, cuda, seed=sum(shape))
+    x = torch.randn(*shape, 64, device=cuda, generator=g).bfloat16()
+    kw = rdb_conv.rdb5c_kernel_weights(p, torch.bfloat16, cuda)
+    before = rdb_conv.LAUNCHES.count
+    with torch.no_grad():
+        got = rdb_conv.rdb5c_launch(x, kw)
+        again = rdb_conv.rdb5c_launch(x, kw)
+    torch.cuda.synchronize()
+    assert rdb_conv.LAUNCHES.count == before + 2
+    ref = rdb_conv.rdb5c_reference(x.float(), p)
+    plain_err = (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= 2 * plain_err, (err, plain_err)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,7 @@ from esr_tpu.ops.fused import upsample2x_conv3x3 as jax_upsample2x_conv3x3
 from esr_tpu.ops.pallas.rdb_conv import fused_rdb5c_tiled as jax_fused_rdb5c_tiled
 from esr_tpu.ops.pallas.rdb_conv import rdb5c_params_from_flax
 from esr_tpu_torch.models.blocks import upsample_nearest
-from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv
+from esr_tpu_torch.ops.cuda import kpack_conv, rdb_conv
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3
 
 torch.set_num_threads(1)
@@ -118,17 +118,3 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(RuntimeError, match="no kernel"):
         rdb_conv.fused_rdb5c(x, {"w1": w})
 
-
-def test_mma_fragments_layout():
-    """The bf16 kernels read each lane's four B values of mma.sync m16n8k16 as
-    one 8-byte load: lane = 4 (n % 8) + (k % 8) // 2 holds B[k0 + 2 (lane % 4)
-    + {0, 1}, n] and B[k0 + 8 + 2 (lane % 4) + {0, 1}, n]."""
-    k_dim, n_dim = 32, 16
-    b = torch.arange(k_dim * n_dim, dtype=torch.float32).reshape(k_dim, n_dim)
-    frag = lib.mma_fragments(b).reshape(k_dim // 16, n_dim // 8, 32, 4)
-    for kb in range(k_dim // 16):
-        for nb in range(n_dim // 8):
-            for lane in range(32):
-                n, k0 = 8 * nb + lane // 4, 16 * kb + 2 * (lane % 4)
-                want = b[[k0, k0 + 1, k0 + 8, k0 + 9], n]
-                assert torch.equal(frag[kb, nb, lane], want), (kb, nb, lane)
