@@ -24,9 +24,25 @@ Phases (any failure exits non-zero and prints no result):
 5. time the flagship forward at B16 x LR 128: kernel path, kernel path with
    the weight layout rebuilt in every call, and bf16 plain path; profile
    two kernel-path forwards (device time by kernel, busy share, the RDB
-   kernel's time per forward, the conv kernel's beside the library calls').
+   kernel's time per forward, the conv kernel's beside the library calls');
+6. the eval CLI (``esr_tpu_torch.test.main``) at the flagship width on the
+   weights of ``define_G(seed=0)`` loaded back from a ``.pth``: a SYNTHETIC
+   set (4 images, HR 512) and a folder of PNGs written by the port's codec
+   (a DIV2K-sized HR 2040x1356, LR 510x339, and a ragged HR 406x301:
+   modcrop, then ``eval_pad_bucket`` 32), two Z draws; serially, with
+   ``eval_batch`` 4, and the DIV2K-sized image with ``self_ensemble``:
+   launches per forward, CEM residual of every draw, batched == serial, the
+   saved PNGs == the SR uint8, the DIV2K-sized image's PSNR against the f32
+   plain path beside the bf16 plain path's, ms per image per draw;
+7. serving: export buckets 1x64x64, 1x128x128, 1x96x96, start the HTTP
+   server in a thread, GET /healthz, POST /sr (zeros Z, seeded random Z
+   twice and another seed, a junk body, an image too large): each answer
+   equal to the live Servable's and to the forward on the padded LR cropped
+   back, launches and latency per request, export time.
 
-The last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Every phase counts the kernel launches of the path it drives (counters set
+to 0 just before, read just after). The last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,14 +52,24 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from esr_tpu_torch import test as eval_cli
 from esr_tpu_torch.cem import CEMConf, make_cem
-from esr_tpu_torch.models import define_G, make_eval_forward
+from esr_tpu_torch.data import create_dataset, png
+from esr_tpu_torch.data.lrhr_dataset import SyntheticDataset
+from esr_tpu_torch.data.util import read_img_uint8, save_img
+from esr_tpu_torch.export import export_servable
+from esr_tpu_torch.models import create_model, define_G, make_eval_forward
 from esr_tpu_torch.models.blocks import upsample_nearest
 from esr_tpu_torch.ops import tensor2img
 from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv
@@ -62,6 +88,10 @@ from esr_tpu_torch.ops.cuda.rdb_conv import (
     rdb5c_reference,
 )
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3, upsample2x_conv3x3_reference
+from esr_tpu_torch.options import parse
+from esr_tpu_torch.scripts.serve import make_server
+
+REPO = Path(__file__).resolve().parent
 
 # H100 SXM published dense peaks (NVIDIA H100 datasheet): bf16 tensor
 # cores and HBM3. Bounds are stated against these whatever the power limit.
@@ -580,14 +610,280 @@ def phase_timing(card: str, rows: list[dict]) -> None:
         print(f"  {e.self_device_time_total / 1e3 / 2:9.3f} ms/forward x{e.count // 2:<3d} {e.key[:90]}", flush=True)
 
 
+# -- phases 6 and 7: the inference entry points --------------------------------
+
+METRIC_TOL = {"psnr": 1e-3, "z_psnr_mean": 1e-3, "z_psnr_spread": 2e-3, "ssim": 1e-5, "z_ssim_mean": 1e-5}
+# batched vs serial: the same kernels per image, the CEM matmuls at another
+# batch size; PSNR within 1e-3 dB, SSIM 1e-5, Z diversity 1e-3 relative
+
+
+def counted(fn):
+    """Run ``fn`` with every launch counter set to 0 just before; returns
+    (its result, the launches by kernel, wall seconds to a synchronised end)."""
+    for c in COUNTERS:
+        c.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.name: c.count for c in COUNTERS}, time.perf_counter() - t0
+
+
+def check_launches(what: str, counts: dict, forwards: int, calls_per_forward: int = 1) -> None:
+    want = {k: v * forwards * calls_per_forward for k, v in EXPECTED_PER_FORWARD.items()}
+    check(counts == want and all(counts.values()), f"{what}: launches {counts} == {want} "
+          f"({forwards} forwards x {calls_per_forward} generator call(s) x {EXPECTED_PER_FORWARD})")
+
+
+def flagship_options(tmp: Path, pth: str, name: str, datasets: dict, **extra) -> dict:
+    """The port's copy of test_explorable.json (flagship RRDB, nz 1, CEM; bf16
+    kernels by default), pointed at ``tmp``, the seeded weights and
+    ``datasets``."""
+    opt = json.loads((REPO / "esr_tpu_torch" / "options" / "test" / "test_explorable.json").read_text())
+    opt.update(name=name, datasets=datasets, **extra)
+    opt["path"] = {"root": str(tmp), "pretrain_model_G": pth}
+    return opt
+
+
+def run_cli(tmp: Path, opt: dict, *flags: str):
+    path = tmp / f"{opt['name']}.json"
+    path.write_text(json.dumps(opt))
+    return counted(lambda: eval_cli.main(["-opt", str(path), *flags]))
+
+
+@torch.no_grad()
+def phase_eval(tmp: Path, pth: str) -> dict[str, dict]:
+    """The eval CLI at the flagship width; returns the launches by path."""
+    hr_dir, big_dir = tmp / "hr", tmp / "hr_div2k"
+    t0 = time.perf_counter()
+    to_u8 = lambda a: (a * 255.0).round().astype(np.uint8)  # noqa: E731
+    big = to_u8(SyntheticDataset({"phase": "test", "image_size": 2040})._make_image(5)[:, :1356])
+    save_img(big, str(hr_dir / "div2k.png"))
+    save_img(big, str(big_dir / "div2k.png"))
+    save_img(to_u8(SyntheticDataset({"phase": "test", "image_size": 406})._make_image(6)[:, :301]),
+             str(hr_dir / "ragged.png"))
+    print(f"eval: wrote HR PNGs 2040x1356 and 406x301 with the port's codec in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    datasets = {"test_1": {"name": "synthetic", "mode": "SYNTHETIC", "n_images": 4, "image_size": 512},
+                "test_2": {"name": "folder", "mode": "LRHR", "dataroot_HR": str(hr_dir)}}
+    common = {"num_random_Z": 2, "eval_pad_bucket": 32}
+    n_draws, n_images = 3, 6
+    launches = {}
+
+    opt_serial = flagship_options(tmp, pth, "eval_serial", datasets, **common)
+    serial, counts, secs_serial = run_cli(tmp, opt_serial, "--save_images")
+    check_launches("eval CLI, serial", counts, n_images * n_draws)
+    launches["eval_cli"] = counts
+    batched, counts, secs_batched = run_cli(tmp, flagship_options(tmp, pth, "eval_batched", datasets,
+                                                                   eval_batch=4, **common))
+    check_launches("eval CLI, eval_batch 4 (synthetic: 1 batch of 4; folder: 2 shapes of 1)", counts, 3 * n_draws)
+    launches["eval_cli_batched"] = counts
+    for name in serial:
+        s, b = serial[name], batched[name]
+        check(sorted(s) == sorted(b), f"eval [{name}]: the same metrics serial and batched")
+        for k, v in s.items():
+            if k == "cem_residual":
+                check(v <= CEM_TOL and b[k] <= CEM_TOL, f"eval [{name}]: CEM residual max over every draw "
+                      f"{v:.3g} serial, {b[k]:.3g} batched <= {CEM_TOL}")
+            else:
+                tol = METRIC_TOL.get(k, 1e-3 * abs(v))
+                check(abs(b.get(k, math.inf) - v) <= tol, f"eval [{name}] {k}: serial {v:.6f}, batched "
+                      f"{b.get(k, math.nan):.6f} (tol {tol:.3g})")
+    se, counts, secs_se = run_cli(tmp, flagship_options(
+        tmp, pth, "eval_self_ensemble", {"test_1": {"name": "div2k", "mode": "LRHR", "dataroot_HR": str(big_dir)}},
+        self_ensemble=True, num_random_Z=0))
+    check_launches("eval CLI, self_ensemble on the DIV2K-sized image", counts, 1, calls_per_forward=2)
+    check(se["div2k"]["cem_residual"] <= CEM_TOL, f"self-ensemble: CEM residual {se['div2k']['cem_residual']:.3g}")
+    launches["eval_cli_self_ensemble"] = counts
+    print(f"eval CLI wall per image per draw (decode, forward, scoring on the host, PNG writes): serial "
+          f"{secs_serial / (n_images * n_draws) * 1e3:.1f} ms, batched {secs_batched / (n_images * n_draws) * 1e3:.1f} ms"
+          f"; self-ensemble CLI run (1 DIV2K-sized image) {secs_se:.2f} s", flush=True)
+    for name in serial:
+        print(f"eval [{name}] serial: " + json.dumps(serial[name]), flush=True)
+
+    # the saved PNGs and the DIV2K-sized image against the plain paths, on the
+    # model the CLI builds
+    opt = parse(opt_serial, is_train=False)
+    model = create_model(opt)
+    folder = create_dataset(opt["datasets"]["test_2"])
+    out_dir = tmp / "results" / "eval_serial" / "folder"
+    for idx, name in enumerate(("div2k", "ragged")):
+        lr_p, orig = eval_cli._pad_to_bucket(folder[idx]["LR"], 32)
+        for zi in (0, 2):
+            model.feed_data({"LR": lr_p})
+            model.test(z=eval_cli._eval_z_draw(idx, zi - 1, lr_p.shape[:2], NZ) if zi else None)
+            want = eval_cli._sr_image(model.get_visuals_uint8()["SR"], orig, SCALE)
+            saved = read_img_uint8(str(out_dir / f"{name}{'_z%d' % zi if zi else ''}.png"))
+            check(saved.shape == want.shape and bool((saved == want).all()),
+                  f"eval: saved {name} draw {zi} PNG {saved.shape} decodes to the SR uint8 (LR {lr_p.shape[:2]})")
+    g, cem, fwd = model.g_module, model.cem, model._forward
+    lr = torch.from_numpy(folder[0]["LR"])[None].cuda()
+    z = torch.from_numpy(eval_cli._eval_z_draw(0, 0, lr.shape[1:3], NZ))[None].cuda()
+    out, counts, _ = counted(lambda: fwd(lr, z))
+    check_launches(f"DIV2K-sized forward, LR {tuple(lr.shape[1:3])} (odd width)", counts, 1)
+    res = max_err(cem.downsample(out), lr)
+    ref32 = cem.project(plain_forward(g, lr, z, torch.float32), lr)
+    plain16 = cem.project(plain_forward(g, lr, z, torch.bfloat16), lr)
+    pk, pp = psnr(out, ref32), psnr(plain16, ref32)
+    check(res <= CEM_TOL and pk >= pp - PSNR_MARGIN_DB, f"DIV2K-sized image: CEM residual {res:.3g}; PSNR vs f32 "
+          f"plain path: kernels {pk:.2f} dB, bf16 plain {pp:.2f} dB (margin {PSNR_MARGIN_DB} dB)")
+    del ref32, plain16
+
+    # device time of the forward (CEM included) per image per draw
+    rng = np.random.default_rng(1)
+
+    def timed(n, h, w, f=fwd, **kw):
+        x = torch.from_numpy(rng.random((n, h, w, 3), dtype=np.float32)).cuda()
+        zz = torch.zeros(n, h, w, NZ, device="cuda")
+        return cuda_ms(lambda: f(x, zz), **kw) / n
+
+    kw = {"reps": 2, "warmup": 1, "windows": 3}
+    t_syn, t_syn4 = timed(1, 128, 128, **kw), timed(4, 128, 128, **kw)
+    t_big, t_rag = timed(1, 512, 352, **kw), timed(1, 128, 96, **kw)
+    t_se = timed(1, 510, 339, f=make_eval_forward(g, cem, self_ensemble=True), reps=1, warmup=1, windows=3)
+    t_big_raw = timed(1, 510, 339, **kw)
+    print(f"eval forward device ms per image per draw (CEM included): serial LR 128x128 {t_syn:.2f}, "
+          f"batched 4 x 128x128 {t_syn4:.2f}; DIV2K-sized bucket 512x352 {t_big:.2f}, unpadded 510x339 "
+          f"{t_big_raw:.2f}; ragged bucket 128x96 {t_rag:.2f}; self-ensemble 510x339 {t_se:.2f} "
+          f"({t_se / t_big_raw:.2f}x the plain forward)", flush=True)
+    cem_new = make_cem(CEMConf(scale=SCALE))
+    t0 = time.perf_counter()
+    for n in (510, 339):
+        cem_new._axis_matrices(n)
+    torch.cuda.synchronize()
+    print(f"CEM axis matrices for a new LR shape 510x339 (host f64, once per shape): "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    return launches
+
+
+def post_sr(url: str, body: bytes, headers: dict | None = None) -> tuple[int, bytes]:
+    req = urllib.request.Request(f"{url}/sr", data=body, method="POST", headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+@torch.no_grad()
+def phase_serve(tmp: Path, pth: str) -> dict[str, int]:
+    """Export, serve over HTTP, answer requests; returns the launches of the
+    requests."""
+    opt = parse(flagship_options(tmp, pth, "serve", {}), is_train=False)
+    model = create_model(opt)
+    art = tmp / "artifact"
+    buckets = [(1, 64, 64), (1, 128, 128), (1, 96, 96)]
+    t0 = time.perf_counter()
+    manifest = export_servable(model, buckets, str(art))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server = make_server(str(art), "127.0.0.1", 0)  # loads, builds layouts, one forward per bucket
+    load_s = time.perf_counter() - t0
+    print(f"serve: export {export_s:.2f} s ({(art / 'G.pth').stat().st_size / 2**20:.1f} MiB G.pth), server "
+          f"load + one forward per bucket {load_s:.2f} s", flush=True)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    sv, live = server.servable, make_eval_forward(model.g_module, model.cem)
+    totals = {c.name: 0 for c in COUNTERS}
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            check(r.status == 200 and json.loads(r.read()) == manifest, "serve: GET /healthz returns the manifest")
+        rng = np.random.default_rng(2)
+        lr64 = (rng.random((64, 64, 3)) * 255).astype(np.uint8)
+        lr96 = (rng.random((96, 80, 3)) * 255).astype(np.uint8)
+        requests = [("LR 64x64, zeros Z", lr64, None), ("LR 96x80, random Z seed 1", lr96, 1),
+                    ("LR 96x80, random Z seed 1 again", lr96, 1), ("LR 96x80, random Z seed 2", lr96, 2)]
+        answers = []
+        for what, img, seed in requests:
+            headers = {} if seed is None else {"X-Z-Mode": "random", "X-Z-Seed": str(seed)}
+            request = png.encode(img)
+            (code, body), counts, secs = counted(lambda: post_sr(url, request, headers))
+            check(code == 200, f"serve {what}: HTTP {code}")
+            check_launches(f"serve {what}", counts, 1)
+            for k, v in counts.items():
+                totals[k] += v
+            sr = png.decode(body)
+            h, w = img.shape[:2]
+            lr = img.astype(np.float32) / 255.0
+            z = None if seed is None else np.random.default_rng(seed).uniform(-1, 1, (h, w, NZ)).astype(np.float32)
+            _, bh, bw = sv._bucket_for(1, h, w)
+            pad = ((0, bh - h), (0, bw - w), (0, 0))
+            lr_p = torch.from_numpy(np.pad(lr, pad, mode="edge"))[None].cuda()
+            z_p = torch.from_numpy(np.pad(z if z is not None else np.zeros((h, w, NZ), np.float32), pad,
+                                          mode="edge"))[None].cuda()
+            out = live(lr_p, z_p)
+            res = max_err(model.cem.downsample(out), lr_p)
+            want_live = tensor2img(out[:, : SCALE * h, : SCALE * w])
+            want_sv = tensor2img(sv.sr(lr, z)[:1])
+            check(sr.shape == (SCALE * h, SCALE * w, 3) and bool((sr == want_sv).all()) and bool((sr == want_live).all()),
+                  f"serve {what}: answer {sr.shape} == live Servable == forward on the padded LR "
+                  f"{(bh, bw)} cropped; CEM residual {res:.3g} <= {CEM_TOL}; {secs * 1e3:.1f} ms")
+            check(res <= CEM_TOL, f"serve {what}: CEM residual {res:.3g} <= {CEM_TOL}")
+            answers.append(body)
+        check(answers[1] == answers[2] and answers[1] != answers[3] and answers[0] != answers[1],
+              "serve: seed 1 twice gives the same bytes, seed 2 and zeros Z others")
+        # where a request's time goes (LR 96x80, seed 1): the Servable call
+        # (pad, upload, forward, download), the forward alone on the card,
+        # the PNG codec; and the device's busy share over one whole request
+        request, lr = png.encode(lr96), lr96.astype(np.float32) / 255.0
+        z = np.random.default_rng(1).uniform(-1, 1, (96, 80, NZ)).astype(np.float32)
+        lr_p = torch.from_numpy(np.pad(lr, ((0, 0), (0, 16), (0, 0)), mode="edge"))[None].cuda()
+        z_p = torch.from_numpy(np.pad(z, ((0, 0), (0, 16), (0, 0)), mode="edge"))[None].cuda()
+        host_ms = {"Servable.sr": lambda: sv.sr(lr, z), "PNG decode of the request": lambda: png.decode(request),
+                   "tensor2img + PNG encode of the answer": lambda: png.encode(tensor2img(sv.sr(lr, z)[:1]))}
+        parts = {}
+        for name, fn in host_ms.items():
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            parts[name] = statistics.median(times)
+        parts["tensor2img + PNG encode of the answer"] -= parts["Servable.sr"]
+        fwd_ms = cuda_ms(lambda: sv.forward(lr_p, z_p), reps=5, warmup=1, windows=3)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            post_sr(url, request, {"X-Z-Mode": "random", "X-Z-Seed": "1"})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print("serve request LR 96x80 (bucket 96x96), host ms (median of 5): " +
+              ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f"; forward on the card {fwd_ms:.2f} ms "
+              f"(CUDA events, CEM included); one request under the profiler: wall {wall_ms:.2f} ms, device "
+              f"busy {busy_ms:.2f} ms (idle {100 - 100 * busy_ms / wall_ms:.1f}%)", flush=True)
+        code, msg = post_sr(url, b"junk, not an image")
+        check(code == 400, f"serve junk body: HTTP {code} ({msg[:60]!r})")
+        code, msg = post_sr(url, png.encode((rng.random((200, 200, 3)) * 255).astype(np.uint8)))
+        check(code == 400 and b"no exported bucket" in msg, f"serve LR 200x200 (no bucket fits): HTTP {code}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "serve: server thread stopped")
+    return totals
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
     rows = phase_kernels()
-    totals = phase_requests()
-    for r in rows:
-        r["launches"] = totals[r["name"]]
+    by_path = {"forward": phase_requests()}
     phase_timing(env["card"], rows)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        pth = str(tmp / "G.pth")
+        opt = {"network_G": {"nf": NF, "nb": NB, "gc": GC, "num_latent_channels": NZ}, "scale": SCALE}
+        torch.save(define_G(opt, device="cuda", seed=0).state_dict(), pth)
+        by_path.update(phase_eval(tmp, pth))
+        by_path["serve"] = phase_serve(tmp, pth)
+    for r in rows:
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        check(all(r["launches_by_path"].values()), f"{r['name']} launched on every path: {r['launches_by_path']}")
     print(json.dumps({"kernels": rows, "card": env["card"]}), flush=True)
     print(env["card"], flush=True)
     if FAILURES:

@@ -1,3 +1,18 @@
 from esr_tpu_torch.models.architecture import RRDBNet
-from esr_tpu_torch.models.base_model import make_eval_forward
+from esr_tpu_torch.models.base_model import BaseModel, make_eval_forward
 from esr_tpu_torch.models.networks import define_G, state_dict_from_jax
+
+
+def create_model(opt: dict, device="cuda"):
+    """The model ``opt['model']`` names (port of esr_tpu/models/__init__.py),
+    eval side, on ``device``."""
+    model = (opt.get("model") or "sr").lower()
+    if model == "sr":
+        from esr_tpu_torch.models.sr_model import SRModel
+
+        return SRModel(opt, device=device)
+    if model in ("srragan", "srgan", "esrgan"):
+        from esr_tpu_torch.models.srragan_model import SRRaGANModel
+
+        return SRRaGANModel(opt, device=device)
+    raise NotImplementedError(f"model {model} not recognized")

@@ -5,7 +5,9 @@ Port of the matrix builders of ``esr_tpu/ops/resize.py``: MATLAB
 (kernel stretched by 1/scale) when downscaling, symmetric (mirror) boundary
 handling and per-output-pixel weight normalization — as one dense
 ``(out_len, in_len)`` matrix per axis. These matrices define the LR domain
-the CEM projection is consistent with.
+the CEM projection is consistent with. ``imresize`` (tensors, any device) and
+``imresize_np`` (host, f64) apply them: the eval datasets synthesise their LR
+with ``imresize_np``.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import collections
 import math
 
 import numpy as np
+import torch
 
-__all__ = ["cubic_kernel", "resize_matrix"]
+__all__ = ["cubic_kernel", "imresize", "imresize_np", "resize_matrix"]
 
 
 def cubic_kernel(x: np.ndarray) -> np.ndarray:
@@ -90,3 +93,56 @@ def resize_matrix(
     """Dense 1-D MATLAB-bicubic resampling matrix of shape (out_len, in_len):
     ``out = M @ in`` is one separable pass of MATLAB imresize."""
     return _resize_matrix_cached(int(in_len), int(out_len), bool(antialias)).astype(dtype)
+
+
+def _out_shape(h: int, w: int, scale, out_shape) -> tuple[int, int]:
+    if out_shape is not None:
+        return int(out_shape[0]), int(out_shape[1])
+    if scale is None:
+        raise ValueError("either scale or out_shape must be given")
+    # MATLAB: output size is ceil(in * scale)
+    return int(math.ceil(h * scale)), int(math.ceil(w * scale))
+
+
+def imresize(
+    img: torch.Tensor,
+    scale: float | None = None,
+    out_shape: tuple[int, int] | None = None,
+    antialias: bool = True,
+) -> torch.Tensor:
+    """MATLAB-bicubic resize of channel-last images on the tensor's device:
+    (H, W), (H, W, C) or (N, H, W, C). Two f32 matmuls (keep TF32 off, as the
+    JAX package keeps ``Precision.HIGHEST``: this op defines the LR domain)."""
+    squeeze_hw = img.ndim == 2
+    if squeeze_hw:
+        img = img[..., None]
+    h, w = img.shape[-3], img.shape[-2]
+    out_h, out_w = _out_shape(h, w, scale, out_shape)
+    mh = torch.from_numpy(resize_matrix(h, out_h, antialias)).to(img.device)
+    mw = torch.from_numpy(resize_matrix(w, out_w, antialias)).to(img.device)
+    x = torch.einsum("oh,...hwc->...owc", mh, img.float())
+    x = torch.einsum("ow,...hwc->...hoc", mw, x)
+    x = x.to(img.dtype) if img.is_floating_point() else x
+    return x[..., 0] if squeeze_hw else x
+
+
+def imresize_np(
+    img: np.ndarray,
+    scale: float | None = None,
+    out_shape: tuple[int, int] | None = None,
+    antialias: bool = True,
+) -> np.ndarray:
+    """Host (numpy, f64) twin of :func:`imresize` (and of the JAX package's
+    ``imresize_np``); returns float32."""
+    squeeze_hw = img.ndim == 2
+    if squeeze_hw:
+        img = img[..., None]
+    h, w = img.shape[-3], img.shape[-2]
+    out_h, out_w = _out_shape(h, w, scale, out_shape)
+    mh = resize_matrix(h, out_h, antialias, dtype=np.float64)
+    mw = resize_matrix(w, out_w, antialias, dtype=np.float64)
+    # optimize=True: the contractions go to BLAS (the plain einsum loop takes
+    # seconds on a 2K image)
+    x = np.einsum("oh,...hwc->...owc", mh, img.astype(np.float64), optimize=True)
+    x = np.einsum("ow,...hwc->...hoc", mw, x, optimize=True).astype(np.float32)
+    return x[..., 0] if squeeze_hw else x

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+eval and serving entry points through them, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor esr_tpu, so that they run where
@@ -11,6 +12,7 @@ cuDNN's (TF32 off). bf16: within twice the bf16 plain version's own error
 against the f32 plain version.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -198,3 +200,67 @@ def test_cuda_conv_tc_prepared_within_band(cuda, shape, cin, cout, act):
         tol = max(2 * plain_err, 2.0**-6 * ref.abs().max().item())
         err = (got.float() - ref).abs().max().item()
         assert err <= tol, (ksize, err, tol)
+
+
+_COUNTERS = (rdb_conv.LAUNCHES, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP)
+
+
+def _nb2_options(root, **extra):
+    """The flagship widths (nf 64, gc 32: the bf16 kernels' widths), nb 2, one
+    Z channel, CEM, bf16 kernels, seeded weights."""
+    opt = {"name": "cuda_eval", "model": "srragan", "scale": 4, "use_cem": True, "bf16": True,
+           "num_random_Z": 1, "watchdog": False, "path": {"root": str(root)},
+           "datasets": {"test_1": {"name": "syn", "mode": "SYNTHETIC", "n_images": 2, "image_size": 64}},
+           "network_G": {"nf": 64, "nb": 2, "gc": 32, "num_latent_channels": 1}}
+    opt.update(extra)
+    return opt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eval_batch", [0, 2])
+def test_cuda_eval_counts_launches_and_keeps_cem(cuda, tmp_path, eval_batch):
+    """evaluate_dataset on the card, serial and batched: 2 images x 2 Z draws
+    launch 6 rdb5c, 4 conv3x3 and 2 upsample kernels per forward, and every
+    draw is CEM-consistent to 1e-5."""
+    from esr_tpu_torch import test as eval_cli
+    from esr_tpu_torch.data import create_dataloader, create_dataset
+    from esr_tpu_torch.models import create_model
+    from esr_tpu_torch.options import parse
+
+    opt = parse(_nb2_options(tmp_path, eval_batch=eval_batch), is_train=False)
+    model = create_model(opt)
+    d = opt["datasets"]["test_1"]
+    for c in _COUNTERS:
+        c.reset()
+    res = eval_cli.evaluate_dataset(model, create_dataloader(create_dataset(d), d), opt)
+    torch.cuda.synchronize()
+    forwards = 4 if eval_batch == 0 else 2
+    assert [c.count for c in _COUNTERS] == [6 * forwards, 4 * forwards, 2 * forwards]
+    assert res["cem_residual"] <= 1e-5 and np.isfinite(res["psnr"]) and res["z_diversity"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_servable_round_trip(cuda, tmp_path):
+    """export_servable -> load_servable on the card: one forward per sr()
+    call, equal to the live forward on the edge-padded LR and Z, cropped
+    back, CEM-consistent to 1e-5 w.r.t. the padded LR."""
+    from esr_tpu_torch.export import export_servable, load_servable
+    from esr_tpu_torch.models import create_model, make_eval_forward
+    from esr_tpu_torch.options import parse
+
+    model = create_model(parse(_nb2_options(tmp_path), is_train=False))
+    export_servable(model, [(1, 32, 32)], str(tmp_path / "art"))
+    sv = load_servable(str(tmp_path / "art"))
+    rng = np.random.default_rng(0)
+    lr = rng.random((1, 24, 19, 3)).astype(np.float32)
+    z = rng.uniform(-1, 1, (1, 24, 19, 1)).astype(np.float32)
+    for c in _COUNTERS:
+        c.reset()
+    got = sv.sr(lr, z)
+    torch.cuda.synchronize()
+    assert [c.count for c in _COUNTERS] == [6, 4, 2]
+    pad = ((0, 0), (0, 8), (0, 13), (0, 0))
+    lr_p = torch.from_numpy(np.pad(lr, pad, mode="edge")).to(cuda)
+    out = make_eval_forward(model.g_module, model.cem)(lr_p, torch.from_numpy(np.pad(z, pad, mode="edge")).to(cuda))
+    np.testing.assert_array_equal(got, out[:, :96, :76].cpu().numpy())
+    assert (model.cem.downsample(out) - lr_p).abs().max().item() <= 1e-5
