@@ -38,7 +38,24 @@ Phases (any failure exits non-zero and prints no result):
    server in a thread, GET /healthz, POST /sr (zeros Z, seeded random Z
    twice and another seed, a junk body, an image too large): each answer
    equal to the live Servable's and to the forward on the padded LR cropped
-   back, launches and latency per request, export time.
+   back, launches and latency per request, export time;
+8. training: the train CLI (``esr_tpu_torch.train.main``) on the port's
+   copy of train_explorable_SR.json at full width (G nf 64 nb 23 gc 32 x4
+   with Z and CEM, D nf 64 with BatchNorm, VGG19 conv5_4 loss, B16 x HR
+   128, bf16): 6 steps on the SYNTHETIC train set with a checkpoint at 3
+   and validation on one PNG written by the port's codec; 3 steps then
+   ``--auto_resume`` to 6 equal to the straight run; the SR trainer
+   (train_RRDB_PSNR.json) for 2 steps; launches per G forward (the
+   backward launches none); each kernel's autograd Function at the shapes
+   the train step gives it, its output and its x, w, b gradients against
+   the plain version in phase 3's bands; on one fixed batch and Z, G's
+   gradients through the kernels against the bf16 and f32 plain paths (a
+   band shown to fail a step whose RDB kernel returns its input or whose
+   conv pads with edge pixels) and the CEM residual of the step's own fake;
+   ms per GAN step, steps/s, peak memory and the device's idle share (of
+   the unprofiled step) of the kernel path beside the bf16 plain autograd
+   path (in turns), where a step's time goes, and the host time of the
+   per-call weight layouts.
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after). The last line is
@@ -64,14 +81,19 @@ import torch
 import torch.nn.functional as F
 
 from esr_tpu_torch import test as eval_cli
+from esr_tpu_torch import train as train_cli
 from esr_tpu_torch.cem import CEMConf, make_cem
 from esr_tpu_torch.data import create_dataset, png
+from esr_tpu_torch.data.pipeline import make_train_pipeline
 from esr_tpu_torch.data.lrhr_dataset import SyntheticDataset
 from esr_tpu_torch.data.util import read_img_uint8, save_img
 from esr_tpu_torch.export import export_servable
 from esr_tpu_torch.models import create_model, define_G, make_eval_forward
+from esr_tpu_torch.models.base_model import step_keyed
 from esr_tpu_torch.models.blocks import upsample_nearest
+from esr_tpu_torch.models.srragan_model import make_gan_train_step
 from esr_tpu_torch.ops import tensor2img
+from esr_tpu_torch.ops.cuda import autograd as kernel_grads
 from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv
 from esr_tpu_torch.ops.cuda.kpack_conv import (
     conv3x3_reference,
@@ -219,12 +241,12 @@ def rdb5c_edge_checks(p: dict) -> None:
 
 def conv_edge_checks() -> None:
     """The bf16 conv kernel in both modes where TMA and the persistent tiling
-    can go wrong: ragged grids, batch 1, conv_first's Cin 4 (plain window
-    loads, no TMA), conv_last's Cout 3 (pixels as M, wgmma n8, 2-byte
+    can go wrong: ragged grids, batch 1, conv_first's Cin 4 and the SR
+    trainer's Cin 3 (plain window loads, no TMA), conv_last's Cout 3 (pixels as M, wgmma n8, 2-byte
     stores), both act values; each within the bf16 band and counted as one
     launch."""
     for shape in ((2, 37, 53), (1, 16, 40)):
-        for cin, cout in ((3 + NZ, NF), (NF, NF), (NF, 3)):
+        for cin, cout in ((3 + NZ, NF), (3, NF), (NF, NF), (NF, 3)):
             x = gen(shape + (cin,), 80 + cin + cout).bfloat16()
             w = gen((3, 3, cin, cout), 81, math.sqrt(2.0 / (9 * cin)))
             bias = gen((cout,), 82, 0.01)
@@ -866,6 +888,411 @@ def phase_serve(tmp: Path, pth: str) -> dict[str, int]:
     check(not thread.is_alive(), "serve: server thread stopped")
     return totals
 
+# -- phase 8: training -----------------------------------------------------------
+
+TRAIN_HR = 128  # the train crop of train_explorable_SR.json (LR 32x32)
+NOISE_GRADS = ("conv_last.bias",)  # zero in exact arithmetic: the CEM projection removes a constant shift
+GRAD_BAND_FLOOR = 2.0**-8  # a bf16 half-ulp: the least relative L2 band a gradient is held to
+
+
+def train_options(tmp: Path, name: str, json_name: str, val_dir: Path | None, niter: int, **train) -> dict:
+    """The port's copy of ``json_name`` (full width), on the SYNTHETIC train
+    set at B16 x HR 128 (32 images: epochs of 2 batches), one val PNG,
+    ``niter`` steps, a checkpoint every 3, watchdog off."""
+    opt = json.loads((REPO / "esr_tpu_torch" / "options" / "train" / json_name).read_text())
+    opt["name"] = name
+    opt["datasets"] = {"train": {"name": "synthetic", "mode": "SYNTHETIC", "n_images": 32, "image_size": 160,
+                                 "batch_size": B, "HR_size": TRAIN_HR, "use_flip": True, "use_rot": True}}
+    if val_dir is not None:
+        opt["datasets"]["val"] = {"name": "val", "mode": "LRHR", "dataroot_HR": str(val_dir)}
+    opt["path"] = {"root": str(tmp)}
+    opt["train"].update(niter=niter, val_freq=3, watchdog=False, **train)
+    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 3}
+    return opt
+
+
+def run_train(tmp: Path, opt: dict, *flags: str):
+    tmp.mkdir(parents=True, exist_ok=True)
+    path = tmp / f"{opt['name']}_{opt['train']['niter']}.json"
+    path.write_text(json.dumps(opt))
+    return counted(lambda: train_cli.main(["-opt", str(path), *flags]))
+
+
+def train_state(tmp: Path, name: str, it: int) -> dict:
+    return torch.load(tmp / "experiments" / name / "training_state" / f"{it}.state", map_location="cpu",
+                      weights_only=True)
+
+
+def train_csv(tmp: Path, name: str) -> list[dict]:
+    import csv
+
+    with open(tmp / "experiments" / name / "train_metrics.csv", newline="") as f:
+        return list(csv.DictReader(f))
+
+
+class GradCapture:
+    """Stands in for a trainer's Adam: keeps the gradients, changes nothing."""
+
+    def __init__(self, params):
+        self.params, self.count, self.grads = list(params), 0, None
+
+    def step(self, grads, lr) -> None:  # noqa: ARG002
+        self.grads = [g.float() for g in grads]
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+def grad_band(names: list[str], g_k: list, g_b: list, g_f: list) -> tuple[float, list, list]:
+    """G's gradients ``g_k`` against the f32 plain path's ``g_f``: the worst
+    ratio of a tensor's relative L2 to its band (twice the bf16 plain path's,
+    at least ``GRAD_BAND_FLOOR``), and the relative L2s of ``g_k`` and ``g_b``."""
+    worst, rows_k, rows_b = 0.0, [], []
+    for n, gk, gb, gf in zip(names, g_k, g_b, g_f):
+        if n in NOISE_GRADS:
+            continue
+        rk, rb = rel_l2(gk, gf), rel_l2(gb, gf)
+        rows_k.append(rk)
+        rows_b.append(rb)
+        worst = max(worst, rk / max(2 * rb, GRAD_BAND_FLOOR))
+    return worst, rows_k, rows_b
+
+
+class KeepProjected:
+    """The CEM with the last image it projected kept: the train step's fake."""
+
+    def __init__(self, cem):
+        self.cem, self.fake = cem, None
+
+    def __getattr__(self, name):
+        return getattr(self.cem, name)
+
+    def project(self, sr, lr):
+        self.fake = self.cem.project(sr, lr)
+        return self.fake
+
+
+_RDB_KEYS = tuple(f"{p}{k}" for k in range(1, 6) for p in ("w", "b"))
+
+
+def rdb_band(ref: torch.Tensor, plain_err: float) -> float:  # noqa: ARG001
+    """Phase 3's RDB band: twice the bf16 plain version's error."""
+    return 2.0 * plain_err
+
+
+def with_act(conv, act: bool):
+    """``conv(x, kernel, bias, act)`` as a function of (x, kernel, bias)."""
+    return lambda x, kernel, bias: conv(x, kernel, bias, act)
+
+
+def train_fn_checks() -> None:
+    """Each kernel's autograd Function (what the train step's G calls) at the
+    shapes a B16 x HR 128 step gives it, on bf16 inputs and f32 weights as
+    the step has them: its output against the f32 plain version in phase 3's
+    band (rdb5c: twice the bf16 plain version's error, at Kaiming-scale
+    weights where the band is shown to see a faulty kernel; convs: the same
+    or two bf16 ulps of the largest output), one launch counted per call,
+    and its x, w, b gradients for a seeded upstream gradient against the f32
+    plain version's in the conv band, x's in bf16 and the weights' in f32."""
+    s = TRAIN_HR // SCALE
+    p = rdb_params(200)
+
+    def rdb_fn(x, *wb):
+        return kernel_grads.rdb5c_fn(x, dict(zip(_RDB_KEYS, wb)))
+
+    def rdb_plain(x, *wb):
+        return rdb5c_reference(x, dict(zip(_RDB_KEYS, wb)))
+
+    sites = [("rdb5c", (B, s, s, NF), rdb_fn, rdb_plain, [p[k] for k in _RDB_KEYS], rdb_conv.LAUNCHES, rdb_band)]
+    for i, (site, size, cin, cout, act, up) in enumerate((
+            ("conv_first", s, 3 + NZ, NF, False, False), ("trunk_conv", s, NF, NF, False, False),
+            ("upconv1", s, NF, NF, True, True), ("upconv2", 2 * s, NF, NF, True, True),
+            ("HRconv", 4 * s, NF, NF, True, False), ("conv_last", 4 * s, NF, 3, False, False))):
+        w = gen((3, 3, cin, cout), 230 + i, math.sqrt(2.0 / (9 * cin)))
+        fn, plain = ((kernel_grads.upsample2x_conv3x3_fn, upsample2x_conv3x3_reference) if up
+                     else (kernel_grads.conv3x3_fn, conv3x3_reference))
+        sites.append((site, (B, size, size, cin), with_act(fn, act), with_act(plain, act),
+                      [w, gen((cout,), 240 + i, 0.01)], kpack_conv.LAUNCHES_UP if up else kpack_conv.LAUNCHES,
+                      conv_bf16_band))
+    for j, (site, shape, fn, plain, params, counter, band) in enumerate(sites):
+        xb = gen(shape, 250 + j).bfloat16()
+        before = counter.count
+        leaves = [xb.clone().requires_grad_(True)] + [q.clone().requires_grad_(True) for q in params]
+        y = fn(*leaves)
+        ran = counter.count == before + 1
+        gy = gen(tuple(y.shape), 270 + j).bfloat16()
+        grads = torch.autograd.grad(y, leaves, gy)
+
+        def plain_grads(dtype):
+            ls = [xb.to(dtype).detach().requires_grad_(True)] + [q.clone().requires_grad_(True) for q in params]
+            out = plain(*ls)
+            return out.detach(), torch.autograd.grad(out, ls, gy.to(out.dtype))
+
+        ref, g_ref = plain_grads(torch.float32)
+        out_b, g_b = plain_grads(torch.bfloat16)
+        tol = band(ref, max_err(out_b, ref))
+        e = max_err(y, ref) if y.shape == ref.shape else math.inf
+        if site == "rdb5c":
+            for fault, yf in rdb_faults(xb.float(), dict(zip(_RDB_KEYS, params))).items():
+                off = max_err(yf, ref)
+                check(4.0 * tol <= off, f"{site} Function band {tol:.3g} at {shape} sees a kernel that {fault} "
+                      f"(off by {off:.3g})")
+        worst_g, dtypes_ok = 0.0, grads[0].dtype == torch.bfloat16
+        for gk, gr, gb in zip(grads, g_ref, g_b):
+            worst_g = max(worst_g, max_err(gk, gr) / max(conv_bf16_band(gr, max_err(gb, gr)), 1e-30))
+        dtypes_ok = dtypes_ok and all(gk.dtype == torch.float32 for gk in grads[1:])
+        check(ran and e <= tol and worst_g <= 1.0 and dtypes_ok,
+              f"{site} autograd Function at the train shape {shape}: output max err {e:.3g} <= {tol:.3g}, "
+              f"one launch counted {ran}; x, w, b gradients worst {worst_g:.3f} of their band, dtypes "
+              f"{[str(gk.dtype)[6:] for gk in grads[:3]]}")
+
+
+def planted_faults() -> dict:
+    """Stand-ins for the kernels inside the autograd Functions, each
+    computing what a faulty kernel would: name -> (attribute of
+    ``kernel_grads``, replacement, whether the G-gradient band must fail
+    it). An RDB kernel that skips the image-edge zeroing moves G's gradients
+    and fake by less than bf16 rounding does at G's initial weights (its
+    residual branch is 0.2 x a 0.1-scaled block), so no step-level band can
+    see it; the Function check at the train shape does (``train_fn_checks``)."""
+    conv = kernel_grads._conv_kernel
+
+    def conv_edge(x, kernel, bias, act, ksize):
+        if ksize != 3:
+            return conv(x, kernel, bias, act, ksize)
+        xp = F.pad(x.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
+        return conv3x3_reference(xp.to(x.dtype), kernel, bias, act)[:, 1:-1, 1:-1].contiguous()
+
+    return {
+        "rdb5c kernel returns x": ("_rdb5c_kernel", lambda x, params: x.clone(), True),
+        "rdb5c kernel skips the image-edge zeroing": (
+            "_rdb5c_kernel",
+            lambda x, params: rdb5c_reference(F.pad(x, (0, 0, 5, 5, 5, 5)), params)[:, 5:-5, 5:-5].contiguous(),
+            False),
+        "conv3x3 kernel pads with the edge pixels, not zeros": ("_conv_kernel", conv_edge, True),
+    }
+
+
+def phase_train(tmp: Path) -> dict[str, dict]:
+    """The train CLI at full width, resume, the SR trainer, the gradient
+    band, and timing; returns the launches by path."""
+    val_dir = tmp / "train_val"
+    to_u8 = lambda a: (a * 255.0).round().astype(np.uint8)  # noqa: E731
+    save_img(to_u8(SyntheticDataset({"phase": "test", "image_size": 256})._make_image(9)), str(val_dir / "val.png"))
+    launches = {}
+    per_forward = EXPECTED_PER_FORWARD
+    # the resume check compares runs: deterministic cuDNN algorithms for them
+    torch.backends.cudnn.deterministic = True
+    name = "train_gan"
+    opt = train_options(tmp / "straight", name, "train_explorable_SR.json", val_dir, niter=6)
+    _, counts, secs = run_train(tmp / "straight", opt)
+    # 6 steps (one G forward each) + validation at 3 and 6 (one image each)
+    want = {k: v * 8 for k, v in per_forward.items()}
+    check(counts == want, f"train CLI, 6 GAN steps + 2 val forwards: launches {counts} == {want} (the backward "
+          f"launches none); {secs:.1f} s")
+    launches["train"] = counts
+    rows = train_csv(tmp / "straight", name)
+    check([int(r["step"]) for r in rows] == list(range(1, 7)) and all(
+        math.isfinite(float(v)) for r in rows for k, v in r.items() if k not in ("step", "epoch")),
+        f"train CLI: 6 rows of finite metrics in train_metrics.csv (last: l_g {float(rows[-1]['l_g']):.4f}, "
+          f"l_d {float(rows[-1]['l_d']):.4f}, psnr {float(rows[-1]['psnr']):.2f})")
+    models = sorted(p.name for p in (tmp / "straight" / "experiments" / name / "models").iterdir())
+    check(models == ["3_D.pth", "3_G.pth", "6_D.pth", "6_G.pth", "latest_D.pth", "latest_G.pth"],
+          f"train CLI checkpoints: {models}")
+
+    # 3 steps, then --auto_resume to 6: the straight run's trajectory
+    opt3 = train_options(tmp / "resumed", name, "train_explorable_SR.json", val_dir, niter=3)
+    _, c3, _ = run_train(tmp / "resumed", opt3)
+    _, c6, _ = run_train(tmp / "resumed", dict(opt3, train=dict(opt3["train"], niter=6)), "--auto_resume")
+    a, b = train_state(tmp / "straight", name, 6), train_state(tmp / "resumed", name, 6)
+    diff = max((a[n]["net"][k].float() - v.float()).abs().max().item()
+               for n in ("G", "D") for k, v in b[n]["net"].items())
+    rows_r = train_csv(tmp / "resumed", name)
+    ldiff = max(abs(float(r[k]) - float(s[k])) / max(abs(float(s[k])), 1e-12)
+                for r, s in zip(rows_r, rows) for k in s if k not in ("step", "epoch"))
+    check(b["iter"] == 6 and len(rows_r) == 6 and diff <= 1e-6 and ldiff <= 1e-5,
+          f"train CLI: 3 steps + --auto_resume + 3 == 6 straight steps: weights max diff {diff:.3g}, metrics max "
+          f"relative diff {ldiff:.3g}; launches {c3} + {c6}")
+    torch.backends.cudnn.deterministic = False
+
+    # the SR (PSNR) trainer, 2 steps
+    opt_sr = train_options(tmp / "sr", "train_sr", "train_RRDB_PSNR.json", None, niter=2)
+    _, counts, secs = run_train(tmp / "sr", opt_sr)
+    want = {k: v * 2 for k, v in per_forward.items()}
+    rows = train_csv(tmp / "sr", "train_sr")
+    check(counts == want and len(rows) == 2 and all(math.isfinite(float(r["l_pix"])) for r in rows),
+          f"SR trainer, 2 steps: launches {counts} == {want}; l_pix {[round(float(r['l_pix']), 5) for r in rows]}; "
+          f"{secs:.1f} s")
+    launches["train_sr"] = counts
+
+    # one fixed batch and Z: G's gradients through the kernels against the
+    # bf16 and f32 plain paths, on the same weights
+    model = create_model(parse(train_options(tmp / "grads", "grads", "train_explorable_SR.json", None, niter=1),
+                               is_train=True))
+    g, cem = model.g_module, model.cem
+    ds = SyntheticDataset({"phase": "train", "n_images": B, "image_size": 160, "HR_size": TRAIN_HR})
+    hr_u8 = torch.from_numpy(np.stack([ds[i]["HR"] for i in range(B)])).cuda()
+    batch = make_train_pipeline(num_latent_channels=NZ)(hr_u8, torch.Generator().manual_seed(0))
+    lr, z = batch["LR"], batch["Z"]
+
+    def grad_step(g_call):
+        """One train step on the fixed batch with Adam replaced by capture:
+        its metrics, G's gradients and its projected fake."""
+        cap, dcap = GradCapture(g.parameters()), GradCapture(model.d_module.parameters())
+        stats = {k: v.clone() for k, v in model.d_module.state_dict().items()}
+        kept = KeepProjected(cem)
+        step = make_gan_train_step(g_call, model.d_module, model.f_module, kept, lambda h, gen: batch,
+                                   model.opt["train"], cap, dcap, model.schedulers["G"],
+                                   step_keyed(model.schedulers["D"]))
+        metrics = step(None, torch.Generator(), 1)
+        model.d_module.load_state_dict(stats)
+        return metrics, cap.grads, kept.fake.detach()
+
+    train_fn_checks()
+    (m_k, g_k, fake_k), counts, _ = counted(lambda: grad_step(g))
+    check(counts == per_forward, f"one train step through the kernels: launches {counts} == {per_forward} "
+          "(the forward's; the recompute backward launches none)")
+    m_b, g_b, fake_b = grad_step(lambda x, zz: plain_forward(g, x, zz, torch.bfloat16))
+    m_f, g_f, fake_f = grad_step(lambda x, zz: plain_forward(g, x, zz, torch.float32))
+    check(all(math.isfinite(float(v)) for m in (m_k, m_b, m_f) for v in m.values()),
+          "train step losses finite on the kernel, bf16 plain and f32 plain paths: l_g "
+          f"{float(m_k['l_g']):.5f} / {float(m_b['l_g']):.5f} / {float(m_f['l_g']):.5f}")
+    names = [n for n, _ in g.named_parameters()]
+    worst, rows_k, rows_b = grad_band(names, g_k, g_b, g_f)
+    check(worst <= 1.0, f"G gradients through the kernels vs f32 plain: per-tensor relative L2 within twice the bf16 "
+          f"plain path's (floor {GRAD_BAND_FLOOR:.3g}) for all {len(rows_k)} tensors: kernel median "
+          f"{statistics.median(rows_k):.3g} max {max(rows_k):.3g}, bf16 plain median {statistics.median(rows_b):.3g} "
+          f"max {max(rows_b):.3g}; worst ratio to the band {worst:.3f} (conv_last.bias, a float-noise gradient, "
+          "not held); the step's fake: relative L2 to f32 plain "
+          f"{rel_l2(fake_k, fake_f):.3g} (bf16 plain {rel_l2(fake_b, fake_f):.3g})")
+    res = max_err(cem.downsample(fake_k), lr)
+    check(res <= CEM_TOL, f"train step's own fake (kernel path): CEM residual max|H(fake) - lr| {res:.3g} <= {CEM_TOL}")
+    # faults planted in the kernels' forward: what the step-level band sees
+    for fault, (attr, stand_in, held) in planted_faults().items():
+        orig = getattr(kernel_grads, attr)
+        setattr(kernel_grads, attr, stand_in)
+        try:
+            _, g_x, fake_x = grad_step(g)
+        finally:
+            setattr(kernel_grads, attr, orig)
+        w_x, rows_x, _ = grad_band(names, g_x, g_b, g_f)
+        what = (f"G-gradient band on a train step whose {fault}: worst ratio to the band {w_x:.3f} "
+                f"(relative L2 median {statistics.median(rows_x):.3g} max {max(rows_x):.3g}; the step's fake "
+                f"{rel_l2(fake_x, fake_f):.3g} from f32 plain)")
+        if held:
+            check(w_x > 1.0, f"{what} > 1: the band fails it")
+        else:
+            print(f"note  {what}; not held: below bf16 rounding at G's initial weights, the Function check sees it",
+                  flush=True)
+        del g_x
+    del g_b, g_f, g_k
+
+    # timing: the kernel path against the bf16 plain autograd path, in turns
+    g_opt, d_opt = model.g_opt, model.d_opt
+    steps = {
+        "kernels": make_gan_train_step(g, model.d_module, model.f_module, cem, lambda h, gen: batch,
+                                       model.opt["train"], g_opt, d_opt, model.schedulers["G"],
+                                       step_keyed(model.schedulers["D"])),
+        "bf16 plain": make_gan_train_step(lambda x, zz: plain_forward(g, x, zz, torch.bfloat16), model.d_module,
+                                          model.f_module, cem, lambda h, gen: batch, model.opt["train"], g_opt,
+                                          d_opt, model.schedulers["G"], step_keyed(model.schedulers["D"])),
+    }
+    ms, peak = {k: [] for k in steps}, {k: [] for k in steps}
+    n_steps = 5
+    for name_ in ("bf16 plain", "kernels", "kernels", "bf16 plain"):
+        step = steps[name_]
+        step(None, torch.Generator(), 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(None, torch.Generator(), 2 + i)
+        torch.cuda.synchronize()
+        ms[name_].append((time.perf_counter() - t0) * 1e3 / n_steps)
+        peak[name_].append(torch.cuda.max_memory_allocated() / 2**30)
+    ms_step = {k: statistics.mean(v) for k, v in ms.items()}
+    for name_ in steps:
+        m = ms_step[name_]
+        print(f"GAN train step B{B} x HR{TRAIN_HR} ({name_}): {m:.2f} ms/step "
+              f"({', '.join(f'{v:.2f}' for v in ms[name_])}), {1e3 / m:.2f} steps/s, peak memory "
+              f"{max(peak[name_]):.2f} GiB", flush=True)
+    print(f"kernel path / bf16 plain path: {ms_step['kernels'] / ms_step['bf16 plain']:.3f} of the time per step",
+          flush=True)
+
+    # where a step's time goes: the device's busy share and its top operations
+    from torch.profiler import ProfilerActivity, profile
+
+    for name_, step in steps.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(2):
+                step(None, torch.Generator(), 10 + i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        # idle against the unprofiled step of the turns above: the profiler's
+        # own per-operation cost stretches its wall, not the device's work
+        print(f"profile, 2 GAN steps ({name_}): device busy {busy_ms / 2:.2f} ms per step, idle "
+              f"{100 - 100 * busy_ms / 2 / ms_step[name_]:.1f}% of the unprofiled step ({ms_step[name_]:.2f} ms); "
+              f"wall under the profiler {wall_ms / 2:.2f} ms per step; {sum(e.count for e in kernels) // 2} device "
+              "ops per step", flush=True)
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+            t = e.self_device_time_total / 1e3
+            print(f"  {t / 2:9.3f} ms/step {100 * t / busy_ms:5.1f}%  x{e.count // 2:<5d} {e.key[:90]}", flush=True)
+        rdb = [e for e in kernels if "rdb5c" in e.key]
+        if rdb:
+            n = sum(e.count for e in rdb)
+            per = sum(e.self_device_time_total for e in rdb) / 1e3 / max(n, 1)
+            px = B * (TRAIN_HR // SCALE) ** 2
+            flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * px
+            b_ms, b_by = bound(flops, 2 * px * NF * 2)
+            print(f"rdb5c at the train shape x (16,32,32,64) bf16 (64 tiles per launch): {per:.4f} ms per launch, "
+                  f"bound {b_ms:.4f} ms ({b_by}), {n // 2} launches per step", flush=True)
+            launches["_rdb5c_train_ms"] = {"ms": per, "bound_ms": b_ms, "bound_by": b_by}
+
+    # the parts of a kernel-path step, CUDA events
+    params = list(g.parameters())
+    hr = batch["HR"]
+    parts = {
+        "G forward (kernels, layouts per call)": lambda: g(lr, z),
+        "G forward + backward (kernels, recompute)": lambda: torch.autograd.grad(g(lr, z).mean(), params),
+        "G forward + backward (bf16 plain)": lambda: torch.autograd.grad(
+            plain_forward(g, lr, z, torch.bfloat16).mean(), params),
+        "VGG19 on HR, and on SR forward + backward": lambda: _vgg_part(model.f_module, hr),
+        "D forward + backward, doubled batch": lambda: torch.autograd.grad(
+            model.d_module(torch.cat([hr, hr]), train=True).mean(), list(model.d_module.parameters())),
+    }
+    with torch.enable_grad():
+        for what, fn in parts.items():
+            print(f"train step part: {what}: {cuda_ms(fn, reps=3, warmup=1, windows=3):.2f} ms", flush=True)
+    grads = [torch.zeros_like(p) for p in g_opt.params]
+    dgrads = [torch.zeros_like(p) for p in d_opt.params]
+    adam_ms = cuda_ms(lambda: (g_opt.step(grads, 0.0), d_opt.step(dgrads, 0.0)), reps=3, warmup=1, windows=3)
+    print(f"train step part: Adam, G and D: {adam_ms:.2f} ms", flush=True)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.prepare_kernels()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        g.release_kernels()
+    print(f"weight layouts of one G forward (69 rdb5c + 6 conv), built on the host's clock: "
+          f"{statistics.median(times):.2f} ms (median of 5)", flush=True)
+    return launches
+
+
+def _vgg_part(f, hr: torch.Tensor):
+    """VGG19 as the G loss runs it: on HR without grad, on SR (a leaf here)
+    forward and backward."""
+    with torch.no_grad():
+        feat_hr = f(hr)
+    sr = hr.detach().clone().requires_grad_(True)
+    return torch.autograd.grad((f(sr.clamp(0, 1)) - feat_hr).abs().mean(), sr)
+
+
 
 def main() -> int:
     env = phase_environment()
@@ -880,10 +1307,15 @@ def main() -> int:
         torch.save(define_G(opt, device="cuda", seed=0).state_dict(), pth)
         by_path.update(phase_eval(tmp, pth))
         by_path["serve"] = phase_serve(tmp, pth)
+        train_paths = phase_train(tmp)
+    rdb_train = train_paths.pop("_rdb5c_train_ms", None)
+    by_path.update(train_paths)
     for r in rows:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         check(all(r["launches_by_path"].values()), f"{r['name']} launched on every path: {r['launches_by_path']}")
+        if r["name"] == "rdb5c" and rdb_train is not None:
+            r["train_shape"] = dict(rdb_train, shape="x (16,32,32,64) bf16, the train step's LR 32x32")
     print(json.dumps({"kernels": rows, "card": env["card"]}), flush=True)
     print(env["card"], flush=True)
     if FAILURES:

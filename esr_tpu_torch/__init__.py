@@ -7,15 +7,17 @@ caller passes ``device="cpu"``. Every Pallas kernel of the ported path has a
 hand-written CUDA counterpart under ``ops/cuda``:
 
   cem/      — consistency module, matmul mode  (esr_tpu/cem/)
-  models/   — RRDBNet generator, define_G, eval forward, the SR models' eval
-              surface (create_model), JAX weight bridge
+  models/   — RRDBNet generator, DiscriminatorVGG128, VGG19 features,
+              define_G/D/F, eval forward, losses, the SR and GAN trainers
+              (create_model), JAX weight bridges
   ops/      — resize, color, metrics, x8 self-ensemble, fused upsample,
-              CUDA kernels
-  data/     — eval datasets and loader, a PNG codec (stdlib zlib + numpy)
-  options/  — options parser and the test JSONs
-  utils/    — logger setup, watchdog
+              CUDA kernels and their autograd Functions
+  data/     — datasets (eval and train phases, PACKED), loader, the train
+              pipeline, a PNG codec (stdlib zlib + numpy)
+  options/  — options parser and the test and train JSONs
+  utils/    — logger setup, train logger, watchdog
   scripts/  — export_model, serve (HTTP)
-  test.py   — the eval CLI;  export.py — serving artifacts
+  train.py  — the train CLI;  test.py — the eval CLI;  export.py — serving
 """
 
 __version__ = "0.1.0"

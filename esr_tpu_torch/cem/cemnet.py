@@ -27,7 +27,7 @@ from esr_tpu_torch.device import resolve_device
 
 __all__ = ["CEMConf", "CEM", "make_cem"]
 
-_NOT_PORTED = "CEM inv_mode {!r} is not ported yet (ROADMAP.md Queue 1: CEM fft/filter modes)"
+_NOT_PORTED = "CEM inv_mode {!r} is not ported yet (ROADMAP.md Queue 1 item 3: CEM fft/filter modes)"
 
 
 @dataclasses.dataclass(frozen=True)

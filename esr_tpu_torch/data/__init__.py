@@ -1,7 +1,8 @@
-"""Dataset and loader factories (port of the eval parts of
-esr_tpu/data/__init__.py): ``create_dataset`` for the LRHR, LR and SYNTHETIC
-modes, ``collate_samples``, a ``DataLoader`` that decodes in one background
-thread, and ``create_dataloader``."""
+"""Dataset and loader factories (port of esr_tpu/data/__init__.py):
+``create_dataset`` for the LRHR, LR, SYNTHETIC and PACKED modes,
+``collate_samples``, a ``DataLoader`` that decodes in one background thread
+(shuffled by seed + epoch and resumable mid-epoch for training), and
+``create_dataloader``."""
 
 from __future__ import annotations
 
@@ -11,19 +12,21 @@ import threading
 import numpy as np
 
 from esr_tpu_torch.data.lrhr_dataset import LRDataset, LRHRDataset, SyntheticDataset
+from esr_tpu_torch.data.packed import PackedDataset
+from esr_tpu_torch.data.pipeline import draw_z, make_train_pipeline
 
 __all__ = [
     "DataLoader",
     "LRDataset",
     "LRHRDataset",
+    "PackedDataset",
     "SyntheticDataset",
     "collate_samples",
     "create_dataloader",
     "create_dataset",
+    "draw_z",
+    "make_train_pipeline",
 ]
-
-_NOT_PORTED = ("dataset mode {} is not ported yet (ROADMAP.md Queue 1 item 6: the PACKED format "
-               "comes with the training slice; LMDB has no backend in the JAX package either)")
 
 
 def create_dataset(dataset_opt: dict):
@@ -31,14 +34,16 @@ def create_dataset(dataset_opt: dict):
     if mode in ("LRHR", "LRHR_LMDB"):
         root = str(dataset_opt.get("dataroot_HR") or "")
         if mode == "LRHR_LMDB" or root.endswith(".lmdb"):
-            raise NotImplementedError(_NOT_PORTED.format("LMDB"))
+            raise NotImplementedError(
+                "LMDB has no backend (the JAX package has none either); use mode='PACKED' "
+                "(esr_tpu_torch.data.packed.write_packed) for the same fast random access")
         return LRHRDataset(dataset_opt)
     if mode == "LR":
         return LRDataset(dataset_opt)
     if mode == "SYNTHETIC":
         return SyntheticDataset(dataset_opt)
     if mode == "PACKED":
-        raise NotImplementedError(_NOT_PORTED.format(mode))
+        return PackedDataset(dataset_opt)
     raise NotImplementedError(f"dataset mode {mode} not recognized")
 
 
@@ -57,20 +62,50 @@ def collate_samples(samples, collate_keys=("LR", "HR")) -> dict:
 
 
 class DataLoader:
-    """Batches in dataset order (the last one may be short): one background
-    thread decodes and collates up to ``prefetch`` batches ahead of the
-    consumer."""
+    """Epoch batches, decoded and collated by one background thread up to
+    ``prefetch`` batches ahead of the consumer.
 
-    def __init__(self, dataset, batch_size: int = 1, prefetch: int = 2, collate_keys=("LR", "HR")):
+    ``shuffle`` orders each epoch by ``np.random.default_rng(seed + epoch)``;
+    ``drop_last`` drops a short last batch. Each ``__iter__`` is one epoch:
+    it tells the dataset its epoch (``set_epoch``, for the crop draws) and
+    starts where ``set_position`` put it."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, drop_last: bool = False,
+                 prefetch: int = 2, seed: int = 0, collate_keys=("LR", "HR")):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.prefetch = prefetch
+        self.seed = seed
         self.collate_keys = collate_keys
+        self._epoch = 0
+        self._skip = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        return idx
+
+    def set_position(self, epoch: int, batches_consumed: int = 0) -> None:
+        """Resume the data stream: the next ``__iter__`` is epoch ``epoch``'s
+        order, ``batches_consumed`` batches in. With the datasets' (seed,
+        epoch, index) crop draws a resumed run sees the batches the original
+        run would have."""
+        self._epoch = int(epoch)
+        self._skip = max(0, int(batches_consumed))
 
     def __iter__(self):
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(self._epoch)
+        idx = self._indices()
+        self._epoch += 1
+        first, self._skip = min(self._skip, len(self)), 0
         bs = self.batch_size
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()  # set when the consumer abandons the iterator
@@ -86,9 +121,9 @@ class DataLoader:
 
         def worker():
             try:
-                for b in range(len(self)):
-                    chunk = range(b * bs, min((b + 1) * bs, len(self.dataset)))
-                    batch = collate_samples([self.dataset[i] for i in chunk], self.collate_keys)
+                for b in range(first, len(self)):
+                    batch = collate_samples([self.dataset[int(i)] for i in idx[b * bs : (b + 1) * bs]],
+                                            self.collate_keys)
                     if not put(batch):
                         return
             except Exception as e:  # surface loader errors in the consumer's thread
@@ -113,7 +148,11 @@ class DataLoader:
 
 
 def create_dataloader(dataset, dataset_opt: dict):
+    """Train phase: ``batch_size`` (16), shuffled unless ``use_shuffle`` is
+    false, by ``seed``, last batch dropped. Otherwise: batches of one, in
+    order."""
     if (dataset_opt.get("phase") or "test") == "train":
-        raise NotImplementedError(
-            "the training loader is not ported yet (ROADMAP.md Queue 1 item 6)")
+        return DataLoader(dataset, batch_size=int(dataset_opt.get("batch_size") or 16),
+                          shuffle=bool(dataset_opt.get("use_shuffle", True)), drop_last=True,
+                          seed=int(dataset_opt.get("seed") or 0))
     return DataLoader(dataset, batch_size=1)

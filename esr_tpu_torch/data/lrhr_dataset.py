@@ -1,11 +1,19 @@
-"""Eval datasets (port of the test phase of esr_tpu/data/lrhr_dataset.py).
+"""Datasets (port of esr_tpu/data/lrhr_dataset.py).
 
-``LRHRDataset``: paired LR/HR images from folders; HR is cropped to a
-multiple of scale and, without an LR folder, LR is synthesised with
-MATLAB-bicubic ``imresize_np``. ``LRDataset``: LR only (no ground truth).
-``SyntheticDataset``: the JAX package's seeded procedural images, so eval
-runs without a dataset on disk. Samples are dicts of HWC float32 arrays and
-paths. The training phase (random crops, augmentation) is not ported yet.
+``LRHRDataset``: paired LR/HR images from folders. ``LRDataset``: LR only
+(no ground truth). ``SyntheticDataset``: the JAX package's seeded procedural
+images, so training and eval run without a dataset on disk. Samples are dicts
+of HWC arrays and paths.
+
+Eval phase (``test``/``val``): HR cropped to a multiple of scale and, without
+an LR folder, LR synthesised with MATLAB-bicubic ``imresize_np``.
+
+Train phase: a random aligned crop of ``HR_size`` (and of the LR folder's
+image at HR_size / scale). The crop is a pure function of (seed, epoch,
+index) (``set_epoch``), so a resumed run replays the crops of the original.
+With ``on_device_processing`` (the default) the sample is the uint8 crop and
+LR synthesis, augmentation and normalisation run on the device in the train
+step (``data/pipeline.py``); without it the host does all of them.
 """
 
 from __future__ import annotations
@@ -18,26 +26,44 @@ from esr_tpu_torch.ops.resize import imresize_np
 __all__ = ["LRHRDataset", "LRDataset", "SyntheticDataset"]
 
 
-def _eval_only(opt: dict, what: str) -> None:
-    if (opt.get("phase") or "train") == "train":
-        raise NotImplementedError(
-            f"{what}: the training phase is not ported yet (ROADMAP.md Queue 1 item 6, "
-            "the GAN training slice); the port's datasets serve eval (phase 'test'/'val')")
-
-
-class LRHRDataset:
-    """Paired LR/HR dataset over image folders (eval phase)."""
+class _EpochDraws:
+    """Crop draws that are a pure function of (seed, epoch, index)."""
 
     def __init__(self, opt: dict):
-        _eval_only(opt, "LRHRDataset")
+        self.seed = int(opt.get("seed") or 0)
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """The loader calls this each epoch: resuming at epoch E replays the
+        crops the original run drew there."""
+        self._epoch = int(epoch)
+
+    def _rng(self, index: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, self._epoch, index))
+
+
+class LRHRDataset(_EpochDraws):
+    """Paired LR/HR dataset over image folders."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt)
         self.opt = opt
+        self.phase = opt.get("phase", "train")
         self.scale = int(opt.get("scale") or 4)
+        self.hr_size = data_util.parse_size(opt.get("HR_size"))
         self.paths_hr = data_util.get_image_paths(opt.get("dataroot_HR"))
         self.paths_lr = (
             data_util.get_image_paths(opt.get("dataroot_LR")) if opt.get("dataroot_LR") else None
         )
         if self.paths_lr and len(self.paths_lr) != len(self.paths_hr):
             raise ValueError("LR and HR datasets have different sizes")
+        self.on_device_processing = bool(opt.get("on_device_processing", True))
+        # rot90 on a rectangular crop transposes per sample, so a batch
+        # augmented on the host would mix (H, W) and (W, H) shapes
+        if (self.phase == "train" and not self.on_device_processing and bool(opt.get("use_rot", True))
+                and self.hr_size[0] != self.hr_size[1]):
+            raise ValueError(f"use_rot requires square train crops, got HR_size {self.hr_size[0]}x"
+                             f"{self.hr_size[1]} — set use_rot: false for non-square crops")
 
     def __len__(self) -> int:
         return len(self.paths_hr)
@@ -45,9 +71,24 @@ class LRHRDataset:
     def __getitem__(self, index: int) -> dict:
         hr_path = self.paths_hr[index]
         lr_path = self.paths_lr[index] if self.paths_lr else hr_path
+        paths = {"HR_path": hr_path, "LR_path": lr_path}
+        if self.phase == "train":
+            rng = self._rng(index)
+            if self.on_device_processing:
+                hr = data_util.read_img_uint8(hr_path)
+                lr = data_util.read_img_uint8(lr_path) if self.paths_lr else None
+                hr, lr = data_util.random_crop_pair(hr, lr, self.hr_size, self.scale, rng)
+                return {"HR": hr, "LR": lr, **paths}
+            hr = data_util.read_img(hr_path)
+            lr = data_util.read_img(lr_path) if self.paths_lr else None
+            hr, lr = data_util.random_crop_pair(hr, lr, self.hr_size, self.scale, rng)
+            if lr is None:
+                lr = imresize_np(hr, scale=1.0 / self.scale)
+            hr, lr = data_util.augment([hr, lr], self.opt.get("use_flip", True), self.opt.get("use_rot", True), rng)
+            return {"HR": hr, "LR": lr, **paths}
         hr = data_util.modcrop(data_util.read_img(hr_path), self.scale)
         lr = data_util.read_img(lr_path) if self.paths_lr else imresize_np(hr, scale=1.0 / self.scale)
-        return {"HR": hr, "LR": lr, "HR_path": hr_path, "LR_path": lr_path}
+        return {"HR": hr, "LR": lr, **paths}
 
 
 class LRDataset:
@@ -65,23 +106,30 @@ class LRDataset:
         return {"LR": data_util.read_img(lr_path), "LR_path": lr_path}
 
 
-class SyntheticDataset:
+class SyntheticDataset(_EpochDraws):
     """Seeded procedural HR images (gradients + gaussian blobs + texture),
     the same images as the JAX package's for the same ``n_images`` and
-    ``image_size`` (eval phase: modcrop + bicubic LR)."""
+    ``image_size``. Train phase: a uint8 crop (the same 8-bit grid a PNG
+    training set has); eval phase: modcrop + bicubic LR."""
 
     def __init__(self, opt: dict):
-        _eval_only(opt, "SyntheticDataset")
+        super().__init__(opt)
         self.opt = opt
+        self.phase = opt.get("phase", "train")
         self.scale = int(opt.get("scale") or 4)
-        hr_size = data_util.parse_size(opt.get("HR_size"))
+        self.hr_size = data_util.parse_size(opt.get("HR_size"))
         self.n = int(opt.get("n_images") or 16)
-        self.image_size = int(opt.get("image_size") or max(*hr_size, 192))
+        self.image_size = int(opt.get("image_size") or max(*self.hr_size, 192))
+        self._img_cache: dict[int, np.ndarray] = {}
 
     def __len__(self) -> int:
         return self.n
 
     def _make_image(self, index: int) -> np.ndarray:
+        # a pure function of the index (the epoch varies only the crop), so
+        # it is made once per index and kept
+        if index in self._img_cache:
+            return self._img_cache[index]
         rng = np.random.default_rng(1000 + index)
         s = self.image_size
         yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
@@ -98,9 +146,16 @@ class SyntheticDataset:
             blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig**2))
             img += blob[..., None] * rng.uniform(-0.5, 0.5, 3)
         img += rng.normal(0, 0.02, img.shape)
-        return np.clip(img, 0, 1).astype(np.float32)
+        img = np.clip(img, 0, 1).astype(np.float32)
+        self._img_cache[index] = img
+        return img
 
     def __getitem__(self, index: int) -> dict:
-        hr = data_util.modcrop(self._make_image(index), self.scale)
+        hr = self._make_image(index)
         path = f"synthetic://{index}"
+        if self.phase == "train":
+            hr, _ = data_util.random_crop_pair(hr, None, self.hr_size, self.scale, self._rng(index))
+            hr = (hr * 255.0).round().astype(np.uint8)
+            return {"HR": hr, "LR": None, "HR_path": path, "LR_path": path}
+        hr = data_util.modcrop(hr, self.scale)
         return {"HR": hr, "LR": imresize_np(hr, scale=1.0 / self.scale), "HR_path": path, "LR_path": path}

@@ -1,7 +1,9 @@
-"""Host-side data utilities (port of the eval parts of esr_tpu/data/util.py).
+"""Host-side data utilities (port of esr_tpu/data/util.py).
 
 Recursive image path collection, decode to float [0,1] HWC RGB, ``modcrop``
-to a multiple of scale. The JAX package decodes with cv2 (BGR, converted to
+to a multiple of scale, and the training crops and flips (``random_crop_pair``,
+``augment``: numpy draws from the caller's ``Generator``, so the crops are
+the JAX package's, bit for bit). The JAX package decodes with cv2 (BGR, converted to
 RGB there); the port decodes PNG with its own codec (``data/png.py``), so it
 needs neither cv2 nor PIL, and any other format through PIL where PIL is
 installed. The images are the same: gray stays one channel, an alpha channel
@@ -20,11 +22,13 @@ from esr_tpu_torch.data import png
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".tif", ".tiff", ".webp")
 
 __all__ = [
+    "augment",
     "decode_image",
     "get_image_paths",
     "is_image_file",
     "modcrop",
     "parse_size",
+    "random_crop_pair",
     "read_img",
     "read_img_uint8",
     "save_img",
@@ -140,3 +144,44 @@ def parse_size(v, default: int = 128) -> tuple[int, int]:
             raise ValueError(f"HR_size must be an int or [H, W], got {v!r}")
         return (int(v[0]), int(v[1]))
     return (int(v), int(v))
+
+
+def augment(imgs, hflip: bool = True, rot: bool = True, rng=None):
+    """Joint random flip / rot90 of a list of HWC images (the host path)."""
+    rng = rng or np.random.default_rng()
+    do_h = hflip and rng.random() < 0.5
+    do_v = rot and rng.random() < 0.5
+    do_r = rot and rng.random() < 0.5
+
+    def one(img):
+        if do_h:
+            img = img[:, ::-1, :]
+        if do_v:
+            img = img[::-1, :, :]
+        if do_r:
+            img = img.transpose(1, 0, 2)
+        return np.ascontiguousarray(img)
+
+    return [one(i) for i in imgs]
+
+
+def random_crop_pair(hr: np.ndarray, lr: np.ndarray | None, hr_size, scale: int, rng):
+    """Aligned random crop: HR to ``hr_size`` (int -> square, or (H, W)), LR
+    to hr_size / scale; an image smaller than the crop is reflect-padded."""
+    size_h, size_w = parse_size(hr_size)
+    h, w = hr.shape[:2]
+    if h < size_h or w < size_w:
+        ph, pw = max(0, size_h - h), max(0, size_w - w)
+        hr = np.pad(hr, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+        if lr is not None:
+            lr = np.pad(lr, ((0, ph // scale), (0, pw // scale), (0, 0)), mode="reflect")
+        h, w = hr.shape[:2]
+    if lr is not None:
+        lr_h, lr_w = size_h // scale, size_w // scale
+        ly = int(rng.integers(0, h // scale - lr_h + 1))
+        lx = int(rng.integers(0, w // scale - lr_w + 1))
+        y, x = ly * scale, lx * scale
+        return hr[y : y + size_h, x : x + size_w], lr[ly : ly + lr_h, lx : lx + lr_w]
+    y = int(rng.integers(0, h - size_h + 1))
+    x = int(rng.integers(0, w - size_w + 1))
+    return hr[y : y + size_h, x : x + size_w], None

@@ -1,11 +1,18 @@
-from esr_tpu_torch.models.architecture import RRDBNet
+from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, VGG19FeatureExtractor
 from esr_tpu_torch.models.base_model import BaseModel, make_eval_forward
-from esr_tpu_torch.models.networks import define_G, state_dict_from_jax
+from esr_tpu_torch.models.networks import (
+    define_D,
+    define_F,
+    define_G,
+    discriminator_state_dict_from_jax,
+    state_dict_from_jax,
+    vgg_state_dict_from_jax,
+)
 
 
 def create_model(opt: dict, device="cuda"):
-    """The model ``opt['model']`` names (port of esr_tpu/models/__init__.py),
-    eval side, on ``device``."""
+    """The model ``opt['model']`` names (port of esr_tpu/models/__init__.py)
+    on ``device``: a trainer when ``opt['is_train']``, else the eval model."""
     model = (opt.get("model") or "sr").lower()
     if model == "sr":
         from esr_tpu_torch.models.sr_model import SRModel

@@ -1,13 +1,25 @@
-"""The RRDB generator (port of esr_tpu/models/architecture.py ``RRDBNet``).
+"""Network architectures (port of esr_tpu/models/architecture.py).
 
-conv_first -> nb RRDB blocks -> trunk conv (+residual) -> nearest-upsample +
-conv stages -> HR conv -> last conv. The explorable fork feeds
-``num_latent_channels`` extra Z-map channels, concatenated at the input.
+- ``RRDBNet``: conv_first -> nb RRDB blocks -> trunk conv (+residual) ->
+  nearest-upsample + conv stages -> HR conv -> last conv. The explorable fork
+  feeds ``num_latent_channels`` extra Z-map channels, concatenated at the
+  input.
+- ``DiscriminatorVGG128``: the VGG-style 10-conv strided stack (BatchNorm
+  after all but the first conv, LeakyReLU 0.2) and two linear heads -> one
+  logit.
+- ``VGG19FeatureExtractor``: VGG19 up to conv5_4 before its ReLU, ImageNet
+  input normalisation, frozen: the ESRGAN perceptual-loss space.
+
+Inputs are NHWC, as in the JAX package; parameters are f32 under the
+reference torch state_dict keys, and the convs compute in ``dtype``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from esr_tpu_torch.models.blocks import (
@@ -17,7 +29,10 @@ from esr_tpu_torch.models.blocks import (
     upsample_nearest,
 )
 
-__all__ = ["RRDBNet"]
+__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "RRDBNet", "VGG19FeatureExtractor"]
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def _up_factors(scale: int) -> tuple[int, ...]:
@@ -39,7 +54,7 @@ class RRDBNet(nn.Module):
         super().__init__()
         if latent_input == "all_layers" and num_latent_channels:
             raise NotImplementedError(
-                "latent_input='all_layers' is not ported yet (ROADMAP.md Queue 1)")
+                "latent_input='all_layers' is not ported yet (ROADMAP.md Queue 1 item 2)")
         if latent_input not in ("first_layer", "all_layers", "none"):
             raise ValueError(f"unknown latent_input {latent_input!r}")
         self.num_latent_channels = num_latent_channels
@@ -67,6 +82,13 @@ class RRDBNet(nn.Module):
         for m in convs + rdbs:
             m.prepare_kernel(self.dtype)
 
+    def release_kernels(self) -> None:
+        """Drop the weight layouts ``prepare_kernels`` built (a trainer does so
+        after an eval forward: the next step changes the weights)."""
+        for m in self.modules():
+            if hasattr(m, "prepare_kernel"):
+                m.kernel_weights = None
+
     def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
         """lr: (N, H, W, in_nc) in [0, 1]; z: (N, H, W, num_latent_channels) or None."""
         if self.num_latent_channels:
@@ -84,3 +106,138 @@ class RRDBNet(nn.Module):
             up = getattr(self, f"upconv{i + 1}")
             fea = up(fea) if isinstance(up, FusedUpsampleConvLRelu) else up(upsample_nearest(fea, r))
         return self.conv_last(self.HRconv(fea)).float()
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm of an NCHW tensor as flax's ``BatchNorm`` computes it: batch
+    statistics over (N, H, W) in f32 with the biased variance E[x^2] -
+    E[x]^2, and the running statistics updated with that biased variance
+    (``nn.BatchNorm2d`` would use the unbiased one). ``momentum`` 0.1 is
+    flax's 0.9. The state_dict keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            if update_stats:
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+                    self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+class DiscriminatorVGG128(nn.Module):
+    """NHWC (N, H, W, in_nc) -> (N, 1) f32 logits. The first linear layer
+    takes the last feature map flattened in NCHW order (the reference
+    state_dict's ``linear1``), sized by the train crop: H/32 x W/32 x 8 nf
+    (4 x 4 x 512 at HR 128). ``train``: BatchNorm on batch statistics;
+    ``update_stats``: then also update the running ones (the D update does,
+    G's adversarial loss does not)."""
+
+    def __init__(self, in_nc: int = 3, nf: int = 64, norm: str = "batch", hr_size=(128, 128),
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.dtype = dtype
+        self.names = [f"{b}_{i}" for b in range(5) for i in (0, 1)]
+        feats = [nf, nf, 2 * nf, 2 * nf, 4 * nf, 4 * nf, 8 * nf, 8 * nf, 8 * nf, 8 * nf]
+        cin = in_nc
+        for j, (name, cout) in enumerate(zip(self.names, feats)):
+            k = 3 if j % 2 == 0 else 4
+            use_norm = norm == "batch" and j > 0
+            conv = nn.Conv2d(cin, cout, k, stride=1 + j % 2, padding=(k - 1) // 2, bias=not use_norm)
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * math.sqrt(2.0 / (cin * k * k)))
+                if conv.bias is not None:
+                    conv.bias.zero_()
+            self.add_module(f"conv{name}", conv)
+            if use_norm:
+                self.add_module(f"bn{name}", FlaxBatchNorm2d(cout, eps=1e-5, momentum=0.1))
+            cin = cout
+        h, w = int(hr_size[0]) // 32, int(hr_size[1]) // 32
+        self.linear1 = nn.Linear(cin * h * w, 100)
+        self.linear2 = nn.Linear(100, 1)
+        with torch.no_grad():
+            for lin in (self.linear1, self.linear2):  # lecun normal, zero bias (flax Dense)
+                lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) / math.sqrt(lin.in_features))
+                lin.bias.zero_()
+
+    def forward(self, x: torch.Tensor, train: bool = True, update_stats: bool = False) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        for name in self.names:
+            conv = getattr(self, f"conv{name}")
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            x = F.conv2d(x, conv.weight.to(dt), bias, stride=conv.stride, padding=conv.padding)
+            bn = getattr(self, f"bn{name}", None)
+            if bn is not None:
+                x = bn(x, train, update_stats)
+            x = F.leaky_relu(x, 0.2)
+        x = x.reshape(x.shape[0], -1)
+        x = F.leaky_relu(F.linear(x, self.linear1.weight.to(dt), self.linear1.bias.to(dt)), 0.2)
+        return F.linear(x, self.linear2.weight.to(dt), self.linear2.bias.to(dt)).float()
+
+
+# VGG19 conv plan: (features, convs per stage); a 2x2 max pool after each stage
+_VGG19_CFG = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
+
+
+class VGG19FeatureExtractor(nn.Module):
+    """VGG19 features up to ``feature_layer`` (torchvision's ``features``
+    index; 34 = conv5_4 before its ReLU), frozen. ``features.{i}`` holds the
+    conv at torchvision index i, so a torchvision ``vgg19`` state_dict loads
+    into it (:meth:`load_torchvision`). NHWC (N, H, W, 3) RGB in [0, 1] ->
+    (N, h, w, 512) f32."""
+
+    def __init__(self, feature_layer: int = 34, use_input_norm: bool = True,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.feature_layer = feature_layer
+        self.use_input_norm = use_input_norm
+        self.dtype = dtype
+        self.register_buffer("mean", torch.tensor(IMAGENET_MEAN), persistent=False)
+        self.register_buffer("std", torch.tensor(IMAGENET_STD), persistent=False)
+        layers, idx, cin = [], 0, 3
+        for feats, n in _VGG19_CFG:
+            for _ in range(n):
+                if idx > feature_layer:
+                    break
+                conv = nn.Conv2d(cin, feats, 3, padding=1)
+                with torch.no_grad():
+                    conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * math.sqrt(1.0 / (cin * 9)))
+                    conv.bias.zero_()
+                layers += [conv, nn.ReLU()]
+                idx, cin = idx + 2, feats
+            if idx <= feature_layer:
+                layers.append(nn.MaxPool2d(2))
+                idx += 1
+        self.features = nn.Sequential(*layers[: feature_layer + 1])
+        self.requires_grad_(False)
+        self.eval()
+
+    def load_torchvision(self, state: dict) -> None:
+        """Load the ``features.{i}`` entries of a torchvision ``vgg19``
+        state_dict that this truncation holds (strictly: each must be there)."""
+        own = self.state_dict()
+        missing = [k for k in own if k not in state]
+        if missing:
+            raise KeyError(f"VGG19 state_dict lacks {missing[:4]}...")
+        self.load_state_dict({k: state[k] for k in own}, strict=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_input_norm:
+            x = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        for m in self.features:
+            if isinstance(m, nn.Conv2d):
+                x = F.conv2d(x, m.weight.to(dt), m.bias.to(dt), padding=1)
+            else:
+                x = m(x)
+        return x.permute(0, 2, 3, 1).float()

@@ -9,8 +9,10 @@ launches the ``rdb5c`` kernel on CUDA and runs ``F.conv2d``s on the CPU.
 
 ``prepare_kernel(dtype)`` builds a module's weights in its CUDA kernel's
 layout once (``RRDBNet.prepare_kernels``), for forwards under
-``torch.no_grad()``; otherwise the wrappers build it per call (and refuse
-weights that autograd tracks: the kernels are forward-only).
+``torch.no_grad()``; otherwise the wrappers build it per call. With grad on,
+a CUDA input goes through the kernel's ``torch.autograd.Function``
+(``ops/cuda/autograd.py``: the kernel forward, a plain-PyTorch recompute
+backward), which builds the layout from the live weights at every call.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from esr_tpu_torch.ops.cuda.autograd import conv3x3_fn, rdb5c_fn, upsample2x_conv3x3_fn
 from esr_tpu_torch.ops.cuda.kpack_conv import conv_kernel_weights, conv_launch, kpack_conv3x3
 from esr_tpu_torch.ops.cuda.rdb_conv import (
     fused_rdb5c,
@@ -77,8 +80,11 @@ class ConvLRelu(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.kernel_weights is not None and not torch.is_grad_enabled():
-            return conv_launch(x, self.kernel_weights, self.act)
+        if not torch.is_grad_enabled():
+            if self.kernel_weights is not None:
+                return conv_launch(x, self.kernel_weights, self.act)
+        elif x.is_cuda:
+            return conv3x3_fn(x, self.hwio(), self.bias, self.act)
         return kpack_conv3x3(x, self.hwio(), self.bias, self.act)
 
 
@@ -89,8 +95,11 @@ class FusedUpsampleConvLRelu(ConvLRelu):
     ksize = 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.kernel_weights is not None and not torch.is_grad_enabled():
-            return conv_launch(x, self.kernel_weights, act=True)
+        if not torch.is_grad_enabled():
+            if self.kernel_weights is not None:
+                return conv_launch(x, self.kernel_weights, act=True)
+        elif x.is_cuda:
+            return upsample2x_conv3x3_fn(x, self.hwio(), self.bias, act=True)
         return upsample2x_conv3x3(x, self.hwio(), self.bias, act=True)
 
 
@@ -115,8 +124,11 @@ class ResidualDenseBlock5C(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.kernel_weights is not None and not torch.is_grad_enabled():
-            return rdb5c_launch(x, self.kernel_weights)
+        if not torch.is_grad_enabled():
+            if self.kernel_weights is not None:
+                return rdb5c_launch(x, self.kernel_weights)
+        elif x.is_cuda:
+            return rdb5c_fn(x, rdb5c_params_from_module(self))
         return fused_rdb5c(x, rdb5c_params_from_module(self))
 
 

@@ -1,17 +1,31 @@
-"""Generator factory and the JAX -> port weight bridge (port of the RRDB parts
-of esr_tpu/models/networks.py)."""
+"""Network factories and the JAX -> port weight bridges (port of
+esr_tpu/models/networks.py): ``define_G`` / ``define_D`` / ``define_F`` build
+the generator, the discriminator and the frozen VGG19 feature extractor from
+the reference options dict; ``state_dict_from_jax``,
+``discriminator_state_dict_from_jax`` and ``vgg_state_dict_from_jax`` turn the
+JAX package's param trees into the port's state_dicts (the reference torch
+keys)."""
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
 import torch
 
 from esr_tpu_torch.device import resolve_device
-from esr_tpu_torch.models.architecture import RRDBNet
+from esr_tpu_torch.data.util import parse_size
+from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, VGG19FeatureExtractor
 
-__all__ = ["define_G", "state_dict_from_jax"]
+__all__ = [
+    "define_D",
+    "define_F",
+    "define_G",
+    "discriminator_state_dict_from_jax",
+    "state_dict_from_jax",
+    "vgg_state_dict_from_jax",
+]
 
 
 def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> RRDBNet:
@@ -24,7 +38,7 @@ def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> R
     o = opt["network_G"]
     which = (o.get("which_model_G") or "RRDB_net").lower()
     if which in ("sr_resnet", "srresnet", "msrresnet"):
-        raise NotImplementedError("SRResNet is not ported yet (ROADMAP.md Queue 1)")
+        raise NotImplementedError("SRResNet is not ported yet (ROADMAP.md Queue 1 item 2)")
     if which not in ("rrdb_net", "rrdbnet", "rrdb"):
         raise NotImplementedError(f"generator {which} not supported")
     latent = o.get("latent_input") or opt.get("latent_input")
@@ -37,10 +51,40 @@ def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> R
         scale=int(opt.get("scale") or 4),
         num_latent_channels=int(o.get("num_latent_channels") or 0),
         latent_input=latent or "first_layer",
-        dtype=torch.bfloat16 if opt.get("bf16", True) else torch.float32,
+        dtype=_dtype(opt),
         seed=seed,
     )
     return g.to(dev).eval()
+
+
+def _dtype(opt: dict) -> torch.dtype:
+    return torch.bfloat16 if opt.get("bf16", True) else torch.float32
+
+
+def define_D(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> DiscriminatorVGG128:
+    """``DiscriminatorVGG128`` from the ``network_D`` block (``which_model_D``,
+    ``in_nc``, ``nf``, ``norm_type``) on ``device``; its first linear layer is
+    sized by ``datasets.train.HR_size``; bf16 convs unless ``bf16`` is false."""
+    o = opt.get("network_D") or {}
+    which = (o.get("which_model_D") or "discriminator_vgg_128").lower()
+    if "vgg" not in which:
+        raise NotImplementedError(f"discriminator {which} not supported")
+    hr_size = parse_size(((opt.get("datasets") or {}).get("train") or {}).get("HR_size"))
+    d = DiscriminatorVGG128(
+        in_nc=int(o.get("in_nc") or 3), nf=int(o.get("nf") or 64),
+        norm="batch" if (o.get("norm_type") or "batch") == "batch" else "none",
+        hr_size=hr_size, dtype=_dtype(opt), seed=seed,
+    )
+    return d.to(resolve_device(device))
+
+
+def define_F(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> VGG19FeatureExtractor:
+    """The frozen VGG19 feature extractor up to ``train.feature_layer`` (34,
+    conv5_4 before its ReLU); bf16 convs unless ``bf16`` is false. Its
+    weights are seeded: ImageNet weights come from a torchvision ``.pth``
+    (``path.pretrain_model_F``, loaded by the trainer)."""
+    layer = int((opt.get("train") or {}).get("feature_layer") or 34)
+    return VGG19FeatureExtractor(feature_layer=layer, dtype=_dtype(opt), seed=seed).to(resolve_device(device))
 
 
 def _conv_entries(name: str, conv: dict) -> dict:
@@ -69,7 +113,7 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         "rrdb_scan", {}
     ):
         raise NotImplementedError(
-            "latent_input='all_layers' weights are not ported yet (ROADMAP.md Queue 1)")
+            "latent_input='all_layers' weights are not ported yet (ROADMAP.md Queue 1 item 2)")
     if "rrdb_scan" in params:
         stacked = params["rrdb_scan"]["block"]
         nb = int(np.asarray(stacked["rdb1"]["conv1"]["Conv_0"]["kernel"]).shape[0])
@@ -88,4 +132,63 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     while f"upconv{i}" in params:
         out.update(_conv_entries(f"upconv{i}", params[f"upconv{i}"]))
         i += 1
+    return out
+
+
+def _t(a, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype, copy=True, order="C"))
+
+
+def discriminator_state_dict_from_jax(variables: dict, hr_size=None) -> dict[str, torch.Tensor]:
+    """The JAX package's ``DiscriminatorVGG128`` variables (``{'params'[,
+    'batch_stats']}``) -> this port's ``state_dict``: ``conv{b}_{i}`` OIHW,
+    ``bn{b}_{i}`` with the running statistics, ``linear1`` with its input
+    permuted from the JAX NHWC flatten to the NCHW one, and ``linear2``.
+    ``hr_size`` (the train crop, int or [H, W]) sets the last feature map's
+    H/32 x W/32; a square crop is assumed without it. Loads with
+    ``load_state_dict(strict=True)``."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats") or {}
+    out: dict = {}
+    for name in (f"{b}_{i}" for b in range(5) for i in (0, 1)):
+        conv = params[f"conv{name}"]
+        out[f"conv{name}.weight"] = _t(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+        if "bias" in conv:
+            out[f"conv{name}.bias"] = _t(conv["bias"])
+        if f"bn{name}" in params:
+            bn, st = params[f"bn{name}"], stats.get(f"bn{name}", {})
+            out[f"bn{name}.weight"] = _t(bn["scale"])
+            out[f"bn{name}.bias"] = _t(bn["bias"])
+            out[f"bn{name}.running_mean"] = _t(st.get("mean", np.zeros_like(bn["bias"])))
+            out[f"bn{name}.running_var"] = _t(st.get("var", np.ones_like(bn["bias"])))
+            out[f"bn{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    c = np.asarray(params["conv4_1"]["kernel"]).shape[-1]
+    w1 = np.asarray(params["linear1"]["kernel"], np.float32).T  # (100, h*w*c), NHWC flatten
+    if hr_size is None:
+        h = w = math.isqrt(w1.shape[1] // c)
+    else:
+        h, w = (v // 32 for v in parse_size(hr_size))
+    w1 = w1.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(w1.shape[0], -1)
+    out["linear1.weight"] = _t(w1)
+    out["linear1.bias"] = _t(params["linear1"]["bias"])
+    out["linear2.weight"] = _t(np.asarray(params["linear2"]["kernel"]).T)
+    out["linear2.bias"] = _t(params["linear2"]["bias"])
+    return out
+
+
+_VGG_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
+_VGG_CONV_NAMES = tuple(f"conv{s + 1}_{i + 1}" for s, n in enumerate((2, 2, 4, 4, 4)) for i in range(n))
+
+
+def vgg_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's ``VGG19FeatureExtractor`` params (``conv{s}_{l}``) ->
+    torchvision-keyed ``features.{i}.weight/bias`` (OIHW): the inverse of
+    ``load_vgg19_from_torch``, loadable by ``VGG19FeatureExtractor.load_torchvision``."""
+    params = params.get("params", params)
+    out: dict = {}
+    for idx, name in zip(_VGG_CONV_INDICES, _VGG_CONV_NAMES):
+        if name not in params:
+            break
+        out[f"features.{idx}.weight"] = _t(np.transpose(np.asarray(params[name]["kernel"]), (3, 2, 0, 1)))
+        out[f"features.{idx}.bias"] = _t(params[name]["bias"])
     return out

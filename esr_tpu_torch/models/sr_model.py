@@ -1,12 +1,19 @@
-"""SRModel, eval side (port of esr_tpu/models/sr_model.py: ``__init__``
-with ``is_train`` false, ``feed_data``, ``test``).
+"""SRModel: the PSNR-oriented trainer and the eval model (port of
+esr_tpu/models/sr_model.py).
 
 The generator comes from ``define_G`` on ``device``; its weights from
 ``path.pretrain_model_G`` (a torch ``.pth``, see ``BaseModel.load_network``)
 when set, else ``define_G``'s seeded ones (seed ``train.manual_seed``, 0 by
-default). ``use_cem`` wraps the forward in the CEM projection under the
+default). ``use_cem`` wraps the eval forward in the CEM projection under the
 optional top-level ``kernel`` (separable kernels only: the port's CEM has
 the matmul mode).
+
+Training (``is_train``): a pixel loss (l1 / l2 / Charbonnier) on the raw
+generator output, Adam with MultiStepLR read at the global step, optional
+global-norm clipping; the train step runs the device pipeline (LR synthesis,
+augmentation, Z) and then forward and backward. On CUDA the generator's
+forward launches the kernels and its backward is the plain recompute of
+``ops/cuda/autograd.py``.
 """
 
 from __future__ import annotations
@@ -16,39 +23,101 @@ import torch
 
 from esr_tpu_torch.cem import CEMConf, make_cem
 from esr_tpu_torch.cem.kernels import resolve_kernel
+from esr_tpu_torch.data.pipeline import make_train_pipeline
 from esr_tpu_torch.device import resolve_device
-from esr_tpu_torch.models.base_model import BaseModel
+from esr_tpu_torch.models import losses as L
+from esr_tpu_torch.models.base_model import Adam, BaseModel, multistep_schedule, opt_float, step_generator, step_keyed
 from esr_tpu_torch.models.networks import define_G
+from esr_tpu_torch.ops.metrics import psnr_torch
 
-__all__ = ["SRModel"]
+__all__ = ["SRModel", "make_sr_train_step"]
+
+
+def make_sr_train_step(g, pipeline, g_opt: Adam, lr_schedule, pixel_criterion: str = "l1",
+                       pixel_weight: float = 1.0):
+    """``train_step(hr_batch, gen) -> metrics``: the pipeline's batch, the
+    pixel loss of ``g(LR, Z)`` against HR, one Adam update at learning rate
+    ``lr_schedule(g_opt.count)`` (use ``step_keyed`` for the global step)."""
+    params = g_opt.params
+
+    def train_step(hr_batch, gen: torch.Generator) -> dict:
+        batch = pipeline(hr_batch, gen)
+        with torch.enable_grad():
+            sr = g(batch["LR"], batch.get("Z"))
+            loss = pixel_weight * L.pixel_loss(sr, batch["HR"], pixel_criterion)
+            grads = torch.autograd.grad(loss, params)
+        g_opt.step(list(grads), lr_schedule(g_opt.count))
+        return {"l_pix": loss.detach(), "psnr": psnr_torch(sr.detach(), batch["HR"], quantize=False)}
+
+    return train_step
+
+
+def _pipeline(opt: dict, scale: int, nz: int, lr_synth):
+    """The train pipeline from the options: augment flags from the train
+    dataset block (the train block's as a fallback)."""
+    train_opt = opt.get("train") or {}
+    ds = (opt.get("datasets") or {}).get("train") or {}
+    return make_train_pipeline(
+        scale=scale,
+        use_flip=bool(ds.get("use_flip", train_opt.get("use_flip", True))),
+        use_rot=bool(ds.get("use_rot", train_opt.get("use_rot", True))),
+        num_latent_channels=nz,
+        downsample_fn=lr_synth.downsample if lr_synth is not None else None,
+    )
 
 
 class SRModel(BaseModel):
     def __init__(self, opt: dict, device: str | torch.device = "cuda"):
         super().__init__(opt)
-        if self.is_train:
-            raise NotImplementedError(
-                f"{type(self).__name__}: training is not ported yet (ROADMAP.md Queue 1 item 6, the "
-                "GAN training slice); parse the options with is_train=False for eval")
         self.device = resolve_device(device)
         self.scale = int(opt.get("scale") or 4)
-        seed = int((opt.get("train") or {}).get("manual_seed") or 0)
-        self.g_module = define_G(opt, device=self.device, seed=seed)
+        train_opt = opt.get("train") or {}
+        self.seed = int(train_opt.get("manual_seed") or 0)
+        self.g_module = define_G(opt, device=self.device, seed=self.seed)
         self.nz = self.g_module.num_latent_channels
-        kernel = resolve_kernel(opt.get("kernel"))
+        self._kernel = resolve_kernel(opt.get("kernel"))
         self.cem = (
-            make_cem(CEMConf(scale=self.scale, kernel=kernel), device=self.device)
+            make_cem(CEMConf(scale=self.scale, kernel=self._kernel), device=self.device)
             if opt.get("use_cem") else None
+        )
+        # a custom kernel defines the training LR too (one operator with CEM's)
+        self._lr_synth = (
+            (self.cem or make_cem(CEMConf(scale=self.scale, kernel=self._kernel), device=self.device))
+            if self._kernel is not None else None
         )
         pretrained = (opt.get("path") or {}).get("pretrain_model_G")
         if pretrained:
             self.load_network(pretrained)
-        self._forward = self._make_forward()
+        self._paired_lr = bool(((opt.get("datasets") or {}).get("train") or {}).get("dataroot_LR"))
+        if self.is_train:
+            self._refuse_parallel_training()
+            self._init_training(train_opt)
+        self._forward = None if self.is_train else self._make_forward()
         self._data: dict = {}
+
+    def _init_training(self, train_opt: dict) -> None:
+        sched = multistep_schedule(opt_float(train_opt, "lr_G", 2e-4), train_opt.get("lr_steps") or [],
+                                   opt_float(train_opt, "lr_gamma", 0.5))
+        self.schedulers["G"] = sched
+        clip = train_opt.get("grad_clip")
+        self.g_opt = Adam(self.g_module.parameters(), opt_float(train_opt, "beta1_G", 0.9),
+                          grad_clip=float(clip) if clip else None)
+        self._train_step = make_sr_train_step(
+            self.g_module, _pipeline(self.opt, self.scale, self.nz, self._lr_synth), self.g_opt,
+            step_keyed(sched), train_opt.get("pixel_criterion") or "l1",
+            opt_float(train_opt, "pixel_weight", 1.0),
+        )
+        self._rng_seed = self.seed + 1
+
+    def optimize_parameters(self, step: int) -> None:
+        self.step = step
+        self._losses = self._train_step(self._prep_batch(self._data), step_generator(self._rng_seed, step))
 
     def test(self, z: np.ndarray | torch.Tensor | None = None) -> None:
         """Forward the fed LR (HWC or NHWC) with Z (zeros when None); SR and
-        LR stay on the device until a visuals getter fetches them."""
+        LR stay on the device until a visuals getter fetches them. A trainer
+        builds the eval forward (and the kernels' weight layouts) from the
+        weights as they are now, and drops the layouts after."""
         lr = torch.as_tensor(np.asarray(self._data["LR"], np.float32), device=self.device)
         if lr.ndim == 3:
             lr = lr[None]
@@ -60,8 +129,26 @@ class SRModel(BaseModel):
                 zz = torch.as_tensor(z, dtype=torch.float32, device=self.device)
                 if zz.ndim == 3:
                     zz = zz[None]
-        sr = self._forward(lr, zz)
+        if self.is_train:
+            sr = self._make_forward()(lr, zz)
+            self.g_module.release_kernels()
+        else:
+            sr = self._forward(lr, zz)
         self._visuals = {"SR": sr[0], "LR": lr[0]}
         if self._data.get("HR") is not None:
             hr = np.asarray(self._data["HR"])
             self._visuals["HR"] = hr[0] if hr.ndim == 4 else hr
+
+    def save(self, iter_label) -> None:
+        self.save_network(self.g_module, "G", iter_label)
+
+    def save_training(self, epoch: int, iter_step: int) -> None:
+        self.save_training_state(epoch, iter_step, {"G": {"net": self.g_module.state_dict(),
+                                                          "opt": self.g_opt.state_dict()}})
+
+    def resume_training(self, path: str) -> tuple[int, int]:
+        state = self.restore_training_state(path)
+        self.g_module.load_state_dict(state["G"]["net"], strict=True)
+        self.g_opt.load_state_dict(state["G"]["opt"])
+        self.step = int(state["iter"])
+        return int(state["epoch"]), int(state["iter"])

@@ -1,1 +1,1 @@
-from esr_tpu_torch.options.options import NoneDict, dict_to_nonedict, parse, save
+from esr_tpu_torch.options.options import NoneDict, check_resume, dict_to_nonedict, parse, save

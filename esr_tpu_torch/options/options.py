@@ -3,9 +3,11 @@
 JSON (with ``//`` comments allowed) -> nested dict: expands dataset and model
 paths, sets ``is_train``, propagates ``scale`` into each dataset block and
 ``network_G``, and wraps everything in a ``NoneDict`` so missing keys read as
-``None``; ``save`` dumps the parsed options into the results dir. The schema
-is the JAX package's, so its JSON files (``options/test/*.json``, copied
-here) parse to the same dict.
+``None``; ``check_resume`` points the pretrain paths at a resume state's
+checkpoints; ``save`` dumps the parsed options into the experiment or
+results dir. The schema is the JAX package's, so its JSON files
+(``options/test/*.json`` and ``options/train/*.json``, copied here) parse to
+the same dict.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import json
 import os
 from collections import OrderedDict
 
-__all__ = ["parse", "dict_to_nonedict", "NoneDict", "save"]
+__all__ = ["parse", "dict_to_nonedict", "NoneDict", "check_resume", "save"]
 
 
 class NoneDict(dict):
@@ -94,6 +96,21 @@ def parse(opt_path: str | dict, is_train: bool = True) -> NoneDict:
         opt["network_G"]["scale"] = scale
 
     return dict_to_nonedict(opt)
+
+
+def check_resume(opt: dict) -> None:
+    """With ``path.resume_state`` set, point ``pretrain_model_G`` (and, for a
+    GAN model, ``pretrain_model_D``) at that state's network checkpoints,
+    ``<experiment>/models/<iter>_G.pth``, unless they are set."""
+    state_path = opt["path"].get("resume_state")
+    if not state_path:
+        return
+    models = os.path.join(os.path.dirname(os.path.dirname(state_path)), "models")
+    step = os.path.splitext(os.path.basename(state_path))[0]
+    if not opt["path"].get("pretrain_model_G"):
+        opt["path"]["pretrain_model_G"] = os.path.join(models, f"{step}_G.pth")
+    if "gan" in (opt.get("model") or "") and not opt["path"].get("pretrain_model_D"):
+        opt["path"]["pretrain_model_D"] = os.path.join(models, f"{step}_D.pth")
 
 
 def _json_default(o):

@@ -1,0 +1,192 @@
+"""Training entry point (port of esr_tpu/train.py)::
+
+    python -m esr_tpu_torch.train -opt esr_tpu_torch/options/train/train_explorable_SR.json \
+        [--auto_resume] [--device cuda|cpu]
+
+Parse the options, seed, build the loaders and the model, then per step
+``feed_data`` -> ``optimize_parameters`` with the periodic log line (and
+``train_metrics.csv``), validation PSNR and checkpoints (``<iter>_G.pth``,
+``<iter>_D.pth``, ``<iter>.state``). ``--auto_resume`` continues from the
+newest training state and replays the data stream from there
+(``set_position``); SIGTERM (a preemption notice) finishes the step in
+flight, saves the networks and the training state, and exits cleanly. The
+watchdog (on unless ``train.watchdog: false``) exits 86 when steps stop
+coming. ``train.steps_per_dispatch`` is accepted and ignored: the JAX
+package folds that many steps into one program to save TPU dispatches, the
+port runs every step alone (the same trajectory). Runs on CUDA unless
+``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import signal
+
+import numpy as np
+
+from esr_tpu_torch import data as data_mod
+from esr_tpu_torch import options as options_mod
+from esr_tpu_torch.data.util import save_img
+from esr_tpu_torch.device import resolve_device
+from esr_tpu_torch.models import create_model
+from esr_tpu_torch.models.base_model import BaseModel
+from esr_tpu_torch.ops.color import rgb2ycbcr
+from esr_tpu_torch.ops.metrics import calculate_psnr, crop_border
+from esr_tpu_torch.utils import Logger, mkdir_and_rename, mkdirs, set_random_seed, setup_logger
+from esr_tpu_torch.utils.watchdog import arm_from_opt
+
+__all__ = ["main", "validate"]
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", required=True, help="path to options JSON")
+    parser.add_argument("--auto_resume", action="store_true")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+
+    opt = options_mod.parse(args.opt, is_train=True)
+
+    # SIGTERM (preemption) sets a flag: the loop finishes the step in flight,
+    # saves, and returns. Installed before the model is built.
+    preempted = {"flag": False}
+
+    def _on_sigterm(signum, frame):  # noqa: ARG001
+        preempted["flag"] = True
+
+    prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        _train(opt, args.auto_resume, device, preempted)
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
+
+
+def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
+    resume_path = opt["path"].get("resume_state")
+    if auto_resume and not resume_path:
+        resume_path = BaseModel.latest_state_path(opt["path"]["training_state"])
+    if resume_path:
+        options_mod.check_resume(opt)
+    else:
+        mkdir_and_rename(opt["path"]["experiments_root"])
+    mkdirs([opt["path"][k] for k in ("models", "training_state", "log", "val_images")])
+    setup_logger("base", opt["path"]["log"], "train", screen=True)
+    logger = logging.getLogger("base")
+    options_mod.save(opt)
+    set_random_seed(int((opt["train"] or {}).get("manual_seed") or 0))
+
+    train_loader = val_loader = None
+    for phase, dataset_opt in (opt["datasets"] or {}).items():
+        if phase.startswith("train"):
+            train_set = data_mod.create_dataset(dataset_opt)
+            train_loader = data_mod.create_dataloader(train_set, dataset_opt)
+            logger.info(f"train dataset [{dataset_opt.get('name')}]: {len(train_set)} images")
+        elif phase.startswith("val"):
+            val_set = data_mod.create_dataset(dataset_opt)
+            val_loader = data_mod.create_dataloader(val_set, dataset_opt)
+            logger.info(f"val dataset [{dataset_opt.get('name')}]: {len(val_set)} images")
+    if train_loader is None:
+        raise ValueError("no train dataset configured")
+    if len(train_loader) == 0:
+        # drop_last with batch_size > dataset size: zero batches per epoch
+        raise ValueError(
+            f"train loader yields 0 batches: dataset has {len(train_loader.dataset)} images but batch_size "
+            f"is {train_loader.batch_size} (drop_last) — shrink batch_size or add data")
+
+    model = create_model(opt, device=device)
+    start_epoch, current_step = 0, 0
+    if resume_path:
+        start_epoch, current_step = model.resume_training(resume_path)
+        logger.info(f"resumed from {resume_path} (epoch {start_epoch}, iter {current_step})")
+        offset = current_step - start_epoch * len(train_loader)
+        if not 0 <= offset <= len(train_loader):
+            # an epoch record out of line with the step count: the step count
+            # is the number of batches consumed
+            start_epoch = current_step // len(train_loader)
+            offset = current_step - start_epoch * len(train_loader)
+            logger.info(f"re-aligned resume position to epoch {start_epoch}")
+        train_loader.set_position(start_epoch, offset)
+
+    train_opt, log_opt = opt["train"], opt["logger"] or {}
+    niter = int(train_opt.get("niter") or 100000)
+    val_freq = int(train_opt.get("val_freq") or 5000)
+    print_freq = int(log_opt.get("print_freq") or 100)
+    save_freq = int(log_opt.get("save_checkpoint_freq") or 5000)
+    total_epochs = max(1, math.ceil(niter / len(train_loader)))
+    tlogger = Logger(opt)
+    logger.info(f"training for {niter} iters (~{total_epochs} epochs) on {device}")
+    if int(train_opt.get("steps_per_dispatch") or 1) > 1:
+        logger.info("steps_per_dispatch is ignored: the port runs every step alone (the same trajectory)")
+    wd = arm_from_opt(train_opt.get("watchdog"), train_opt.get("watchdog_factor"), logger)
+
+    epoch = start_epoch
+    try:
+        for epoch in range(start_epoch, total_epochs + 1):
+            for batch in train_loader:
+                if current_step >= niter or preempted["flag"]:
+                    break
+                model.feed_data(batch)
+                current_step += 1
+                model.optimize_parameters(current_step)
+                if wd is not None:
+                    wd.beat(current_step)
+                if current_step % print_freq == 0:
+                    tlogger.log_scalars(current_step, epoch, model.get_current_learning_rate(),
+                                        model.get_current_losses())
+                if val_loader is not None and current_step % val_freq == 0:
+                    tlogger.log_validation(current_step, epoch, validate(model, val_loader, opt, step=current_step))
+                    if wd is not None:
+                        wd.beat(count=False)  # validation takes longer than a step
+                if current_step % save_freq == 0:
+                    model.save(current_step)
+                    model.save_training(epoch, current_step)
+                    logger.info(f"checkpoint saved @ iter {current_step}")
+                    if wd is not None:
+                        wd.beat(count=False)
+            if current_step >= niter or preempted["flag"]:
+                break
+        model.save("latest")
+        if preempted["flag"]:
+            model.save_training(epoch, current_step)
+            logger.info(f"preempted (SIGTERM) — state saved @ iter {current_step}; "
+                        "rerun with --auto_resume to continue")
+        else:
+            model.save_training(total_epochs, current_step)
+            logger.info("training complete")
+    finally:
+        if wd is not None:
+            wd.stop()
+
+
+def validate(model, val_loader, opt, step=None) -> dict:
+    """Mean PSNR over the val set (uint8 domain, border = scale; Y channel with
+    ``val_on_y``); with ``step``, the SR images go to ``val_images``."""
+    scale = int(opt.get("scale") or 4)
+    on_y = bool(opt.get("val_on_y"))
+    val_dir = opt["path"].get("val_images") if step is not None else None
+    psnrs = []
+    for i, batch in enumerate(val_loader):
+        sample = {k: (v[0] if isinstance(v, (np.ndarray, list)) else v) for k, v in batch.items()}
+        model.feed_data(sample)
+        model.test()
+        vis = model.get_visuals_uint8()
+        sr_img = vis["SR"]
+        if val_dir:
+            base = os.path.splitext(os.path.basename(str(sample.get("HR_path") or i)))[0]
+            save_img(sr_img, os.path.join(val_dir, base, f"{base}_{step}.png"))
+        if "HR" not in vis:
+            continue
+        a, b = sr_img, vis["HR"]
+        if on_y and a.ndim == 3 and a.shape[2] == 3:
+            a, b = rgb2ycbcr(a, only_y=True), rgb2ycbcr(b, only_y=True)
+        psnrs.append(calculate_psnr(crop_border(a, scale).astype(np.float64),
+                                    crop_border(b, scale).astype(np.float64)))
+    return {"psnr": float(np.mean(psnrs)) if psnrs else float("nan")}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,19 @@
-"""Logging setup and directory helpers (port of the parts of
-esr_tpu/utils/util.py the eval CLI uses; stdlib only)."""
+"""Logging setup, directory helpers and seeding (port of the parts of
+esr_tpu/utils/util.py the CLIs use)."""
 
 from __future__ import annotations
 
 import logging
 import os
+import random
+import shutil
 import sys
 from datetime import datetime
 
-__all__ = ["get_timestamp", "mkdirs", "setup_logger"]
+import numpy as np
+import torch
+
+__all__ = ["get_timestamp", "mkdir_and_rename", "mkdirs", "set_random_seed", "setup_logger"]
 
 
 def get_timestamp() -> str:
@@ -21,6 +26,24 @@ def mkdirs(paths) -> None:
     for p in paths:
         if p:
             os.makedirs(p, exist_ok=True)
+
+
+def mkdir_and_rename(path: str) -> None:
+    """If ``path`` exists, move it aside with a timestamp suffix; then create
+    it (an experiment directory is never overwritten)."""
+    if os.path.exists(path):
+        new_name = path + "_archived_" + get_timestamp()
+        print(f"Path already exists. Rename it to [{new_name}]")
+        shutil.move(path, new_name)
+    os.makedirs(path, exist_ok=True)
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators (the train step
+    draws from its own per-step generator, ``models.base_model.step_generator``)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def setup_logger(

@@ -264,3 +264,78 @@ def test_cuda_servable_round_trip(cuda, tmp_path):
     out = make_eval_forward(model.g_module, model.cem)(lr_p, torch.from_numpy(np.pad(z, pad, mode="edge")).to(cuda))
     np.testing.assert_array_equal(got, out[:, :96, :76].cpu().numpy())
     assert (model.cem.downsample(out) - lr_p).abs().max().item() <= 1e-5
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["rdb5c", "conv3x3", "upsample2x"])
+def test_cuda_autograd_functions_match_plain_autograd(cuda, which):
+    """Each kernel's autograd Function on the card: the forward is the
+    kernel's (one launch, none in the backward), the gradients of x and of
+    the parameters those of plain autograd through the plain version in bf16
+    (the Function's backward recomputes it: the same ops, 1e-3 relative L2
+    for cuDNN's choice of algorithms)."""
+    from esr_tpu_torch.ops.cuda import autograd as fns
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        if which == "rdb5c":
+            params = {k: v.requires_grad_(True) for k, v in _rdb_params(64, 32, cuda).items()}
+            x = torch.randn(2, 19, 23, 64, device=cuda).bfloat16().requires_grad_(True)
+            counter, leaves = rdb_conv.LAUNCHES, [x, *params.values()]
+            fn, plain = (lambda: fns.rdb5c_fn(x, params)), (lambda: rdb_conv.rdb5c_reference(x, params))
+        else:
+            x = torch.randn(2, 21, 19, 64, device=cuda).bfloat16().requires_grad_(True)
+            w = (torch.randn(3, 3, 64, 64, device=cuda) * 0.05).requires_grad_(True)
+            b = (torch.randn(64, device=cuda) * 0.1).requires_grad_(True)
+            leaves = [x, w, b]
+            if which == "conv3x3":
+                counter = kpack_conv.LAUNCHES
+                fn, plain = (lambda: fns.conv3x3_fn(x, w, b, True)), (lambda: kpack_conv.conv3x3_reference(x, w, b, True))
+            else:
+                counter = kpack_conv.LAUNCHES_UP
+                fn = lambda: fns.upsample2x_conv3x3_fn(x, w, b, True)  # noqa: E731
+                plain = lambda: upsample2x_conv3x3_reference(x, w, b, True)  # noqa: E731
+        before = counter.count
+        y = fn()
+        gy = torch.randn_like(y)
+        grads = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+        assert counter.count == before + 1
+        y_ref = plain()
+        want = torch.autograd.grad(y_ref, leaves, gy)
+        assert _rel_l2(y, y_ref) <= 2e-2  # kernel vs plain forward, both bf16
+        for g, r in zip(grads, want):
+            assert g.dtype == r.dtype and _rel_l2(g, r) <= 1e-3
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_cuda_gan_train_step_counts_launches(cuda, tmp_path):
+    """One GAN train step of a full-width nb-1 model on the card: the G
+    forward launches 3 rdb5c, 4 conv3x3 and 2 upsample kernels, the backward
+    none; losses finite; G and D move."""
+    from esr_tpu_torch.models import create_model
+    from esr_tpu_torch.options import parse
+
+    opt = _nb2_options(tmp_path, name="cuda_train")
+    opt["network_G"]["nb"] = 1
+    opt["datasets"] = {"train": {"name": "syn", "mode": "SYNTHETIC", "batch_size": 2, "HR_size": 64}}
+    opt["network_D"] = {"nf": 16}
+    opt["train"] = {"pixel_weight": 0.01, "feature_weight": 1.0, "gan_weight": 0.005, "range_weight": 1.0,
+                    "map_weight": 1.0}
+    model = create_model(parse(opt, is_train=True))
+    g0 = model.g_module.conv_first.weight.detach().clone()
+    model.feed_data({"HR": (np.random.default_rng(0).random((2, 64, 64, 3)) * 255).astype(np.uint8)})
+    for c in _COUNTERS:
+        c.reset()
+    model.optimize_parameters(1)
+    losses = model.get_current_losses()
+    torch.cuda.synchronize()
+    assert [c.count for c in _COUNTERS] == [3, 4, 2]
+    assert all(np.isfinite(v) for v in losses.values())
+    assert not torch.equal(g0, model.g_module.conv_first.weight)

@@ -277,14 +277,17 @@ def test_not_ported_options_raise(setup, tmp_path, what):
         with pytest.raises(NotImplementedError, match="item 10"):
             create_model(parse(dict(opt, **{what: 2}), is_train=False), device="cpu")
     elif what == "is_train":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            create_model(parse(opt, is_train=True), device="cpu")
+        # training is ported (Queue 1 item 6); training over several devices is not
+        with pytest.raises(NotImplementedError, match="item 10"):
+            create_model(parse(dict(opt, train_tp=2), is_train=True), device="cpu")
     elif what == "non_separable":
         with pytest.raises(NotImplementedError, match="fft"):
             create_model(parse(dict(opt, kernel=np.ones((5, 4)).tolist()), is_train=False), device="cpu")
     elif what in ("train_phase", "packed"):
-        d = {"mode": "PACKED" if what == "packed" else "SYNTHETIC", "phase": "train", "scale": 4}
-        with pytest.raises(NotImplementedError, match="item 6"):
+        # the train phase and PACKED are ported; LMDB has no backend in either package
+        d = {"mode": "LRHR_LMDB" if what == "packed" else "LRHR", "phase": "train", "scale": 4,
+             "dataroot_HR": "train.lmdb"}
+        with pytest.raises(NotImplementedError, match="PACKED"):
             create_dataset(d)
     else:
         import json
