@@ -10,9 +10,12 @@ Phases (any failure exits non-zero and prints no result):
 3. hold each kernel against its plain PyTorch version on the card, at the
    flagship widths and main-path shapes: the bf16 tensor-core kernels the
    main path runs (with a band shown to see a faulty RDB kernel), the RDB
-   kernel on ragged grids, batch 1 and an image smaller than a tile, the conv
-   kernel on ragged grids, batch 1, Cin 4 and Cout 3 in both modes, and the
-   f32 SIMT kernels of the same sources; time each kernel with its weight
+   kernel on ragged grids, batch 1 and an image smaller than a tile (and a
+   bf16 tile other than 16 x 16, a schedule hint), the conv kernel on ragged
+   grids, batch 1, Cin 4 and Cout 3 in both modes, the f32 SIMT kernels of
+   the same sources, and the bf16 SIMT kernels of the widths the tensor-core
+   kernels do not take (RDB nf 8 / gc 4 and nf 16 / gc 8, conv 128 -> 128 in
+   both modes; timed beside bound and plain); time each kernel with its weight
    layout built once (as the forward runs it), its plain version and the
    library call with CUDA events, per conv site (one ``{"kernels": [...]}``
    JSON line);
@@ -55,7 +58,20 @@ Phases (any failure exits non-zero and prints no result):
    ms per GAN step, steps/s, peak memory and the device's idle share (of
    the unprofiled step) of the kernel path beside the bf16 plain autograd
    path (in turns), where a step's time goes, and the host time of the
-   per-call weight layouts.
+   per-call weight layouts;
+9. exploration: the editor's session as the explore CLI builds it
+   (``build_session_from_opt``: G from the seed-0 ``.pth``, CEM, a seed-0 D
+   from its own ``.pth``) on an LR 128 x 128 PNG; a 40 x 40 LR selection
+   (bucket 64, crop 256 HR) and one click of each tool at the session's 64
+   steps (imprint adaptive, variance +/-, brightness, smooth, periodicity,
+   histogram, realism, alternatives k=2 with one applied), then smooth with
+   no selection (the whole image): each click's loss goes down (or its
+   adaptive report names its stop), CEM residual, undo restores the SR bit
+   for bit, no layout built; launches per G call over the clicks, per Z step
+   forward and backward (none) by hand; dloss/dZ through the kernels against
+   the bf16 and f32 plain paths (a band shown to fail an RDB kernel that
+   returns its input); ms per Z step beside the bf16 plain autograd path (in
+   turns), per click, the device's idle share and host time per step.
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after). The last line is
@@ -87,8 +103,12 @@ from esr_tpu_torch.data import create_dataset, png
 from esr_tpu_torch.data.pipeline import make_train_pipeline
 from esr_tpu_torch.data.lrhr_dataset import SyntheticDataset
 from esr_tpu_torch.data.util import read_img_uint8, save_img
+from esr_tpu_torch.explore import cli as explore_cli
+from esr_tpu_torch.explore import objectives as explore_obj
+from esr_tpu_torch.explore import viewmodel as explore_vm
+from esr_tpu_torch.explore.z_optimizer import bucket_crop, optimize_z
 from esr_tpu_torch.export import export_servable
-from esr_tpu_torch.models import create_model, define_G, make_eval_forward
+from esr_tpu_torch.models import create_model, define_D, define_G, make_eval_forward
 from esr_tpu_torch.models.base_model import step_keyed
 from esr_tpu_torch.models.blocks import upsample_nearest
 from esr_tpu_torch.models.srragan_model import make_gan_train_step
@@ -177,13 +197,13 @@ def gen(shape, seed: int, scale: float = 1.0) -> torch.Tensor:
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
 
 
-def rdb_params(seed: int) -> dict:
+def rdb_params(seed: int, nf: int = NF, gc: int = GC) -> dict:
     """RDB weights at Kaiming scale (gain sqrt 2), not the generator's x0.1:
     the residual branch 0.2 * x5 then has a std near 0.3 beside x's 1, so a
     band on the block's output sees what the convs compute, not only x."""
     out = {}
     for k in range(1, 6):
-        cin, cout = NF + (k - 1) * GC, NF if k == 5 else GC
+        cin, cout = nf + (k - 1) * gc, nf if k == 5 else gc
         out[f"w{k}"] = gen((3, 3, cin, cout), seed + k, math.sqrt(2.0 / (9 * cin)))
         out[f"b{k}"] = gen((cout,), seed + 10 + k, 0.01)
     return out
@@ -355,12 +375,11 @@ def phase_kernels() -> list[dict]:
             bf16_errs.append(e)
     xb = xm.bfloat16()
     kw5 = rdb5c_kernel_weights(p, torch.bfloat16, xb.device)  # built once, as the forward does
-    try:
-        fused_rdb5c_tiled(xr.bfloat16(), p, strip=12, wtile=8)
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused, "rdb5c bf16 refuses a tile other than 16x16 (ValueError)")
+    before = rdb_conv.LAUNCHES.count
+    hinted = fused_rdb5c_tiled(xr.bfloat16(), p, strip=12, wtile=8)
+    check(rdb_conv.LAUNCHES.count == before + 1 and torch.equal(hinted, fused_rdb5c(xr.bfloat16(), p)),
+          "rdb5c bf16 tile 12x8 is a schedule hint: the tensor-core kernel runs its 16x16 tiles, one launch, "
+          "bit for bit the 16x16 answer")
     rdb5c_edge_checks(p)
     flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * B * LR * LR
     nbytes = 2 * xb.numel() * 2 + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items())
@@ -463,7 +482,74 @@ def phase_kernels() -> list[dict]:
         max_abs_err=max(bf16_errs), f32_simt_max_abs_err=max(f32_errs), launches_per_forward=2,
     ))
     conv_edge_checks()
+    bf16_simt_checks(rows)
     return rows
+
+
+def bf16_simt_checks(rows: list[dict]) -> None:
+    """The bf16 routes of widths the tensor-core kernels do not take (the
+    JAX package runs them: nf 8 / gc 4 and nf 16 / gc 8 RDBs, convs wider than
+    64): the SIMT kernels in bf16, on a ragged grid, each within phase 3's
+    band of the f32 plain version on the same bf16 inputs, one launch counted
+    on its own route and none on the tensor-core one; timed beside its bound
+    and its plain version. Listed under the row of the TPU kernel they serve
+    (``bf16_simt``); the main path runs none of them."""
+    shape = (2, 37, 53)
+    px = shape[0] * shape[1] * shape[2]
+    rdb_row = next(r for r in rows if r["name"] == "rdb5c")
+    rdb_row["bf16_simt"] = []
+    for nf, gc in ((8, 4), (16, 8)):
+        p = rdb_params(300 + nf, nf, gc)
+        xb = gen(shape + (nf,), 310 + nf).bfloat16()
+        kw = rdb5c_kernel_weights(p, torch.bfloat16, xb.device)
+        ref = rdb5c_reference(xb.float(), p)
+        tol = 2.0 * max_err(rdb5c_reference(xb, p), ref)
+        simt, tc = rdb_conv.LAUNCHES_SIMT["bf16"], rdb_conv.LAUNCHES
+        before = (simt.count, tc.count)
+        got = rdb5c_launch(xb, kw)
+        ran = (simt.count, tc.count) == (before[0] + 1, before[1])
+        e = max_err(got, ref) if got.shape == ref.shape else math.inf
+        check(ran and kw.route == "simt" and e <= tol, f"rdb5c bf16 SIMT nf {nf} gc {gc} {shape}: max err {e:.3g} "
+              f"<= {tol:.3g} (twice the bf16 plain version's), one launch on its own route {ran}")
+        flops = 2 * 9 * (sum((nf + k * gc) * gc for k in range(4)) + (nf + 4 * gc) * nf) * px
+        b_ms, b_by = bound(flops, 2 * 2 * px * nf + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items()))
+        rdb_row["bf16_simt"].append({
+            "kernel": "rdb5c_kernel<__nv_bfloat16>", "shape": f"x {shape + (nf,)} bf16, nf {nf} gc {gc}",
+            "max_abs_err": e, "band": tol, "ms": cuda_ms(lambda: rdb5c_launch(xb, kw)),
+            "plain_ms": cuda_ms(lambda: rdb5c_reference(xb, p)), "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by})
+    cin = cout = 128
+    w = gen((3, 3, cin, cout), 320, math.sqrt(2.0 / (9 * cin)))
+    bias = gen((cout,), 321, 0.01)
+    xb = gen(shape + (cin,), 322).bfloat16()
+    xc, bb = xb.permute(0, 3, 1, 2), bias.bfloat16()
+    for name, ksize, plain, library, n_taps, up in (
+            ("conv3x3", 3, conv3x3_reference,
+             lambda wb=w.permute(3, 2, 0, 1).bfloat16(): F.conv2d(xc, wb, bb, padding=1), 9, 1),
+            ("upsample2x_conv3x3", 2, upsample2x_conv3x3_reference,
+             lambda wb=convT_weight(w).bfloat16(): F.conv_transpose2d(xc, wb, bb, stride=2, padding=1), 16, 4)):
+        kw = conv_kernel_weights(w, bias, torch.bfloat16, xb.device, ksize)
+        simt, tc = kpack_conv.LAUNCHES_SIMT[(ksize, "bf16")], (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP)
+        before = (simt.count, tc[0].count, tc[1].count)
+        got = conv_launch(xb, kw, True)
+        ran = (simt.count, tc[0].count, tc[1].count) == (before[0] + 1, before[1], before[2])
+        ref = plain(xb.float(), w, bias, True)
+        tol = conv_bf16_band(ref, max_err(plain(xb, w, bias, True), ref))
+        e = max_err(got, ref) if got.shape == ref.shape else math.inf
+        check(ran and kw.route == "simt" and e <= tol, f"{name} bf16 SIMT {cin}->{cout} {shape}: max err {e:.3g} "
+              f"<= {tol:.3g}, one launch on its own route {ran}")
+        b_ms, b_by = bound(2 * n_taps * cin * cout * px, 2 * px * (cin + up * cout) + 2 * w.numel())
+        row = next(r for r in rows if r["name"] == name)
+        row["bf16_simt"] = [{
+            "kernel": "conv_kernel<__nv_bfloat16>", "shape": f"x {shape + (cin,)} bf16, {cin}->{cout} lrelu",
+            "max_abs_err": e, "band": tol, "ms": cuda_ms(lambda: conv_launch(xb, kw, True)),
+            "plain_ms": cuda_ms(lambda: plain(xb, w, bias, True)), "library_ms": cuda_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by}]
+    for r in rows:
+        for s in r.get("bf16_simt", []):
+            print(f"  bf16 SIMT {r['name']:<18s} {s['shape']:<36s} kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} "
+                  f"ms, library {s['library_ms'] if s['library_ms'] is None else round(s['library_ms'], 4)} ms, "
+                  f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})", flush=True)
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -1293,6 +1379,276 @@ def _vgg_part(f, hr: torch.Tensor):
     return torch.autograd.grad((f(sr.clamp(0, 1)) - feat_hr).abs().mean(), sr)
 
 
+# -- phase 9: exploration ------------------------------------------------------
+
+EXPLORE_LR = 128  # the LR image the editor explores
+EXPLORE_BOX = (44, 44, 84, 84)  # a 40 x 40 LR selection: bucket 64, crop 256 HR
+EXPLORE_DEVICE = "cuda"
+LAYOUT_COUNTERS = (rdb_conv.LAYOUTS, kpack_conv.LAYOUTS)
+
+
+class SearchLog:
+    """Stands in front of a session's Z optimizer: keeps every search's loss
+    trace (each tool click runs one or more searches)."""
+
+    def __init__(self, inner):
+        self.inner, self.traces = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, *a, **kw):
+        z, losses = self.inner(*a, **kw)
+        self.traces.append(np.asarray(losses))
+        return z, losses
+
+
+def explore_session(tmp: Path, pth: str):
+    """The flagship editor as the CLI builds it: G from ``pth``, CEM, and a D
+    (``define_D(seed=0)``, nf 64, BatchNorm, trained input 128) from its own
+    ``.pth``, on an LR 128 x 128 PNG written by the port's codec."""
+    d_opt = {"network_D": {"nf": NF, "norm_type": "batch"}, "datasets": {"train": {"HR_size": 128}}, "bf16": True}
+    d_pth = tmp / "D.pth"
+    torch.save(define_D(d_opt, device=EXPLORE_DEVICE, seed=0).state_dict(), d_pth)
+    lr_png = tmp / "explore_lr.png"
+    img = SyntheticDataset({"phase": "test", "image_size": EXPLORE_LR})._make_image(11)
+    save_img((img * 255.0).round().astype(np.uint8), str(lr_png))
+    opt = flagship_options(tmp, pth, "explore", {})
+    opt["path"]["pretrain_model_D"] = str(d_pth)
+    opt_path = tmp / "explore.json"
+    opt_path.write_text(json.dumps(opt))
+    t0 = time.perf_counter()
+    sess = explore_cli.build_session_from_opt(str(opt_path), str(lr_png), device=EXPLORE_DEVICE)
+    print(f"explore: session built through the CLI's build_session_from_opt in {time.perf_counter() - t0:.2f} s "
+          f"(G, CEM, D from .pth; layouts built once)", flush=True)
+    return sess
+
+
+def explore_clicks(sess) -> tuple[list[tuple[str, object]], np.ndarray]:
+    """The editor's tools, one click each (the session's 64 steps), and the
+    imprint click's target."""
+    sr = sess.current_sr()[0]
+    y0, x0, y1, x1 = (v * SCALE for v in EXPLORE_BOX)
+    alpha = explore_vm.render_text_mask("ESR", (y1 - y0, x1 - x0))[..., None]
+    # an image imprinted over the selection (white text on mid gray): the
+    # editor's text tool composites over the SR itself, where |sr - target|
+    # is 0 outside the glyphs and JAX's |.| gradient at 0 (1) pushes Z there too
+    target = sr.copy()
+    target[y0:y1, x0:x1] = 0.5 * (1 - alpha) + alpha
+    patch = np.random.default_rng(12).random((48, 48, 3)).astype(np.float32) ** 2
+
+    def alternatives():
+        cands = sess.propose_alternatives(k=2, seed=0)
+        sess.apply_alternative(cands[1][0])
+
+    return [
+        ("imprint (adaptive)", lambda: sess.imprint(target)),
+        ("variance +", sess.increase_variance),
+        ("variance -", sess.decrease_variance),
+        ("brightness 0.7", lambda: sess.brightness(0.7)),
+        ("smooth", sess.smooth),
+        ("periodicity 0 8", lambda: sess.periodicity(0.0, 8.0)),
+        ("histogram", lambda: sess.match_histogram(patch, adaptive=False)),
+        ("realism +", lambda: sess.realism(1.0)),
+        ("alternatives k=2, apply one", alternatives),
+    ], target
+
+
+def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
+    """Exploration at full width on the card: every tool click through the
+    kernels on the layouts built once; returns the launches of the clicks."""
+    sess = explore_session(tmp, pth)
+    g, cem = sess.g, sess.cem
+    lr = torch.from_numpy(sess.lr_img).to(sess.device)
+    check(sess._d is not None and not any(p.requires_grad for p in g.parameters()),
+          "explore: D attached for the realism tool, G frozen")
+    log = SearchLog(sess._optimizer)
+    sess._optimizer = log
+    forwards = [0]
+    hook = g.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    clicks, text_target = explore_clicks(sess)
+    y0, x0, y1, x1 = (v * SCALE for v in EXPLORE_BOX)
+    sess.select_rect(y0, x0, y1, x1)
+    check(sess._box_lr == EXPLORE_BOX and bucket_crop(EXPLORE_BOX, EXPLORE_LR, EXPLORE_LR, SCALE)[2] == 64,
+          f"explore: selection {sess._box_lr} LR, bucket 64 (crop 256 HR)")
+
+    def full_image_smooth():
+        sess._mask, sess._box_lr = None, None  # no selection: the whole 128 x 128
+        return sess.smooth()
+
+    clicks.append(("smooth, no selection (full 128x128)", full_image_smooth))
+    # the main path: every click, counts set to 0 just before and read just after
+    for c in COUNTERS:
+        c.reset()
+    forwards[0] = 0
+    layouts0 = [c.count for c in LAYOUT_COUNTERS]
+    timings = []
+    for what, click in clicks:
+        sr_before = sess.current_sr().copy()
+        n_traces, fwd0 = len(log.traces), forwards[0]
+        builds0 = [c.count for c in LAYOUT_COUNTERS]
+        t0 = time.perf_counter()
+        click()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        traces = log.traces[n_traces:]
+        steps = sum(len(t) for t in traces)
+        builds = [c.count - b for c, b in zip(LAYOUT_COUNTERS, builds0)]
+        rounds = sess.last_rounds if "adaptive" in what else None
+        if rounds:
+            # better than the start, or stopped as insensitive at full escalation
+            down = (rounds[-1]["best"] < rounds[0]["first"]
+                    or rounds[-1].get("stop") == "insensitive-at-max-escalation")
+            lrs = "->".join(format(r["lr"], "g") for r in rounds)
+            how = (f"adaptive: {len(rounds)} rounds, lr {lrs}, z-range "
+                   f"{rounds[-1]['z_range']:g}, stop {rounds[-1].get('stop')}, best {rounds[-1]['best']:.5f} "
+                   f"from {rounds[0]['first']:.5f}")
+        else:
+            down = all(t[-1] < t[0] for t in traces)
+            how = "loss " + ", ".join(f"{t[0]:.5f} -> {t[-1]:.5f}" for t in traces)
+        sr = sess.current_sr()
+        res = max_err(cem.downsample(torch.from_numpy(sr).to(lr.device)), lr)
+        sess.undo()
+        restored = np.array_equal(sess.current_sr(), sr_before)
+        sess.redo()
+        check(down and res <= CEM_TOL and restored and builds == [0, 0] and steps > 0,
+              f"explore click {what}: {how}; {steps} Z steps in {secs * 1e3:.1f} ms ({secs * 1e3 / steps:.2f} ms per "
+              f"step); CEM residual {res:.3g} <= {CEM_TOL}; undo restores the SR bit for bit {restored}; layouts "
+              f"built {builds}")
+        timings.append((what, secs, steps))
+    torch.cuda.synchronize()
+    counts = {c.name: c.count for c in COUNTERS}
+    n_fwd = forwards[0]
+    hook.remove()
+    total_steps = sum(s for _, _, s in timings)
+    want = {k: v * n_fwd for k, v in EXPECTED_PER_FORWARD.items()}
+    check(counts == want and [c.count for c in LAYOUT_COUNTERS] == layouts0,
+          f"explore, {len(clicks)} clicks ({total_steps} Z steps, {n_fwd} G calls with the SR renders): launches "
+          f"{counts} == {want}, so none in any backward; layouts built during the clicks "
+          f"{[c.count - b for c, b in zip(LAYOUT_COUNTERS, layouts0)]}")
+    secs = sum(t for _, t, _ in timings)
+    print(f"explore clicks: {secs:.2f} s for {total_steps} Z steps, {secs * 1e3 / total_steps:.2f} ms per Z step "
+          f"on average (search, crop and paste, SR render and history included)", flush=True)
+
+    # one Z step on the crop, by hand: the launches of its forward and backward
+    y, x, size = bucket_crop(EXPLORE_BOX, EXPLORE_LR, EXPLORE_LR, SCALE)
+    lr_c = lr[:, y : y + size, x : x + size].contiguous()
+    mask = torch.zeros(size * SCALE, size * SCALE, device=lr.device)
+    mask[(EXPLORE_BOX[0] - y) * SCALE : (EXPLORE_BOX[2] - y) * SCALE,
+         (EXPLORE_BOX[1] - x) * SCALE : (EXPLORE_BOX[3] - x) * SCALE] = 1.0
+    z_fixed = torch.from_numpy(np.random.default_rng(14).uniform(-0.5, 0.5, (1, size, size, NZ))
+                               .astype(np.float32)).to(lr.device)
+
+    def plain_path(dtype):
+        return lambda lr_, z_: cem.project(plain_forward(g, lr_, z_, dtype), lr_)
+
+    with torch.no_grad():
+        sr_f = plain_path(torch.float32)(lr_c, z_fixed)[0]
+    # imprint targets: 0.2-0.4 above the f32 SR at the fixed Z (|sr - target|
+    # keeps its sign on every path), and the imprint click's own, cropped
+    rng = np.random.default_rng(13)
+    targets = {"0.2-0.4 above the SR": sr_f + torch.from_numpy(
+                   rng.uniform(0.2, 0.4, tuple(sr_f.shape)).astype(np.float32)).to(lr.device),
+               "the imprint click's": torch.from_numpy(np.ascontiguousarray(
+                   text_target[y * SCALE : (y + size) * SCALE, x * SCALE : (x + size) * SCALE])).to(lr.device)}
+    objective = explore_obj.imprint_objective(targets["0.2-0.4 above the SR"]).to(lr.device)
+
+    def dloss_dz(forward, obj=objective):
+        zl = z_fixed.clone().requires_grad_(True)
+        with torch.enable_grad():
+            return torch.autograd.grad(obj(forward(lr_c, zl), mask), zl)[0]
+
+    for c in COUNTERS:
+        c.reset()
+    zl = z_fixed.clone().requires_grad_(True)
+    builds0 = [c.count for c in LAYOUT_COUNTERS]
+    with torch.enable_grad():
+        loss = objective(sess.forward(lr_c, zl), mask)
+        torch.cuda.synchronize()
+        fwd = {c.name: c.count for c in COUNTERS}
+        for c in COUNTERS:
+            c.reset()
+        torch.autograd.grad(loss, zl)
+        torch.cuda.synchronize()
+    bwd = {c.name: c.count for c in COUNTERS}
+    builds = [c.count - b for c, b in zip(LAYOUT_COUNTERS, builds0)]
+    check(fwd == EXPECTED_PER_FORWARD and not any(bwd.values()) and builds == [0, 0],
+          f"explore: one Z step on the 64x64 LR crop launches {fwd} forward (== {EXPECTED_PER_FORWARD}), {bwd} in "
+          f"the backward, builds {builds} layouts")
+
+    # dloss/dZ through the kernels against the plain paths, and a planted
+    # fault: an RDB kernel that returns its input
+    for i, (what, tgt) in enumerate(targets.items()):
+        obj = explore_obj.imprint_objective(tgt).to(lr.device)
+        dz_k, dz_b, dz_f = (dloss_dz(f, obj) for f in (sess.forward, plain_path(torch.bfloat16),
+                                                      plain_path(torch.float32)))
+        r_k, r_b = rel_l2(dz_k, dz_f), rel_l2(dz_b, dz_f)
+        band = max(2 * r_b, GRAD_BAND_FLOOR)
+        check(r_k <= band, f"explore dloss/dZ (imprint target {what}, fixed Z, 64x64 LR crop) through the kernels: "
+              f"relative L2 {r_k:.4g} to the f32 plain path <= {band:.4g} (twice the bf16 plain path's {r_b:.4g}, "
+              f"floor {GRAD_BAND_FLOOR:.3g})")
+        orig = kernel_grads.rdb5c_launch
+        kernel_grads.rdb5c_launch = lambda x_, kw, *a, **k: x_.clone()
+        try:
+            r_x = rel_l2(dloss_dz(sess.forward, obj), dz_f)
+        finally:
+            kernel_grads.rdb5c_launch = orig
+        what_x = (f"explore dloss/dZ band (imprint target {what}) on a planted RDB kernel that returns its input: "
+                  f"relative L2 {r_x:.4g}, band {band:.4g}")
+        if i == 0:
+            check(r_x > band, f"{what_x}: the band fails it")
+        else:
+            print(f"note  {what_x} ({'outside' if r_x > band else 'inside'} it; held on the first target only: "
+                  "where the L1 changes sign pixel by pixel, bf16 rounding moves dZ by more)", flush=True)
+
+    # ms per Z step: the kernel path against the bf16 plain autograd path, in
+    # turns, the same search (imprint, 8 steps, the crop)
+    paths = {"kernels": sess.forward, "bf16 plain": plain_path(torch.bfloat16)}
+    n_steps = 8
+    ms = {k: [] for k in paths}
+    for name in ("bf16 plain", "kernels", "kernels", "bf16 plain"):
+        optimize_z(paths[name], lr_c, z_fixed, mask, objective, n_steps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize_z(paths[name], lr_c, z_fixed, mask, objective, n_steps=n_steps)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / n_steps)
+    ms_step = {k: statistics.mean(v) for k, v in ms.items()}
+    for name, m in ms_step.items():
+        print(f"explore Z step, 64x64 LR crop (HR 256), imprint ({name}): {m:.2f} ms per step "
+              f"({', '.join(f'{v:.2f}' for v in ms[name])})", flush=True)
+    print(f"explore: kernel path / bf16 plain path: {ms_step['kernels'] / ms_step['bf16 plain']:.3f} of the time per "
+          "Z step", flush=True)
+    for what, secs, steps in timings:
+        print(f"  click {what:<38s} {secs * 1e3:9.1f} ms, {steps:4d} Z steps, {secs * 1e3 / steps:7.2f} ms per step",
+              flush=True)
+
+    # where a Z step's time goes: the device's busy share and its top operations
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fwd_fn in paths.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            optimize_z(fwd_fn, lr_c, z_fixed, mask, objective, n_steps=4)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
+        print(f"profile, 4 Z steps ({name}): device busy {busy:.2f} ms per step, idle "
+              f"{100 - 100 * busy / ms_step[name]:.1f}% of the unprofiled step ({ms_step[name]:.2f} ms); host time "
+              f"outside the device {ms_step[name] - busy:.2f} ms per step; {sum(e.count for e in kernels) // 4} "
+              "device ops per step", flush=True)
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
+            t = e.self_device_time_total / 1e3
+            print(f"  {t / 4:9.3f} ms/step {100 * t / 4 / max(busy, 1e-9):5.1f}%  x{e.count // 4:<5d} {e.key[:90]}",
+                  flush=True)
+    with torch.enable_grad():
+        for what, fn in (("G + CEM forward, Z needs grad (kernels)", lambda: sess.forward(lr_c, zl)),
+                         ("forward + backward to dZ (kernels, recompute)", lambda: dloss_dz(sess.forward)),
+                         ("forward + backward to dZ (bf16 plain)", lambda: dloss_dz(paths["bf16 plain"]))):
+            print(f"explore Z step part: {what}: {cuda_ms(fn, reps=3, warmup=1, windows=3):.2f} ms (CUDA events)",
+                  flush=True)
+    return counts
+
+
 
 def main() -> int:
     env = phase_environment()
@@ -1308,6 +1664,7 @@ def main() -> int:
         by_path.update(phase_eval(tmp, pth))
         by_path["serve"] = phase_serve(tmp, pth)
         train_paths = phase_train(tmp)
+        by_path["explore"] = phase_explore(tmp, pth)
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:

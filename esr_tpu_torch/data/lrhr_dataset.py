@@ -18,6 +18,8 @@ step (``data/pipeline.py``); without it the host does all of them.
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 
 from esr_tpu_torch.data import util as data_util
@@ -110,7 +112,14 @@ class SyntheticDataset(_EpochDraws):
     """Seeded procedural HR images (gradients + gaussian blobs + texture),
     the same images as the JAX package's for the same ``n_images`` and
     ``image_size``. Train phase: a uint8 crop (the same 8-bit grid a PNG
-    training set has); eval phase: modcrop + bicubic LR."""
+    training set has); eval phase: modcrop + bicubic LR.
+
+    Made images are kept in an LRU cache of at most ``CACHE_IMAGES``
+    (a deliberate divergence: the JAX package keeps every image it made, so
+    a large ``n_images`` grows without bound); an evicted image is made again
+    from its seed, bit for bit."""
+
+    CACHE_IMAGES = 32
 
     def __init__(self, opt: dict):
         super().__init__(opt)
@@ -120,15 +129,16 @@ class SyntheticDataset(_EpochDraws):
         self.hr_size = data_util.parse_size(opt.get("HR_size"))
         self.n = int(opt.get("n_images") or 16)
         self.image_size = int(opt.get("image_size") or max(*self.hr_size, 192))
-        self._img_cache: dict[int, np.ndarray] = {}
+        self._img_cache: OrderedDict[int, np.ndarray] = OrderedDict()
 
     def __len__(self) -> int:
         return self.n
 
     def _make_image(self, index: int) -> np.ndarray:
         # a pure function of the index (the epoch varies only the crop), so
-        # it is made once per index and kept
+        # the most recently used ones are kept
         if index in self._img_cache:
+            self._img_cache.move_to_end(index)
             return self._img_cache[index]
         rng = np.random.default_rng(1000 + index)
         s = self.image_size
@@ -148,6 +158,8 @@ class SyntheticDataset(_EpochDraws):
         img += rng.normal(0, 0.02, img.shape)
         img = np.clip(img, 0, 1).astype(np.float32)
         self._img_cache[index] = img
+        if len(self._img_cache) > self.CACHE_IMAGES:
+            self._img_cache.popitem(last=False)
         return img
 
     def __getitem__(self, index: int) -> dict:

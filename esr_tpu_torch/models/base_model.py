@@ -205,7 +205,8 @@ class BaseModel:
         """Load a torch ``.pth`` state dict with the reference ESRGAN keys
         into the generator, strictly: the file
         ``esr_tpu/scripts/export_torch_weights.py`` writes from a JAX
-        checkpoint."""
+        checkpoint. The kernels' weight layouts built from the old weights
+        are dropped, and an eval forward is rebuilt on the new ones."""
         if os.path.isdir(path):
             raise ValueError(
                 f"{path} is a directory (an orbax checkpoint of the JAX package?); the port loads a "
@@ -213,6 +214,9 @@ class BaseModel:
                 f"--kind rrdb --ckpt {path} --out G.pth`")
         state = torch.load(path, map_location=self.device, weights_only=True)
         self.g_module.load_state_dict(state, strict=True)
+        self.g_module.release_kernels()
+        if getattr(self, "_forward", None) is not None:
+            self._forward = self._make_forward()
 
     def feed_data(self, data: dict) -> None:
         self._data = data

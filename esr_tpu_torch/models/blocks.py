@@ -12,7 +12,9 @@ layout once (``RRDBNet.prepare_kernels``), for forwards under
 ``torch.no_grad()``; otherwise the wrappers build it per call. With grad on,
 a CUDA input goes through the kernel's ``torch.autograd.Function``
 (``ops/cuda/autograd.py``: the kernel forward, a plain-PyTorch recompute
-backward), which builds the layout from the live weights at every call.
+backward). It takes the prebuilt layout when the module's parameters are all
+frozen (the explorer's Z steps, which differentiate only the input), and
+builds the layout from the live weights at every call otherwise (training).
 """
 
 from __future__ import annotations
@@ -56,6 +58,14 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
+def _frozen_layout(module: nn.Module):
+    """The module's prebuilt kernel layout when none of its parameters needs
+    a gradient, else None (the Function then builds it from the live weights)."""
+    if module.kernel_weights is None or any(p.requires_grad for p in module.parameters()):
+        return None
+    return module.kernel_weights
+
+
 class ConvLRelu(nn.Module):
     """SAME 3x3 conv + bias, then optional lrelu_0.2 (``kpack_conv3x3``)."""
 
@@ -84,7 +94,7 @@ class ConvLRelu(nn.Module):
             if self.kernel_weights is not None:
                 return conv_launch(x, self.kernel_weights, self.act)
         elif x.is_cuda:
-            return conv3x3_fn(x, self.hwio(), self.bias, self.act)
+            return conv3x3_fn(x, self.hwio(), self.bias, self.act, _frozen_layout(self))
         return kpack_conv3x3(x, self.hwio(), self.bias, self.act)
 
 
@@ -99,7 +109,7 @@ class FusedUpsampleConvLRelu(ConvLRelu):
             if self.kernel_weights is not None:
                 return conv_launch(x, self.kernel_weights, act=True)
         elif x.is_cuda:
-            return upsample2x_conv3x3_fn(x, self.hwio(), self.bias, act=True)
+            return upsample2x_conv3x3_fn(x, self.hwio(), self.bias, True, _frozen_layout(self))
         return upsample2x_conv3x3(x, self.hwio(), self.bias, act=True)
 
 
@@ -128,7 +138,7 @@ class ResidualDenseBlock5C(nn.Module):
             if self.kernel_weights is not None:
                 return rdb5c_launch(x, self.kernel_weights)
         elif x.is_cuda:
-            return rdb5c_fn(x, rdb5c_params_from_module(self))
+            return rdb5c_fn(x, rdb5c_params_from_module(self), _frozen_layout(self))
         return fused_rdb5c(x, rdb5c_params_from_module(self))
 
 

@@ -5,10 +5,13 @@ step never calls them: the JAX generator trains through XLA convs and XLA's
 autodiff. The port's training step runs the generator's forward through its
 kernels all the same, so each kernel gets a Function:
 
-- **forward** builds the kernel's weight layout from the live parameters
-  (a training step changes them, so no layout is kept across calls),
-  launches the kernel (the wrapper counts the launch) and saves only the
-  input and the parameters;
+- **forward** launches the kernel (the wrapper counts the launch) on the
+  weight layout it is given, or, given none, on one it builds from the live
+  parameters (a training step changes them, so no layout is kept across
+  calls); it saves only the input and the parameters. A block whose
+  parameters are all frozen (the explorer's generator: ``requires_grad``
+  off, layouts from ``prepare_kernels``) passes its prebuilt layout, so a Z
+  step builds none;
 - **backward** is plain PyTorch: it recomputes the same function with the
   kernel's plain version (``rdb5c_reference``, ``conv3x3_reference``,
   ``upsample2x_conv3x3_reference``) under ``torch.enable_grad()``, in the
@@ -56,32 +59,35 @@ def _recompute_grads(fn, inputs: list, needs: tuple, grad_out: torch.Tensor) -> 
 class Rdb5cFn(torch.autograd.Function):
     """``fused_rdb5c`` forward through the ``rdb5c`` kernel; backward by the
     recompute of ``rdb5c_reference`` (plain PyTorch, see the module
-    docstring). Inputs: x (N, H, W, nf), then w1, b1, ..., w5, b5 (HWIO)."""
+    docstring). Inputs: x (N, H, W, nf), w1, b1, ..., w5, b5 (HWIO), and
+    optionally their prebuilt layout (None: built here)."""
 
     @staticmethod
-    def forward(ctx, x, *wb):
+    def forward(ctx, x, *wb_kw):
+        wb, kw = wb_kw[:10], (wb_kw[10] if len(wb_kw) > 10 else None)
         ctx.save_for_backward(x, *wb)
-        return _rdb5c_kernel(x, dict(zip(_RDB_KEYS, wb)))
+        return _rdb5c_kernel(x, dict(zip(_RDB_KEYS, wb))) if kw is None else rdb5c_launch(x, kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         def plain(x, *wb):
             return rdb5c_reference(x, dict(zip(_RDB_KEYS, wb)))
 
-        return tuple(_recompute_grads(plain, list(ctx.saved_tensors), ctx.needs_input_grad, grad_out))
+        grads = _recompute_grads(plain, list(ctx.saved_tensors), ctx.needs_input_grad[:11], grad_out)
+        return (*grads, None)[: len(ctx.needs_input_grad)]
 
 
-def _conv_forward(ctx, x, kernel, bias, act: bool, ksize: int) -> torch.Tensor:
+def _conv_forward(ctx, x, kernel, bias, act: bool, ksize: int, kw) -> torch.Tensor:
     ctx.act = act
     ctx.save_for_backward(x, kernel, bias)
-    return _conv_kernel(x, kernel, bias, act, ksize)
+    return _conv_kernel(x, kernel, bias, act, ksize) if kw is None else conv_launch(x, kw, act)
 
 
 def _conv_backward(ctx, grad_out, plain) -> tuple:
     def fn(x, kernel, bias):
         return plain(x, kernel, bias, ctx.act)
 
-    return (*_recompute_grads(fn, list(ctx.saved_tensors), ctx.needs_input_grad[:3], grad_out), None)
+    return (*_recompute_grads(fn, list(ctx.saved_tensors), ctx.needs_input_grad[:3], grad_out), None, None)
 
 
 class Conv3x3Fn(torch.autograd.Function):
@@ -90,8 +96,8 @@ class Conv3x3Fn(torch.autograd.Function):
     (plain PyTorch, see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, act):
-        return _conv_forward(ctx, x, kernel, bias, act, ksize=3)
+    def forward(ctx, x, kernel, bias, act, kw=None):
+        return _conv_forward(ctx, x, kernel, bias, act, 3, kw)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -105,25 +111,29 @@ class Upsample2xConvFn(torch.autograd.Function):
     docstring)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, act):
-        return _conv_forward(ctx, x, kernel, bias, act, ksize=2)
+    def forward(ctx, x, kernel, bias, act, kw=None):
+        return _conv_forward(ctx, x, kernel, bias, act, 2, kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         return _conv_backward(ctx, grad_out, upsample2x_conv3x3_reference)
 
 
-def rdb5c_fn(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Differentiable ``fused_rdb5c`` on a CUDA tensor (params HWIO ``w1..b5``)."""
-    return Rdb5cFn.apply(x, *(params[k] for k in _RDB_KEYS))
+def rdb5c_fn(x: torch.Tensor, params: dict, kw=None) -> torch.Tensor:
+    """Differentiable ``fused_rdb5c`` on a CUDA tensor (params HWIO ``w1..b5``;
+    ``kw``: their prebuilt kernel layout, for frozen weights)."""
+    return Rdb5cFn.apply(x, *(params[k] for k in _RDB_KEYS), kw)
 
 
-def conv3x3_fn(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, act: bool) -> torch.Tensor:
-    """Differentiable ``kpack_conv3x3`` on a CUDA tensor."""
-    return Conv3x3Fn.apply(x, kernel, bias, act)
+def conv3x3_fn(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, act: bool,
+               kw=None) -> torch.Tensor:
+    """Differentiable ``kpack_conv3x3`` on a CUDA tensor (``kw``: the prebuilt
+    kernel layout of frozen weights)."""
+    return Conv3x3Fn.apply(x, kernel, bias, act, kw)
 
 
 def upsample2x_conv3x3_fn(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
-                          act: bool) -> torch.Tensor:
-    """Differentiable ``upsample2x_conv3x3`` on a CUDA tensor."""
-    return Upsample2xConvFn.apply(x, kernel, bias, act)
+                          act: bool, kw=None) -> torch.Tensor:
+    """Differentiable ``upsample2x_conv3x3`` on a CUDA tensor (``kw``: the
+    prebuilt kernel layout of frozen weights)."""
+    return Upsample2xConvFn.apply(x, kernel, bias, act, kw)

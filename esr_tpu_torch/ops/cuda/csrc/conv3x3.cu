@@ -9,25 +9,34 @@ namespace {
 // Error codes of the bf16 launch besides cudaError_t values.
 constexpr int kErrNoEncoder = -1;       // libcuda has no cuTensorMapEncodeTiled
 constexpr int kErrEncodeBase = -1000;   // -1000 - CUresult of cuTensorMapEncodeTiled
-constexpr int kErrShape = -2;           // cin or cout the bf16 kernel does not take
+constexpr int kErrShape = -2;           // cin or cout the tensor-core kernel does not take
+constexpr int kErrRoute = -3;           // no such route
 
-int launch_f32(const void* x, const void* wt, const void* bias, void* out, int n, int h, int w,
-               int cin, int cout, int cout_pad, int ksize, int act, cudaStream_t stream) {
-  esr::ConvArgs<float> a;
-  a.x = static_cast<const float*>(x);
-  a.wt = static_cast<const float*>(wt);
+// Routes (kpack_conv.py picks one per call).
+constexpr int kRouteF32 = 0;       // conv_kernel<float>
+constexpr int kRouteBf16Tc = 1;    // conv_tc_kernel: Cin and Cout up to 64
+constexpr int kRouteBf16Simt = 2;  // conv_kernel<__nv_bfloat16>: wider convs
+
+// The SIMT kernel in T (float, or __nv_bfloat16 for a Cin or Cout above
+// 64, which the tensor-core kernel does not take).
+template <typename T>
+int launch_simt(const void* x, const void* wt, const void* bias, void* out, int n, int h, int w,
+                int cin, int cout, int cout_pad, int ksize, int act, cudaStream_t stream) {
+  esr::ConvArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.wt = static_cast<const T*>(wt);
   a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
+  a.out = static_cast<T*>(out);
   a.n = n; a.h = h; a.w = w; a.cin = cin; a.cout = cout; a.cout_pad = cout_pad;
   a.ksize = ksize; a.act = act;
-  const size_t smem = esr::conv_smem_bytes(cin, ksize, sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(esr::conv_kernel<float>,
+  const size_t smem = esr::conv_smem_bytes(cin, ksize, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(esr::conv_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int parities = ksize == 2 ? 4 : 1;
   const dim3 grid((w + esr::kTile - 1) / esr::kTile, (h + esr::kTile - 1) / esr::kTile,
                   n * parities);
-  esr::conv_kernel<float><<<grid, esr::kThreads, smem, stream>>>(a);
+  esr::conv_kernel<T><<<grid, esr::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -64,9 +73,9 @@ int launch_tc(const esr::ConvTcArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* x, const void* wt, const void* bias, void* out, int n, int h, int w,
-                int cin, int cin_pad, int cout, int cout_pad, int ksize, int act,
-                cudaStream_t stream) {
+int launch_bf16_tc(const void* x, const void* wt, const void* bias, void* out, int n, int h,
+                   int w, int cin, int cin_pad, int cout, int cout_pad, int ksize, int act,
+                   cudaStream_t stream) {
   esr::ConvTcArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.wt = static_cast<const __nv_bfloat16*>(wt);
@@ -96,30 +105,40 @@ int launch_bf16(const void* x, const void* wt, const void* bias, void* out, int 
 extern "C" {
 
 // x: (n, h, w, cin) NHWC; bias: f32 [cout] or null; out: (n, h, w, cout), or
-// (n, 2h, 2w, cout) for ksize 2. bf16 (is_bf16 = 1): the tensor-core kernel;
-// wt the weight image of conv_kernel_weights, cin_pad 16 or 64 (the K the
-// kernel reads per tap), cout_pad 8 (cout <= 8) or 64 (cout == 64). f32: the SIMT kernel, wt
-// [parities][ksize^2][cin][cout_pad], cin_pad unused. Returns 0, a
-// cudaError_t of the launch, or one of the negative codes above.
-int esr_conv(int is_bf16, const void* x, const void* wt, const void* bias, void* out, int n,
+// (n, 2h, 2w, cout) for ksize 2. route 1 (bf16): the tensor-core kernel; wt
+// the weight image of conv_kernel_weights, cin_pad 16 or 64 (the K the
+// kernel reads per tap), cout_pad 8 (cout <= 8) or 64 (cout == 64). Routes 0
+// (f32) and 2 (bf16): the SIMT kernel, wt [parities][ksize^2][cin][cout_pad],
+// cin_pad unused. Returns 0, a cudaError_t of the launch, or one of the
+// negative codes above.
+int esr_conv(int route, const void* x, const void* wt, const void* bias, void* out, int n,
              int h, int w, int cin, int cin_pad, int cout, int cout_pad, int ksize, int act,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(x, wt, bias, out, n, h, w, cin, cin_pad, cout, cout_pad, ksize,
-                               act, s)
-                 : launch_f32(x, wt, bias, out, n, h, w, cin, cout, cout_pad, ksize, act, s);
+  switch (route) {
+    case kRouteF32:
+      return launch_simt<float>(x, wt, bias, out, n, h, w, cin, cout, cout_pad, ksize, act, s);
+    case kRouteBf16Tc:
+      return launch_bf16_tc(x, wt, bias, out, n, h, w, cin, cin_pad, cout, cout_pad, ksize, act, s);
+    case kRouteBf16Simt:
+      return launch_simt<__nv_bfloat16>(x, wt, bias, out, n, h, w, cin, cout, cout_pad, ksize,
+                                        act, s);
+    default:
+      return kErrRoute;
+  }
 }
 
-// Dynamic shared memory of one block: the bf16 kernel's depends on cout_pad
-// and ksize, the f32 kernel's on cin and ksize.
-size_t esr_conv_smem_bytes(int is_bf16, int cin, int cout_pad, int ksize) {
-  return is_bf16 ? esr::conv_tc_smem_bytes(cout_pad, ksize)
-                 : esr::conv_smem_bytes(cin, ksize, sizeof(float));
+// Dynamic shared memory of one block: the tensor-core kernel's depends on
+// cout_pad and ksize, the SIMT kernel's on cin, ksize and the type.
+size_t esr_conv_smem_bytes(int route, int cin, int cout_pad, int ksize) {
+  if (route == kRouteBf16Tc) return esr::conv_tc_smem_bytes(cout_pad, ksize);
+  return esr::conv_smem_bytes(cin, ksize, route == kRouteF32 ? sizeof(float) : sizeof(__nv_bfloat16));
 }
 
 const char* esr_error_string(int err) {
   if (err == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda.so.1";
-  if (err == kErrShape) return "the bf16 kernel takes cin_pad 16 or 64, and cout <= 8 or cout == 64";
+  if (err == kErrShape) return "the tensor-core kernel takes cin_pad 16 or 64, and cout <= 8 or cout == 64";
+  if (err == kErrRoute) return "no such route (0: f32 SIMT, 1: bf16 tensor cores, 2: bf16 SIMT)";
   if (err <= kErrEncodeBase) return "cuTensorMapEncodeTiled refused the input's tensor map";
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -17,9 +17,13 @@
 // card's balance point; conv_first (Cin 4) and conv_last (Cout 3) are bound
 // by bytes.
 //
-// Two kernels: bf16 (conv_tc_kernel, the main path; design below) on the
-// Hopper tensor cores, and f32 (conv_kernel, exact comparisons) on the SIMT
-// units: one block per 16 x 16 output tile (and parity) loads its window
+// Two kernels: bf16 (conv_tc_kernel, the main path, Cin and Cout up to 64;
+// design below) on the Hopper tensor cores, and conv_kernel<T> on the SIMT
+// units, T = float (exact comparisons) or bf16 (the convs wider than 64
+// channels that conv_tc_kernel does not take; window in bf16, f32
+// accumulation; at Cin = Cout = 128 about 64 FLOP per byte of activation,
+// bound by operations on the SIMT units): one block per 16 x 16 output tile
+// (and parity) loads its window
 // planar into shared memory, weights from L2, 128 pixels x 8 channels per
 // warp item. Cout is padded in the weight layout only and the stores mask
 // the ragged channel edge (conv_last's 3).

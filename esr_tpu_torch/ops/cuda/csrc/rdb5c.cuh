@@ -32,7 +32,7 @@
 // no intermediate or concat ever reaches device memory; only the halo is
 // recomputed (1.34x the FLOPs at 16 x 16). The dense concat is never built:
 // each earlier feature adds its own slice of the weight's cin axis. Two
-// kernels:
+// kernels, three routes:
 //  - rdb5c_tc_kernel (bf16, the main path; nf 64, gc 32, 16 x 16 tiles fixed
 //    at compile time): persistent blocks of a producer warpgroup (one thread
 //    works; its registers go to the consumers) and two consumer
@@ -49,8 +49,15 @@
 //    M-tiles of a conv in registers, so each weight stage is read once per
 //    warpgroup. A named barrier over the consumer threads separates conv k
 //    from conv k + 1; the producer runs ahead across it.
-//  - rdb5c_kernel<float> (f32, exact comparisons): SIMT FMAs over planar
-//    windows, any tile, weights from L2.
+//  - rdb5c_kernel<T>, SIMT FMAs over planar windows, any tile, weights from
+//    L2, f32 accumulation: T = float for exact comparisons, and T = bf16 for
+//    the widths the tensor-core kernel does not take (the x window and
+//    x_1..x_4 kept in bf16, each x_k rounded to bf16 as the plain version
+//    rounds it). nf and gc are multiples of 8 (kCO): rdb_conv.py zero-pads
+//    other widths in the weight layout (zero weights and bias give x_k = 0
+//    in the padded channels). At nf 16, gc 8 a launch does ~18 FLOP per
+//    byte of activation: bound by operations on the SIMT units (67 TFLOP/s
+//    f32), not by memory.
 #pragma once
 
 #include "common.cuh"

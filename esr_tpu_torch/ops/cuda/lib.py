@@ -51,7 +51,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Counts the launches of one kernel; the wrapper adds one per launch."""
+    """Counts the launches of one kernel route (the wrapper adds one per
+    launch), or the weight layouts built for a kernel."""
 
     def __init__(self, name: str):
         self.name = name

@@ -115,10 +115,26 @@ def test_stmatrix_staging_is_what_the_tma_store_reads():
     assert torch.equal(written, sw128(s * 128 + 2 * ch))
 
 
-def test_bf16_weights_refuse_wide_convs():
-    w = torch.zeros(3, 3, 128, 64)
+@pytest.mark.parametrize("ksize", [3, 2])
+@pytest.mark.parametrize("cin,cout", [(128, 64), (64, 128), (128, 128), (96, 3)])
+def test_bf16_wide_convs_take_the_simt_layout(cin, cout, ksize):
+    """A bf16 conv with Cin or Cout above 64 takes the SIMT kernel's layout
+    (the tensor-core image refuses it): [parities][taps][Cin][Cout_pad] in
+    bf16, the HWIO kernel (or its parity kernels) in place and zeros in the
+    Cout padding to a multiple of 8; bf16 convs up to 64 keep the tensor-core
+    route."""
+    _, w, b = _case((1, 1, 1), cin, cout, seed=cin + cout + ksize)
     with pytest.raises(ValueError, match="up to 64"):
-        kpack_conv.conv_kernel_weights(w, None, torch.bfloat16, torch.device("cpu"))
+        kpack_conv.wgmma_weight_image(w.reshape(1, 9, cin, cout))
+    kw = kpack_conv.conv_kernel_weights(w, b, torch.bfloat16, torch.device("cpu"), ksize)
+    cout_pad = -(-cout // 8) * 8
+    assert (kw.route, kw.cin, kw.cout, kw.cout_pad, kw.ksize) == ("simt", cin, cout, cout_pad, ksize)
+    want = w.reshape(1, 9, cin, cout) if ksize == 3 else kpack_conv.parity_kernels(w).reshape(4, 4, cin, cout)
+    assert kw.wt.dtype == torch.bfloat16 and tuple(kw.wt.shape) == tuple(want.shape[:3]) + (cout_pad,)
+    assert torch.equal(kw.wt[..., :cout], want.bfloat16()) and not kw.wt[..., cout:].any()
+    assert torch.equal(kw.bias[:cout], b) and not kw.bias[cout:].any()
+    assert kpack_conv.conv_kernel_weights(w[:, :, :64, :64], b[:64], torch.bfloat16, torch.device("cpu"),
+                                          ksize).route == "tc"
 
 
 # -- the kernel's work, emulated ---------------------------------------------------

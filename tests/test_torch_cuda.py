@@ -45,11 +45,11 @@ def _rdb_params(nf, gc, device, seed=0):
 def test_cuda_rdb5c_matches_plain(cuda, strip, wtile):
     p = _rdb_params(64, 32, cuda)
     x = torch.randn(2, 19, 23, 64, device=cuda)
-    before = rdb_conv.LAUNCHES.count
+    before = rdb_conv.LAUNCHES_SIMT["f32"].count
     with torch.no_grad():
         got = rdb_conv.fused_rdb5c_tiled(x, p, strip=strip, wtile=wtile)
     torch.cuda.synchronize()
-    assert rdb_conv.LAUNCHES.count == before + 1
+    assert rdb_conv.LAUNCHES_SIMT["f32"].count == before + 1
     torch.testing.assert_close(got, rdb_conv.rdb5c_reference(x, p), atol=1e-4, rtol=0)
 
 
@@ -68,10 +68,11 @@ def test_cuda_conv3x3_matches_plain(cuda, cin, cout, act):
 
 
 @pytest.mark.cuda
-def test_cuda_rdb5c_bf16_within_band(cuda):
-    """The bf16 tensor-core kernel through both wrappers (16 x 16 tiles, the
-    only ones it takes; others raise) within twice the bf16 plain version's
-    error against the f32 plain version on the same bf16 inputs."""
+def test_cuda_rdb5c_bf16_any_tile_within_band(cuda):
+    """The bf16 tensor-core kernel through both wrappers within twice the bf16
+    plain version's error against the f32 plain version on the same bf16
+    inputs; another tile is a hint: the tensor-core route runs it (one launch
+    counted there) and gives the 16 x 16 answer bit for bit."""
     p = _rdb_params(64, 32, cuda)
     x = torch.randn(2, 21, 37, 64, device=cuda).bfloat16()
     ref = rdb_conv.rdb5c_reference(x.float(), p)
@@ -80,8 +81,11 @@ def test_cuda_rdb5c_bf16_within_band(cuda):
         for got in (rdb_conv.fused_rdb5c_tiled(x, p, strip=16, wtile=16), rdb_conv.fused_rdb5c(x, p)):
             err = (got.float() - ref).abs().max().item()
             assert err <= 2 * plain_err, (err, plain_err)
-        with pytest.raises(ValueError, match="16x16"):
-            rdb_conv.fused_rdb5c_tiled(x, p, strip=12, wtile=8)
+        before = rdb_conv.LAUNCHES.count
+        other = rdb_conv.fused_rdb5c_tiled(x, p, strip=12, wtile=8)
+        torch.cuda.synchronize()
+        assert rdb_conv.LAUNCHES.count == before + 1
+        assert torch.equal(other, rdb_conv.fused_rdb5c(x, p))
 
 
 @pytest.mark.cuda
@@ -339,3 +343,124 @@ def test_cuda_gan_train_step_counts_launches(cuda, tmp_path):
     assert [c.count for c in _COUNTERS] == [3, 4, 2]
     assert all(np.isfinite(v) for v in losses.values())
     assert not torch.equal(g0, model.g_module.conv_first.weight)
+
+
+@pytest.mark.cuda
+def test_cuda_load_network_rebuilds_the_layouts(cuda, tmp_path):
+    """An eval model built on weights A, then loaded with weights B, answers
+    bit for bit as a fresh model built on B (the kernels' layouts of A are
+    dropped and rebuilt)."""
+    from esr_tpu_torch.models import create_model, define_G
+    from esr_tpu_torch.options import parse
+
+    opt = _nb2_options(tmp_path, name="cuda_load")
+    path_a, path_b = str(tmp_path / "A.pth"), str(tmp_path / "B.pth")
+    for seed, path in ((1, path_a), (2, path_b)):
+        torch.save(define_G(opt, device=cuda, seed=seed).state_dict(), path)
+    rng = np.random.default_rng(0)
+    data = {"LR": rng.random((20, 24, 3)).astype(np.float32)}
+    z = rng.uniform(-1, 1, (20, 24, 1)).astype(np.float32)
+
+    def answer(model):
+        model.feed_data(data)
+        model.test(z)
+        return model.get_visuals_device()["SR"].clone()
+
+    reloaded = create_model(parse(dict(opt, path=dict(opt["path"], pretrain_model_G=path_a)), is_train=False))
+    on_a = answer(reloaded)
+    reloaded.load_network(path_b)
+    fresh = create_model(parse(dict(opt, path=dict(opt["path"], pretrain_model_G=path_b)), is_train=False))
+    got, want = answer(reloaded), answer(fresh)
+    assert not torch.equal(on_a, want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,gc,shape", [(8, 4, (2, 37, 53)), (16, 8, (1, 45, 30)), (12, 6, (1, 17, 9))])
+def test_cuda_rdb5c_bf16_simt_widths_within_band(cuda, nf, gc, shape):
+    """bf16 RDBs at widths the tensor-core kernel does not take run the SIMT
+    kernel in bf16 (counted under its own route, none under the tensor-core
+    one), at the default tile and at another, within twice the bf16 plain
+    version's error against the f32 plain version on the same bf16 inputs."""
+    p = _rdb_params(nf, gc, cuda, seed=nf)
+    x = torch.randn(*shape, nf, device=cuda, generator=torch.Generator(device=cuda).manual_seed(nf)).bfloat16()
+    ref = rdb_conv.rdb5c_reference(x.float(), p)
+    tol = 2 * (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
+    simt, tc = rdb_conv.LAUNCHES_SIMT["bf16"], rdb_conv.LAUNCHES
+    before = (simt.count, tc.count)
+    with torch.no_grad():
+        outs = [rdb_conv.fused_rdb5c(x, p), rdb_conv.fused_rdb5c_tiled(x, p, strip=8, wtile=12)]
+    torch.cuda.synchronize()
+    assert (simt.count, tc.count) == (before[0] + 2, before[1])
+    for got in outs:
+        assert got.shape == x.shape and got.dtype == torch.bfloat16
+        assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(128, 128), (64, 96), (128, 3)])
+def test_cuda_conv_bf16_simt_wide_within_band(cuda, cin, cout):
+    """bf16 convs wider than 64 channels run the SIMT kernel in bf16 in both
+    modes (counted under its own route), within the bf16 conv band."""
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    x = torch.randn(2, 21, 19, cin, device=cuda, generator=g).bfloat16()
+    w = torch.randn(3, 3, cin, cout, device=cuda, generator=g) * (2.0 / (9 * cin)) ** 0.5
+    b = 0.1 * torch.randn(cout, device=cuda, generator=g)
+    for ksize, fn, plain in ((3, kpack_conv.kpack_conv3x3, kpack_conv.conv3x3_reference),
+                             (2, upsample2x_conv3x3, upsample2x_conv3x3_reference)):
+        counter = kpack_conv.LAUNCHES_SIMT[(ksize, "bf16")]
+        before = counter.count
+        with torch.no_grad():
+            got = fn(x, w, b, True)
+        torch.cuda.synchronize()
+        assert counter.count == before + 1
+        ref = plain(x.float(), w, b, True)
+        tol = max(2 * (plain(x, w, b, True).float() - ref).abs().max().item(), 2.0**-6 * ref.abs().max().item())
+        assert got.shape == ref.shape and (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_small_model_runs_on_the_kernels(cuda):
+    """A bf16 generator at nf 8, gc 4 (the widths of `__graft_entry__.py`'s dryrun) runs on the
+    card: RDBs on the bf16 SIMT kernel, convs on the tensor-core one, and
+    its answer is finite."""
+    from esr_tpu_torch.models import define_G, make_eval_forward
+
+    opt = {"network_G": {"nf": 8, "nb": 2, "gc": 4, "num_latent_channels": 1}, "scale": 4, "bf16": True}
+    g = define_G(opt, device=cuda, seed=3)
+    lr = torch.rand(1, 20, 24, 3, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    before = (rdb_conv.LAUNCHES_SIMT["bf16"].count, kpack_conv.LAUNCHES.count)
+    out = make_eval_forward(g)(lr)
+    torch.cuda.synchronize()
+    assert (rdb_conv.LAUNCHES_SIMT["bf16"].count - before[0], kpack_conv.LAUNCHES.count - before[1]) == (6, 4)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_cuda_frozen_z_step_builds_no_layout(cuda):
+    """A Z step through a frozen generator (requires_grad off, layouts from
+    prepare_kernels): the forward launches every kernel once per block on the
+    prebuilt layouts (no layout built), the backward launches none, and dz
+    is what the per-call layouts give."""
+    from esr_tpu_torch.models import define_G
+
+    opt = {"network_G": {"nf": 64, "nb": 1, "gc": 32, "num_latent_channels": 1}, "scale": 4, "bf16": True}
+    g = define_G(opt, device=cuda, seed=4).requires_grad_(False)
+    g.prepare_kernels()
+    lr = torch.rand(1, 16, 20, 3, device=cuda)
+    z = torch.zeros(1, 16, 20, 1, device=cuda, requires_grad=True)
+    layouts = (rdb_conv.LAYOUTS, kpack_conv.LAYOUTS)
+    builds = [c.count for c in layouts]
+    for c in _COUNTERS:
+        c.reset()
+    out = g(lr, z)
+    fwd = [c.count for c in _COUNTERS]
+    (dz,) = torch.autograd.grad(out.square().mean(), z)
+    torch.cuda.synchronize()
+    assert fwd == [3, 4, 2] and [c.count for c in _COUNTERS] == fwd
+    assert [c.count for c in layouts] == builds
+    g.release_kernels()
+    z2 = z.detach().clone().requires_grad_(True)
+    (dz_per_call,) = torch.autograd.grad(g(lr, z2).square().mean(), z2)
+    assert [c.count for c in layouts] != builds  # without the layouts, each call builds its own
+    assert _rel_l2(dz, dz_per_call) <= 1e-3  # the same kernels; cuDNN's recompute may pick other algorithms

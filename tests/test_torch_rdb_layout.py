@@ -212,19 +212,57 @@ def test_mtiles_cover_each_pixel_once(k):
     assert min(counts) >= 1 and max(counts) - min(counts) <= 1
 
 
-def test_bf16_refuses_other_tiles_and_widths():
-    """The bf16 kernel is built for 16 x 16 tiles and nf 64, gc 32: other
-    tiles raise on every device, other widths when its layout is built."""
+def _width_params(nf, gc, seed):
+    rng = np.random.default_rng(seed)
+    p = {}
+    for k in range(1, 6):
+        ci, co = nf + (k - 1) * gc, nf if k == 5 else gc
+        p[f"w{k}"] = torch.from_numpy((rng.standard_normal((3, 3, ci, co)) * (2.0 / (9 * ci)) ** 0.5).astype(np.float32))
+        p[f"b{k}"] = torch.from_numpy((0.1 * rng.standard_normal(co)).astype(np.float32))
+    return p
+
+
+@pytest.mark.parametrize("nf,gc", [(8, 4), (16, 8), (12, 6)])
+def test_bf16_tiles_are_hints_and_other_widths_take_simt(nf, gc):
+    """bf16 tiles are a schedule hint (no tile raises; the tensor-core kernel
+    runs 16 x 16 whatever is asked), nf 64 / gc 32 takes the tensor-core
+    image, and every other bf16 width the SIMT layout: each conv's
+    [9][cin_pad][cout_pad] with the HWIO weights in their place, zero rows and
+    columns (and zero bias) in the padding to multiples of 8 channels. The
+    padded block, run on x padded with zero channels, is the block."""
     p = _params(4)
     x = torch.zeros(1, 8, 8, NF, dtype=torch.bfloat16)
-    for strip, wtile in ((8, 8), (12, 8), (16, 12)):
-        with pytest.raises(ValueError, match="16x16"):
-            rdb_conv.fused_rdb5c_tiled(x, p, strip=strip, wtile=wtile)
-    assert rdb_conv.fused_rdb5c_tiled(x, p, strip=16, wtile=16).shape == x.shape
-    assert rdb_conv.fused_rdb5c_tiled(x.float(), p, strip=12, wtile=8).shape == x.shape
-    small = {k: v[..., :16] if k in ("w5", "b5") else v for k, v in p.items()}
-    with pytest.raises(ValueError, match="nf=64, gc=32"):
-        rdb_conv.rdb5c_kernel_weights(small, torch.bfloat16, torch.device("cpu"))
+    for strip, wtile in ((8, 8), (12, 8), (16, 12), (16, 16)):
+        assert rdb_conv.fused_rdb5c_tiled(x, p, strip=strip, wtile=wtile).shape == x.shape
+    assert rdb_conv.rdb5c_kernel_weights(p, torch.bfloat16, torch.device("cpu")).route == "tc"
+    q = _width_params(nf, gc, seed=nf + gc)
+    kw = rdb_conv.rdb5c_kernel_weights(q, torch.bfloat16, torch.device("cpu"))
+    nf_p, gc_p = -(-nf // 8) * 8, -(-gc // 8) * 8
+    assert (kw.route, kw.nf, kw.gc, kw.nf_pad, kw.gc_pad) == ("simt", nf, gc, nf_p, gc_p)
+    padded = {}
+    for k in range(1, 6):
+        w, b = kw.wts[k - 1], kw.bs[k - 1]
+        cout_p = nf_p if k == 5 else gc_p
+        assert w.dtype == torch.bfloat16 and tuple(w.shape) == (9, nf_p + (k - 1) * gc_p, cout_p)
+        assert b.dtype == torch.float32 and tuple(b.shape) == (cout_p,)
+        want = q[f"w{k}"].reshape(9, -1, q[f"w{k}"].shape[-1]).bfloat16()
+        rows = [r for j in range(k) for r in (range(nf) if j == 0 else range(nf_p + (j - 1) * gc_p,
+                                                                                nf_p + (j - 1) * gc_p + gc))]
+        cout = nf if k == 5 else gc
+        assert torch.equal(w[:, rows, :cout], want)
+        mask = torch.ones_like(w, dtype=torch.bool)
+        mask[:, rows, :cout] = False
+        assert not w[mask].any() and not b[cout:].any()
+        assert torch.equal(b[:cout], q[f"b{k}"])
+        padded[f"w{k}"] = w.float().reshape(3, 3, -1, cout_p)
+        padded[f"b{k}"] = b
+    xs = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 9, 11, nf)).astype(np.float32))
+    got = rdb_conv.rdb5c_reference(torch.nn.functional.pad(xs, (0, nf_p - nf)), padded)
+    assert not got[..., nf:].any()
+    want = rdb_conv.rdb5c_reference(xs, {k: v.bfloat16().float() if k[0] == "w" else v for k, v in q.items()})
+    torch.testing.assert_close(got[..., :nf], want, atol=ATOL, rtol=0)
+    kw32 = rdb_conv.rdb5c_kernel_weights(q, torch.float32, torch.device("cpu"))
+    assert kw32.route == "simt" and kw32.wts[0].dtype == torch.float32 and kw32.nf_pad == nf_p
 
 
 # -- the kernel's work, emulated ---------------------------------------------------
