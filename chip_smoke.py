@@ -62,8 +62,8 @@ Phases (any failure exits non-zero and prints no result):
 9. exploration: the editor's session as the explore CLI builds it
    (``build_session_from_opt``: G from the seed-0 ``.pth``, CEM, a seed-0 D
    from its own ``.pth``) on an LR 128 x 128 PNG; a 40 x 40 LR selection
-   (bucket 64, crop 256 HR) and one click of each tool at the session's 64
-   steps (imprint adaptive, variance +/-, brightness, smooth, periodicity,
+   (bucket 64, crop 256 HR) and one click of each tool at 32 steps a round
+   (the session's 64, halved for time) (imprint adaptive, variance +/-, brightness, smooth, periodicity,
    histogram, realism, alternatives k=2 with one applied), then smooth with
    no selection (the whole image): each click's loss goes down (or its
    adaptive report names its stop), CEM residual, undo restores the SR bit
@@ -71,7 +71,27 @@ Phases (any failure exits non-zero and prints no result):
    forward and backward (none) by hand; dloss/dZ through the kernels against
    the bf16 and f32 plain paths (a band shown to fail an RDB kernel that
    returns its input); ms per Z step beside the bf16 plain autograd path (in
-   turns), per click, the device's idle share and host time per step.
+   turns), per click, the device's idle share and host time per step;
+10. blind SR and the generator variants: (a) CEM's fft and filter modes in
+   f32 on B4 x LR 128 (HR 512) under the anisotropic Gaussian and the
+   MATLAB-bicubic 2-D kernel with cuDNN's TF32 default on: residual, H
+   against f64, adjointness, fft == matmul for bicubic, the filter residual
+   at support 33, ms per ``project`` at B16; (b) KernelGAN: the
+   effective-kernel identity, the supervised probe (corr > 0.88), the
+   adversarial estimate through ``scripts.blind_bench`` (LR 96, 2000
+   iterations), ms per iteration and the device's idle share; (c) the
+   ``estimate_kernel`` script at 200 iterations; (d) blind eval through
+   ``test.main --estimate_kernel 200`` at the flagship width on two 1/f
+   images and their Gaussian LR, beside the run without the flag, and with
+   G's output zeroed, the estimator returning the true kernel against no
+   flag (true-operator residuals; the CEM residual under an estimate is
+   held to 1e-5 x sum|k|); (e) the explorer's session with
+   ``estimate_kernel_iters`` 200 and one 64-step click; (f)
+   ``latent_input='all_layers'`` at the flagship width, its 1x1 projections
+   scaled to unit gain (forward at B16 x LR 128 with PSNR and launches, G's
+   gradient band, two GAN steps)
+   and SRResNet nf 64 nb 16 (forward, 36 tensor-core + 2 SIMT conv launches,
+   the SIMT ``upconv``s beside ``F.conv2d``, two SR-trainer steps).
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after). The last line is
@@ -98,19 +118,22 @@ import torch.nn.functional as F
 
 from esr_tpu_torch import test as eval_cli
 from esr_tpu_torch import train as train_cli
-from esr_tpu_torch.cem import CEMConf, make_cem
+from esr_tpu_torch.cem import CEMConf, kernelgan, make_cem
+from esr_tpu_torch.cem.kernels import downsample_kernel_2d, resolve_kernel
 from esr_tpu_torch.data import create_dataset, png
 from esr_tpu_torch.data.pipeline import make_train_pipeline
 from esr_tpu_torch.data.lrhr_dataset import SyntheticDataset
-from esr_tpu_torch.data.util import read_img_uint8, save_img
+from esr_tpu_torch.data.util import read_img, read_img_uint8, save_img
+from esr_tpu_torch.device import full_f32
 from esr_tpu_torch.explore import cli as explore_cli
 from esr_tpu_torch.explore import objectives as explore_obj
 from esr_tpu_torch.explore import viewmodel as explore_vm
 from esr_tpu_torch.explore.z_optimizer import bucket_crop, optimize_z
 from esr_tpu_torch.export import export_servable
 from esr_tpu_torch.models import create_model, define_D, define_G, make_eval_forward
+from esr_tpu_torch.models.architecture import _up_factors
 from esr_tpu_torch.models.base_model import step_keyed
-from esr_tpu_torch.models.blocks import upsample_nearest
+from esr_tpu_torch.models.blocks import pixel_shuffle, upsample_nearest
 from esr_tpu_torch.models.srragan_model import make_gan_train_step
 from esr_tpu_torch.ops import tensor2img
 from esr_tpu_torch.ops.cuda import autograd as kernel_grads
@@ -131,6 +154,8 @@ from esr_tpu_torch.ops.cuda.rdb_conv import (
 )
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3, upsample2x_conv3x3_reference
 from esr_tpu_torch.options import parse
+from esr_tpu_torch.scripts import blind_bench
+from esr_tpu_torch.scripts import estimate_kernel as estimate_kernel_cli
 from esr_tpu_torch.scripts.serve import make_server
 
 REPO = Path(__file__).resolve().parent
@@ -557,15 +582,28 @@ def bf16_simt_checks(rows: list[dict]) -> None:
 
 def plain_forward(g, lr: torch.Tensor, z: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
     """The generator's math on its own weights with every kernel replaced by
-    its plain PyTorch version, computing in ``dtype``."""
+    its plain PyTorch version, computing in ``dtype`` (RRDBNet with Z at the
+    first layer or at all layers; SRResNet)."""
     x = torch.cat([lr, z if z is not None else lr.new_zeros(lr.shape[:-1] + (NZ,))], -1).to(dtype)
 
     def conv(m, t):
         return conv3x3_reference(t, m.hwio(), m.bias, m.act)
 
     fea = conv(g.conv_first, x)
+    if not hasattr(g, "RRDB_trunk"):  # SRResNet
+        trunk = fea
+        for i in range(g.nb):
+            blk = getattr(g, f"block{i}")
+            trunk = trunk + conv(blk.conv2, F.relu(conv(blk.conv1, trunk)))
+        fea = fea + conv(g.trunk_conv, trunk)
+        for i, r in enumerate(_up_factors(g.scale)):
+            fea = pixel_shuffle(conv(getattr(g, f"upconv{i + 1}"), fea), r)
+        return conv(g.conv_last, conv(g.HRconv, fea)).float()
     trunk = fea
-    for blk in g.RRDB_trunk:
+    for i, blk in enumerate(g.RRDB_trunk):
+        if getattr(g, "all_layers", False):  # the 1x1 latent projection, in dtype
+            proj = g.latent_proj[i]
+            trunk = F.linear(torch.cat([trunk, x[..., 3:]], -1), proj.weight[:, :, 0, 0].to(dtype), proj.bias.to(dtype))
         out = trunk
         for rdb in (blk.RDB1, blk.RDB2, blk.RDB3):
             out = rdb5c_reference(out, rdb5c_params_from_module(rdb))
@@ -725,15 +763,15 @@ METRIC_TOL = {"psnr": 1e-3, "z_psnr_mean": 1e-3, "z_psnr_spread": 2e-3, "ssim": 
 # batch size; PSNR within 1e-3 dB, SSIM 1e-5, Z diversity 1e-3 relative
 
 
-def counted(fn):
+def counted(fn, counters=COUNTERS):
     """Run ``fn`` with every launch counter set to 0 just before; returns
     (its result, the launches by kernel, wall seconds to a synchronised end)."""
-    for c in COUNTERS:
+    for c in counters:
         c.reset()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, {c.name: c.count for c in COUNTERS}, time.perf_counter() - t0
+    return out, {c.name: c.count for c in counters}, time.perf_counter() - t0
 
 
 def check_launches(what: str, counts: dict, forwards: int, calls_per_forward: int = 1) -> None:
@@ -997,11 +1035,11 @@ def train_options(tmp: Path, name: str, json_name: str, val_dir: Path | None, ni
     return opt
 
 
-def run_train(tmp: Path, opt: dict, *flags: str):
+def run_train(tmp: Path, opt: dict, *flags: str, counters=COUNTERS):
     tmp.mkdir(parents=True, exist_ok=True)
     path = tmp / f"{opt['name']}_{opt['train']['niter']}.json"
     path.write_text(json.dumps(opt))
-    return counted(lambda: train_cli.main(["-opt", str(path), *flags]))
+    return counted(lambda: train_cli.main(["-opt", str(path), *flags]), counters)
 
 
 def train_state(tmp: Path, name: str, it: int) -> dict:
@@ -1384,6 +1422,7 @@ def _vgg_part(f, hr: torch.Tensor):
 EXPLORE_LR = 128  # the LR image the editor explores
 EXPLORE_BOX = (44, 44, 84, 84)  # a 40 x 40 LR selection: bucket 64, crop 256 HR
 EXPLORE_DEVICE = "cuda"
+EXPLORE_STEPS = 32  # Z steps per search round: the session's 64, halved to keep the script in half its time limit
 LAYOUT_COUNTERS = (rdb_conv.LAYOUTS, kpack_conv.LAYOUTS)
 
 
@@ -1425,7 +1464,7 @@ def explore_session(tmp: Path, pth: str):
 
 
 def explore_clicks(sess) -> tuple[list[tuple[str, object]], np.ndarray]:
-    """The editor's tools, one click each (the session's 64 steps), and the
+    """The editor's tools, one click each (``EXPLORE_STEPS`` a round), and the
     imprint click's target."""
     sr = sess.current_sr()[0]
     y0, x0, y1, x1 = (v * SCALE for v in EXPLORE_BOX)
@@ -1458,6 +1497,7 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
     """Exploration at full width on the card: every tool click through the
     kernels on the layouts built once; returns the launches of the clicks."""
     sess = explore_session(tmp, pth)
+    sess.set_search_strength(n_steps=EXPLORE_STEPS)
     g, cem = sess.g, sess.cem
     lr = torch.from_numpy(sess.lr_img).to(sess.device)
     check(sess._d is not None and not any(p.requires_grad for p in g.parameters()),
@@ -1649,6 +1689,423 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
     return counts
 
 
+# -- phase 10: blind SR and the generator variants -----------------------------
+
+BLIND_LR = 96  # blind_bench's larger LR: 1/f HR 384 images, their Gaussian LR
+BLIND_ITERS = 200  # the estimator iterations of the blind CLIs' runs
+BENCH_ITERS = 2000  # blind_bench's adversarial estimate
+BLIND_DEVICE = "cuda"
+SIMT_BF16 = kpack_conv.LAUNCHES_SIMT[(3, "bf16")]
+VARIANT_COUNTERS = COUNTERS + (SIMT_BF16,)
+ZERO_BY_DESIGN = {p: ("rdb5c", "upsample2x_conv3x3") for p in ("srresnet", "srresnet_train")}
+F32_SIMT = (rdb_conv.LAUNCHES_SIMT["f32"], kpack_conv.LAUNCHES_SIMT[(3, "f32")],
+            kpack_conv.LAUNCHES_SIMT[(2, "f32")])
+
+
+def kernel_tuple(k) -> tuple:
+    return tuple(map(tuple, np.asarray(k, np.float64)))
+
+
+def cem_tol(kernel) -> float:
+    """The CEM residual's f32 limit under ``kernel``: the rounding of a
+    correlation grows with sum |k|, 1 for a nonnegative unit-sum kernel and
+    ~11 for a sign-mixed 200-iteration estimate."""
+    return CEM_TOL * max(1.0, float(np.abs(np.asarray(kernel, np.float64)).sum()))
+
+
+def blind_lr(seed: int, k_true) -> tuple[np.ndarray, np.ndarray]:
+    """A 1/f HR 384 image and its LR 96 under the true kernel (H on the card)."""
+    hr = blind_bench.one_f_image(BLIND_LR * SCALE, BLIND_LR * SCALE, seed)
+    cem = make_cem(CEMConf(scale=SCALE, kernel=kernel_tuple(k_true)), device=BLIND_DEVICE)
+    with torch.no_grad():
+        lr = cem.downsample(torch.from_numpy(hr)[None].to(BLIND_DEVICE)).clamp(0.0, 1.0)[0].cpu().numpy()
+    return hr, lr
+
+
+@torch.no_grad()
+def blind_cem_checks() -> None:
+    """(a) CEM's fft and filter modes in f32 on B4 x LR 128 random G outputs
+    (HR 512), under the anisotropic Gaussian and the MATLAB-bicubic 2-D
+    kernel, with cuDNN's TF32 at its global default (on): TF32 is off inside
+    CEM's convs. ms per ``project`` at B16 x LR 128."""
+    torch.backends.cudnn.allow_tf32 = True  # the global default
+    try:
+        gen_ = torch.Generator(BLIND_DEVICE).manual_seed(40)
+        raw = torch.rand(4, 4 * LR, 4 * LR, 3, device=BLIND_DEVICE, generator=gen_) * 3 - 1
+        lr = torch.rand(4, LR, LR, 3, device=BLIND_DEVICE, generator=gen_)
+        kernels = {"aniso Gaussian 13x13": blind_bench.gaussian_kernel(),
+                   "bicubic 2-D 16x16": downsample_kernel_2d(SCALE)[0]}
+        cems = {}
+        for name, k in kernels.items():
+            cem = cems[name] = make_cem(CEMConf(scale=SCALE, kernel=kernel_tuple(k)), device=BLIND_DEVICE)
+            res = max_err(cem.downsample(cem.project(raw, lr)), lr)
+            ref64 = make_cem(CEMConf(scale=SCALE, kernel=kernel_tuple(k)), device="cpu").downsample(
+                raw[:1].double().cpu())
+            e64 = max_err(cem.downsample(raw[:1]).cpu(), ref64)
+            x, y = raw[:1].double(), lr[:1].double()
+            a = float((cem.downsample(x) * y).sum())
+            b = float((x * cem.upsample_transpose(y, x.shape)).sum())
+            check(cem._mode == "fft" and res <= CEM_TOL and e64 <= 1e-5 and abs(a - b) <= 1e-9 * abs(a),
+                  f"CEM fft, {name}, B4 x LR 128, cuDNN TF32 default on: residual max|H(project) - lr| {res:.3g} <= "
+                  f"{CEM_TOL}; H against f64 {e64:.3g} <= 1e-5 (no TF32); <Hx,y> - <x,H^T y> {abs(a - b):.3g} "
+                  f"of {abs(a):.4g} (f64)")
+        cem_m = make_cem(CEMConf(scale=SCALE), device=BLIND_DEVICE)
+        cem_f = make_cem(CEMConf(scale=SCALE, inv_mode="fft"), device=BLIND_DEVICE)
+        e = max(max_err(cem_m.project(raw, lr), cem_f.project(raw, lr)),
+                max_err(cem_m.dt_satisfying_upscale(lr), cem_f.dt_satisfying_upscale(lr)))
+        check(e <= 2e-4, f"CEM bicubic: fft mode == matmul mode, project and H^+: max diff {e:.3g} <= 2e-4")
+        for name, k in kernels.items():
+            cem33 = make_cem(CEMConf(scale=SCALE, kernel=kernel_tuple(k), inv_mode="filter", inv_filter_support=33),
+                             device=BLIND_DEVICE)
+            res33 = max_err(cem33.downsample(cem33.project(raw, lr)), lr)
+            check(res33 < 2e-3, f"CEM filter mode, support 33, {name}: residual {res33:.3g} < 2e-3")
+        raw16 = torch.rand(B, 4 * LR, 4 * LR, 3, device=BLIND_DEVICE, generator=gen_)
+        lr16 = torch.rand(B, LR, LR, 3, device=BLIND_DEVICE, generator=gen_)
+        for name, cem in (("bicubic matmul", cem_m), ("bicubic fft", cem_f),
+                          ("aniso Gaussian fft", cems["aniso Gaussian 13x13"]),
+                          ("bicubic filter 33", make_cem(CEMConf(scale=SCALE, inv_mode="filter",
+                                                                 inv_filter_support=33), device=BLIND_DEVICE))):
+            print(f"CEM project B{B} x LR {LR} (HR {4 * LR}), {name}: "
+                  f"{cuda_ms(lambda c=cem: c.project(raw16, lr16), reps=5, warmup=2, windows=3):.3f} ms", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def kernelgan_checks(tmp: Path) -> tuple[np.ndarray, dict]:
+    """(b) KernelGAN on the card: the effective-kernel identity, the
+    supervised probe, the adversarial estimate through ``blind_bench``, and
+    where an iteration's time goes. Returns the LR 96 image and the bench row."""
+    conf = kernelgan.KernelGANConf()
+    g = kernelgan.LinearKernelG(conf, seed=3).to(BLIND_DEVICE)
+    x = torch.rand(1, BLIND_LR, BLIND_LR, 1, device=BLIND_DEVICE, generator=torch.Generator(BLIND_DEVICE).manual_seed(3))
+    with torch.no_grad(), full_f32():
+        k = kernelgan.effective_kernel(g, conf)
+        flat = g(x, stride=False)
+        e = max_err(flat, F.conv2d(x.permute(0, 3, 1, 2), k[None, None]).permute(0, 2, 3, 1))
+        strided = torch.equal(g(x), flat[:, ::SCALE, ::SCALE])
+    check(tuple(k.shape) == (21, 21) and e <= 1e-5 and strided,
+          f"KernelGAN effective kernel (21x21) on the card: G(x) vs one VALID correlation max err {e:.3g} <= 1e-5; "
+          f"strided G == its ::4 subsample {strided}")
+
+    k_true = blind_bench.gaussian_kernel()
+    kt = torch.tensor(k_true, dtype=torch.float32, device=BLIND_DEVICE)[None, None]
+
+    def loss_override(fake, g_in):  # tests/test_kernelgan.py's oracle: centred SAME conv on G's phase
+        full = F.conv2d(g_in.permute(0, 3, 1, 2), kt, padding=6).permute(0, 2, 3, 1)
+        return torch.mean((fake - full[:, 6::4, 6::4][:, : fake.shape[1], : fake.shape[2]]) ** 2)
+
+    probe = kernelgan.KernelGANConf(scale=4, g_kernels=(7, 5, 3, 1), g_channels=16, d_kernels=(5, 1, 1),
+                                    d_channels=16, g_input=32, iters=1000, lr_g=2e-3, w_centralized=0.1,
+                                    w_boundaries=0.1)
+    img = np.random.default_rng(2).random((96, 96)).astype(np.float32)
+    t0 = time.perf_counter()
+    k_est, m = kernelgan.estimate_kernel(img, probe, loss_override=loss_override, device=BLIND_DEVICE)
+    secs = time.perf_counter() - t0
+    corr = blind_bench.aligned_corr(k_est, k_true)
+    check(corr > 0.88 and abs(k_est.sum() - 1) < 1e-6,
+          f"KernelGAN supervised probe (tests/test_kernelgan.py's conf, 1000 iterations): aligned corr {corr:.4f} > "
+          f"0.88, unit sum; {secs:.2f} s ({secs:.3f} ms per iteration x 1000), l_g {m['l_g']:.5f}")
+
+    # the adversarial estimator as blind_bench runs it (G nf 16 / nb 2 / gc 8 in f32: the f32 SIMT kernels)
+    row, counts, secs = counted(lambda: blind_bench.run_case("aniso_gauss", k_true, BLIND_LR, BENCH_ITERS, seed=0,
+                                                             device=BLIND_DEVICE), F32_SIMT)
+    fin = all(math.isfinite(row[f"{p}_{lab}"]) for p in ("psnr", "true_res") for lab in ("est", "true", "bicubic"))
+    check(fin and row["self_res_true"] <= CEM_TOL and row["self_res_bicubic"] <= CEM_TOL
+          and row["true_res_true"] <= CEM_TOL and all(counts.values()),
+          f"blind_bench aniso_gauss LR {BLIND_LR}, {BENCH_ITERS} iterations (adversarial): corr {row['corr']:.4f}; PSNR "
+          f"est/true/bicubic {row['psnr_est']:.2f}/{row['psnr_true']:.2f}/{row['psnr_bicubic']:.2f} dB; true-operator "
+          f"residual est/true/bicubic {row['true_res_est']:.3g}/{row['true_res_true']:.3g}/{row['true_res_bicubic']:.3g};"
+          f" self residual est {row['self_res_est']:.3g}; estimate {row['estimate_s']:.2f} s "
+          f"({row['estimate_s'] * 1e3 / BENCH_ITERS:.3f} ms per iteration); f32 SIMT launches {counts}")
+    # where an iteration's time goes: one chunk of 100, profiled
+    _, lr96 = blind_lr(0, k_true)
+    from torch.profiler import ProfilerActivity, profile
+
+    c100 = kernelgan.conf_for_image(lr96.shape, SCALE, 100)
+    kernelgan.estimate_kernel(lr96, c100, device=BLIND_DEVICE)  # warm
+    t0 = time.perf_counter()
+    kernelgan.estimate_kernel(lr96, c100, device=BLIND_DEVICE)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernelgan.estimate_kernel(lr96, c100, device=BLIND_DEVICE)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    print(f"KernelGAN iteration (default conf, g_input 64, LR {BLIND_LR}): {wall / 100:.3f} ms unprofiled; device busy "
+          f"{busy / 100:.3f} ms, idle {100 - 100 * busy / wall:.1f}%; {sum(e.count for e in ops) // 100} device ops per "
+          "iteration", flush=True)
+    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:5]:
+        print(f"  {e.self_device_time_total / 1e3 / 100:9.4f} ms/iter x{e.count // 100:<4d} {e.key[:90]}", flush=True)
+    return lr96, row
+
+
+def blind_cli_checks(tmp: Path, lr96: np.ndarray) -> str:
+    """(c) ``scripts.estimate_kernel`` at 200 iterations on the LR 96 PNG;
+    returns the PNG's path."""
+    png_path = tmp / "blind_lr.png"
+    save_img(tensor2img(lr96), str(png_path))
+    out = tmp / "kernel_x4.npy"
+    t0 = time.perf_counter()
+    estimate_kernel_cli.main(["--lr", str(png_path), "--iters", str(BLIND_ITERS), "--out", str(out),
+                              "--watchdog", "0", "--device", BLIND_DEVICE])
+    secs = time.perf_counter() - t0
+    k = np.load(out)
+    loaded = np.asarray(resolve_kernel(str(out)))
+    check(k.shape == (21, 21) and abs(k.sum() - 1) < 1e-6 and loaded.shape == (21, 21),
+          f"estimate_kernel CLI, {BLIND_ITERS} iterations on the LR {BLIND_LR} PNG: a unit-sum 21x21 .npy that "
+          f"resolve_kernel loads; {secs:.2f} s")
+    return str(png_path)
+
+
+def true_residual(cem_true, res_dir: Path, lr_dir: Path) -> float:
+    worst = 0.0
+    for f in sorted(lr_dir.iterdir()):
+        sr = torch.from_numpy(read_img(str(res_dir / f.name)))[None].to(BLIND_DEVICE)
+        lr = torch.from_numpy(read_img(str(f)))[None].to(BLIND_DEVICE)
+        worst = max(worst, max_err(cem_true.downsample(sr), lr))
+    return worst
+
+
+def blind_eval_checks(tmp: Path, pth: str) -> dict:
+    """(d) Blind eval through ``test.main --estimate_kernel 200`` at the
+    flagship width on an LRHR folder (two 1/f HR 384 images, their Gaussian
+    LR), beside the run without the flag. The wiring's check, as
+    tests/test_torch_blind.py makes it: G's output zeroed (SR = the CEM
+    low-frequency term, so no clipping hides the operator), the estimator
+    returning the true kernel, against the same G without the flag. Returns
+    the launches of the estimated run."""
+    k_true = blind_bench.gaussian_kernel()
+    hr_dir, lr_dir = tmp / "blind_hr", tmp / "blind_lr"
+    for i in range(2):
+        hr, lr = blind_lr(10 + i, k_true)
+        save_img(tensor2img(hr), str(hr_dir / f"img{i}.png"))
+        save_img(tensor2img(lr), str(lr_dir / f"img{i}.png"))
+    zero_pth = str(tmp / "G_zero_out.pth")
+    sd = torch.load(pth)
+    torch.save({k: torch.zeros_like(v) if k.startswith("conv_last.") else v for k, v in sd.items()}, zero_pth)
+    cem_true = make_cem(CEMConf(scale=SCALE, kernel=kernel_tuple(k_true)), device=BLIND_DEVICE)
+    ds = {"test_1": {"name": "blind", "mode": "LRHR", "dataroot_HR": str(hr_dir), "dataroot_LR": str(lr_dir)}}
+    runs = {}
+    est = ["--estimate_kernel", str(BLIND_ITERS)]
+    for label, g_path, flags in (("estimated", pth, est), ("no flag", pth, []),
+                                 ("true kernel, G zeroed", zero_pth, est), ("no flag, G zeroed", zero_pth, [])):
+        opt = flagship_options(tmp, g_path, "blind_" + label.replace(" ", "_").replace(",", ""), ds, num_random_Z=0)
+        orig, used = kernelgan.estimate_kernel, [None]
+
+        def estimate(*a, **kw):  # records the kernel the model is built under
+            k, m = (k_true.copy(), {"l_g": 0.0}) if label.startswith("true kernel") else orig(*a, **kw)
+            used[0] = k
+            return k, m
+
+        kernelgan.estimate_kernel = estimate
+        try:
+            res, counts, secs = run_cli(tmp, opt, "--save_images", "--device", BLIND_DEVICE, *flags)
+        finally:
+            kernelgan.estimate_kernel = orig
+        tres = true_residual(cem_true, tmp / "results" / opt["name"] / "blind", lr_dir)
+        runs[label] = (res["blind"], counts, secs, tres)
+        tol = cem_tol(1.0 if used[0] is None else used[0])
+        check(counts == {k: 2 * v for k, v in EXPECTED_PER_FORWARD.items()} and res["blind"]["cem_residual"] <= tol,
+              f"blind eval ({label}, flagship, 2 x LR {BLIND_LR}): launches {counts} (2 forwards); CEM residual under "
+              f"its kernel {res['blind']['cem_residual']:.3g} <= {tol:.3g}; SR true-operator residual {tres:.3g}; "
+              f"PSNR {res['blind']['psnr']:.2f} dB; {secs:.2f} s ({secs * 1e3 / 2:.1f} ms per image, the estimate "
+              "included)")
+    t_est, t_off, t_true, t_off0 = (runs[k][3] for k in runs)
+    check(t_true < 5e-3 and t_off0 > 10 * t_true,
+          f"blind eval, G zeroed, the estimator returning the true kernel: true-operator residual {t_true:.3g} < 5e-3, "
+          f"the bicubic assumption's {t_off0:.3g} > 10x that")
+    print(f"note  blind eval with the {BLIND_ITERS}-iteration estimate: true-operator residual {t_est:.3g} against "
+          f"{t_off:.3g} without the flag ({'lower' if t_est < t_off else 'not lower'})", flush=True)
+    return runs["estimated"][1]
+
+
+def blind_explore_checks(tmp: Path, pth: str, lr_png: str) -> dict:
+    """(e) The explorer's session with ``estimate_kernel_iters`` 200 on the
+    LR 96 PNG, then one 64-step smooth click through the kernels."""
+    opt = flagship_options(tmp, pth, "blind_explore", {})
+    opt_path = tmp / "blind_explore.json"
+    opt_path.write_text(json.dumps(opt))
+    t0 = time.perf_counter()
+    sess = explore_cli.build_session_from_opt(str(opt_path), lr_png, estimate_kernel_iters=BLIND_ITERS,
+                                              device=BLIND_DEVICE)
+    built = time.perf_counter() - t0
+    log = SearchLog(sess._optimizer)
+    sess._optimizer = log
+    forwards = [0]
+    hook = sess.g.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    sess.select_rect(28 * SCALE, 28 * SCALE, 68 * SCALE, 68 * SCALE)
+    lr = torch.from_numpy(sess.lr_img).to(BLIND_DEVICE)
+    sr_before = sess.current_sr().copy()
+    builds0 = [c.count for c in LAYOUT_COUNTERS]
+    forwards[0] = 0
+    _, counts, secs = counted(sess.smooth)
+    hook.remove()
+    builds = [c.count - b for c, b in zip(LAYOUT_COUNTERS, builds0)]
+    trace = log.traces[-1]
+    res = max_err(sess.cem.downsample(torch.from_numpy(sess.current_sr()).to(BLIND_DEVICE)), lr)
+    sess.undo()
+    restored = np.array_equal(sess.current_sr(), sr_before)
+    want = {k: v * forwards[0] for k, v in EXPECTED_PER_FORWARD.items()}
+    tol = cem_tol(sess.cem.conf.kernel)
+    check(sess.cem._mode == "fft" and trace[-1] < trace[0] and res <= tol and restored and builds == [0, 0]
+          and counts == want,
+          f"blind explore (estimate {BLIND_ITERS} iterations, session built in {built:.2f} s): CEM fft under the "
+          f"estimate; smooth click loss {trace[0]:.5f} -> {trace[-1]:.5f} in {len(trace)} Z steps, {secs * 1e3:.1f} ms "
+          f"({secs * 1e3 / len(trace):.2f} ms per Z step); CEM residual {res:.3g} <= {tol:.3g}; undo restores the SR "
+          f"bit for bit {restored}; layouts built {builds}; launches {counts} == {want} ({forwards[0]} G calls)")
+    return counts
+
+
+def gan_grad_band(model, what: str) -> None:
+    """G's gradients of one GAN step on a fixed B16 x HR 128 batch through the
+    kernels against the bf16 and f32 plain paths (phase 8's band)."""
+    g, cem = model.g_module, model.cem
+    ds = SyntheticDataset({"phase": "train", "n_images": B, "image_size": 160, "HR_size": TRAIN_HR})
+    hr_u8 = torch.from_numpy(np.stack([ds[i]["HR"] for i in range(B)])).to(BLIND_DEVICE)
+    batch = make_train_pipeline(num_latent_channels=NZ)(hr_u8, torch.Generator().manual_seed(0))
+
+    def grad_step(g_call):
+        cap, dcap = GradCapture(g.parameters()), GradCapture(model.d_module.parameters())
+        stats = {k: v.clone() for k, v in model.d_module.state_dict().items()}
+        step = make_gan_train_step(g_call, model.d_module, model.f_module, cem, lambda h, gen: batch,
+                                   model.opt["train"], cap, dcap, model.schedulers["G"],
+                                   step_keyed(model.schedulers["D"]))
+        metrics = step(None, torch.Generator(), 1)
+        model.d_module.load_state_dict(stats)
+        return metrics, cap.grads
+
+    (m_k, g_k), counts, _ = counted(lambda: grad_step(g))
+    _, g_b = grad_step(lambda x, zz: plain_forward(g, x, zz, torch.bfloat16))
+    _, g_f = grad_step(lambda x, zz: plain_forward(g, x, zz, torch.float32))
+    worst, rows_k, rows_b = grad_band([n for n, _ in g.named_parameters()], g_k, g_b, g_f)
+    check(worst <= 1.0 and counts == EXPECTED_PER_FORWARD and math.isfinite(float(m_k["l_g"])),
+          f"{what}: one GAN step's G gradients through the kernels vs f32 plain within twice the bf16 plain path's "
+          f"relative L2 (floor {GRAD_BAND_FLOOR:.3g}), {len(rows_k)} tensors: kernel median "
+          f"{statistics.median(rows_k):.3g} max {max(rows_k):.3g}, bf16 plain median {statistics.median(rows_b):.3g}; "
+          f"worst ratio {worst:.3f}; launches {counts}")
+
+
+@torch.no_grad()
+def variant_forward(g, what: str, counters, want: dict) -> dict:
+    """A generator variant's CEM-wrapped forward at B16 x LR 128: launches,
+    PSNR against the f32 plain path beside the bf16 plain path's, ms."""
+    cem = make_cem(CEMConf(scale=SCALE), device=BLIND_DEVICE)
+    fwd = make_eval_forward(g, cem)
+    gen_ = torch.Generator(BLIND_DEVICE).manual_seed(5)
+    lr = torch.rand(B, LR, LR, 3, device=BLIND_DEVICE, generator=gen_)
+    z = torch.rand(B, LR, LR, NZ, device=BLIND_DEVICE, generator=gen_) * 2 - 1
+    out, counts, _ = counted(lambda: fwd(lr, z), counters)
+    ref32 = cem.project(plain_forward(g, lr, z, torch.float32), lr)
+    p16 = cem.project(plain_forward(g, lr, z, torch.bfloat16), lr)
+    pk, pp = psnr(out, ref32), psnr(p16, ref32)
+    ms = cuda_ms(lambda: fwd(lr, z), reps=2, warmup=1, windows=3)
+    ms_plain = cuda_ms(lambda: cem.project(plain_forward(g, lr, z, torch.bfloat16), lr), reps=2, warmup=1, windows=3)
+    check(counts == want and pk >= pp - PSNR_MARGIN_DB and max_err(cem.downsample(out), lr) <= CEM_TOL,
+          f"{what} forward B{B} x LR {LR}: launches {counts} == {want}; PSNR vs f32 plain: kernels {pk:.2f} dB, bf16 "
+          f"plain {pp:.2f} dB (margin {PSNR_MARGIN_DB}); {ms:.2f} ms per forward, bf16 plain {ms_plain:.2f} ms")
+    return counts
+
+
+def srresnet_upconv_rows(g) -> list[dict]:
+    """The SRResNet 64 -> 256 ``upconv``s on the bf16 SIMT kernel at their
+    forward shapes: max err in phase 3's band, ms beside plain, F.conv2d and
+    the bound."""
+    rows = []
+    for i, s in ((1, LR), (2, 2 * LR)):
+        m = getattr(g, f"upconv{i}")
+        x = torch.randn(B, s, s, NF, device=BLIND_DEVICE, generator=torch.Generator(BLIND_DEVICE).manual_seed(i)).bfloat16()
+        kw = m.kernel_weights
+        w, bias = m.hwio(), m.bias
+        ref = conv3x3_reference(x.float(), w, bias, True)
+        tol = conv_bf16_band(ref, max_err(conv3x3_reference(x, w, bias, True), ref))
+        before = SIMT_BF16.count
+        e = max_err(conv_launch(x, kw, True), ref)
+        ran = SIMT_BF16.count == before + 1
+        del ref
+        xc, wb, bb = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).bfloat16(), bias.bfloat16()
+        b_ms, b_by = bound(2 * 9 * NF * 4 * NF * B * s * s, 2 * B * s * s * (NF + 4 * NF) + 2 * w.numel())
+        row = {"kernel": "conv_kernel<__nv_bfloat16>", "shape": f"SRResNet upconv{i} B{B} {s}x{s} 64->256 lrelu",
+               "max_abs_err": e, "band": tol, "ms": cuda_ms(lambda: conv_launch(x, kw, True), reps=3, windows=3),
+               "plain_ms": cuda_ms(lambda: conv3x3_reference(x, w, bias, True), reps=3, windows=3),
+               "library_ms": cuda_ms(lambda: F.conv2d(xc, wb, bb, padding=1), reps=3, windows=3),
+               "bound_ms": b_ms, "bound_by": b_by}
+        check(ran and kw.route == "simt" and e <= tol,
+              f"SRResNet upconv{i} bf16 SIMT at B{B} {s}x{s} 64->256: max err {e:.3g} <= {tol:.3g}; kernel "
+              f"{row['ms']:.3f} ms, F.conv2d {row['library_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        rows.append(row)
+    return rows
+
+
+def phase_blind(tmp: Path, pth: str, rows: list[dict]) -> dict[str, dict]:
+    """Phase 10: blind SR and the generator variants; returns the launches by
+    path (SRResNet's include the SIMT ``upconv``s' under their own name)."""
+    t_phase = time.perf_counter()
+    launches = {}
+    blind_cem_checks()
+    lr96, _ = kernelgan_checks(tmp)
+    lr_png = blind_cli_checks(tmp, lr96)
+    launches["blind_eval"] = blind_eval_checks(tmp, pth)
+    launches["blind_explore"] = blind_explore_checks(tmp, pth, lr_png)
+
+    # (f) all_layers: the flagship with Z re-injected before every RRDB
+    # The reference init (Kaiming, gain sqrt 2) of the 23 unactivated 1x1 projections grows the trunk
+    # ~3000x; at unit gain the outputs stay images, and PSNR and the GAN losses mean something.
+    net_al = {"nf": NF, "nb": NB, "gc": GC, "num_latent_channels": NZ, "latent_input": "all_layers"}
+    g = define_G({"network_G": net_al, "scale": SCALE, "bf16": True}, device=BLIND_DEVICE, seed=0)
+    with torch.no_grad():
+        for proj in g.latent_proj:
+            proj.weight.mul_(2**-0.5)
+    al_pth = str(tmp / "G_all_layers.pth")
+    torch.save(g.state_dict(), al_pth)
+    launches["all_layers"] = variant_forward(g, "all_layers flagship", COUNTERS, EXPECTED_PER_FORWARD)
+    del g
+    opt = train_options(tmp / "all_layers", "train_all_layers", "train_explorable_SR.json", None, niter=2)
+    opt["network_G"]["latent_input"] = "all_layers"
+    opt["path"]["pretrain_model_G"] = al_pth
+    model = create_model(parse(opt, is_train=True), device=BLIND_DEVICE)
+    gan_grad_band(model, "all_layers")
+    ds = SyntheticDataset({"phase": "train", "n_images": B, "image_size": 160, "HR_size": TRAIN_HR})
+    model.feed_data({"HR": np.stack([ds[i]["HR"] for i in range(B)])})
+    times = []
+
+    def two_steps():
+        for s in (1, 2):
+            t0 = time.perf_counter()
+            model.optimize_parameters(s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return model.get_current_losses()
+
+    losses, counts, _ = counted(two_steps)
+    want = {k: 2 * v for k, v in EXPECTED_PER_FORWARD.items()}
+    check(counts == want and all(math.isfinite(v) for v in losses.values()),
+          f"all_layers GAN trainer, 2 steps at B{B} x HR {TRAIN_HR}: launches {counts} == {want}; l_g "
+          f"{losses['l_g']:.5f}, l_d {losses['l_d']:.5f}; {times[0]:.1f} / {times[1]:.1f} ms per step")
+    launches["all_layers_train"] = counts
+    del model
+
+    # (f) SRResNet nf 64, nb 16, x4: 36 tensor-core convs and 2 SIMT upconvs per forward
+    net_sr = {"which_model_G": "sr_resnet", "nf": NF, "nb": 16, "num_latent_channels": NZ}
+    g = define_G({"network_G": net_sr, "scale": SCALE, "bf16": True}, device=BLIND_DEVICE, seed=0)
+    per_fwd = {"rdb5c": 0, "conv3x3": 36, "upsample2x_conv3x3": 0, SIMT_BF16.name: 2}
+    launches["srresnet"] = variant_forward(g, "SRResNet nf 64 nb 16 x4", VARIANT_COUNTERS, per_fwd)
+    conv_row = next(r for r in rows if r["name"] == "conv3x3")
+    conv_row["bf16_simt"] += srresnet_upconv_rows(g)
+    del g
+    opt_sr = train_options(tmp / "srresnet", "train_srresnet", "train_RRDB_PSNR.json", None, niter=2)
+    opt_sr["network_G"] = dict(net_sr, num_latent_channels=0)
+    _, counts, secs = run_train(tmp / "srresnet", opt_sr, "--device", BLIND_DEVICE, counters=VARIANT_COUNTERS)
+    want = {k: 2 * v for k, v in per_fwd.items()}
+    srows = train_csv(tmp / "srresnet", "train_srresnet")
+    check(counts == want and len(srows) == 2 and all(math.isfinite(float(r["l_pix"])) for r in srows),
+          f"SRResNet SR trainer, 2 steps: launches {counts} == {want}; l_pix "
+          f"{[round(float(r['l_pix']), 5) for r in srows]}; {secs:.1f} s")
+    launches["srresnet_train"] = counts
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
 
 def main() -> int:
     env = phase_environment()
@@ -1665,12 +2122,18 @@ def main() -> int:
         by_path["serve"] = phase_serve(tmp, pth)
         train_paths = phase_train(tmp)
         by_path["explore"] = phase_explore(tmp, pth)
+        by_path.update(phase_blind(tmp, pth, rows))
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        check(all(r["launches_by_path"].values()), f"{r['name']} launched on every path: {r['launches_by_path']}")
+        # SRResNet runs no RDB and upsamples by pixel shuffle: zero there by design
+        zero = {p for p, names in ZERO_BY_DESIGN.items() if r["name"] in names}
+        check(all((n == 0) == (p in zero) for p, n in r["launches_by_path"].items()),
+              f"{r['name']} launched on every path that runs it and on none of {sorted(zero)}: {r['launches_by_path']}")
+        if r["name"] == "conv3x3":
+            r["simt_launches_by_path"] = {p: c[SIMT_BF16.name] for p, c in by_path.items() if SIMT_BF16.name in c}
         if r["name"] == "rdb5c" and rdb_train is not None:
             r["train_shape"] = dict(rdb_train, shape="x (16,32,32,64) bf16, the train step's LR 32x32")
     print(json.dumps({"kernels": rows, "card": env["card"]}), flush=True)

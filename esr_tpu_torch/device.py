@@ -1,10 +1,23 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the full-f32 context
+of the convs that the JAX package runs at ``Precision.HIGHEST``."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["full_f32", "resolve_device"]
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convs in full f32 inside (TF32 off, whatever the caller's global
+    setting); the caller's cuDNN flags are restored after."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                     allow_tf32=False):
+        yield
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -4,10 +4,11 @@ editor's workflow in a terminal; the Qt front-end in
 
 Usage::
 
-    python -m esr_tpu_torch.explore.cli -opt OPTIONS.json --lr image.png [--device cpu]
+    python -m esr_tpu_torch.explore.cli -opt OPTIONS.json --lr image.png [--device cpu] \
+        [--estimate_kernel [ITERS]]   # blind SR: estimate the kernel from
+                                      # image.png, CEM under it
 
-It runs on CUDA unless ``--device cpu`` is given. ``--estimate_kernel`` (the
-JAX package's blind-SR kernel estimate) is not ported yet and raises.
+It runs on CUDA unless ``--device cpu`` is given.
 
 Commands (one per line)::
 
@@ -45,25 +46,32 @@ import sys
 import numpy as np
 import torch
 
-_BLIND = ("--estimate_kernel (blind SR: KernelGAN kernel estimation) is not ported yet "
-          "(ROADMAP.md Queue 1 item 8)")
-
 
 def build_session_from_opt(opt_path, lr_path: str, estimate_kernel_iters=None, device="cuda"):
     """The flagship editor's session from an eval options file (a path or a
     dict) and an LR image: the model's generator (``path.pretrain_model_G``)
     and CEM on ``device``, and the discriminator of ``path.pretrain_model_D``
-    when set, for the realism tool."""
+    when set, for the realism tool. ``estimate_kernel_iters``: blind SR, the
+    downsampling kernel estimated from the LR image itself in that many
+    iterations (``esr_tpu_torch.cem.kernelgan``) and CEM run under it."""
     from esr_tpu_torch.data.util import read_img
     from esr_tpu_torch.explore.session import ExplorationSession
     from esr_tpu_torch.models import create_model
     from esr_tpu_torch.options import parse
 
-    if estimate_kernel_iters:
-        raise NotImplementedError(_BLIND)
     opt = parse(opt_path, is_train=False)
+    lr_host = read_img(lr_path)
+    if estimate_kernel_iters:
+        from esr_tpu_torch.cem.kernelgan import conf_for_image, estimate_kernel
+
+        conf = conf_for_image(lr_host.shape, int(opt.get("scale") or 4), int(estimate_kernel_iters))
+        print(f"estimating kernel from {lr_path} ({conf.iters} iters, g_input {conf.g_input})...", flush=True)
+        opt["kernel"], _ = estimate_kernel(lr_host, conf, device=device)
+        if not opt.get("use_cem"):
+            print("note: use_cem is false — the estimated kernel affects nothing; "
+                  "set use_cem: true for consistency under it", flush=True)
     model = create_model(opt, device=device)
-    sess = ExplorationSession(model.g_module, model.cem, read_img(lr_path)[None],
+    sess = ExplorationSession(model.g_module, model.cem, lr_host[None],
                               num_latent_channels=model.nz or 1, scale=int(opt.get("scale") or 4))
     d_path = (opt.get("path") or {}).get("pretrain_model_D")
     if d_path:
@@ -202,7 +210,8 @@ def main(argv=None) -> None:
     parser.add_argument("-opt", required=True)
     parser.add_argument("--lr", required=True, help="LR input image path")
     parser.add_argument("--estimate_kernel", nargs="?", const=2000, type=int, default=None,
-                        help="blind SR: estimate the downsampling kernel from the LR image (not ported yet)")
+                        help="blind SR: estimate the downsampling kernel from the LR image "
+                        "(ITERS estimator iterations, default 2000) and run CEM under it")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     sess = build_session_from_opt(args.opt, args.lr, args.estimate_kernel, device=args.device)

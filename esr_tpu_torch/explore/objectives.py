@@ -29,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from esr_tpu_torch.models.losses import local_std
+from esr_tpu_torch.models.losses import jax_abs, local_std
 
 __all__ = [
     "Objective",
@@ -71,11 +71,6 @@ class Objective(NamedTuple):
         """A copy with every tensor in ``aux`` on ``device``."""
         aux = {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in (self.aux or {}).items()}
         return self._replace(aux=aux)
-
-
-def jax_abs(x: torch.Tensor) -> torch.Tensor:
-    """``|x|`` with JAX's gradient: sign(x), and 1 at x = 0 (torch gives 0)."""
-    return x * torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ loads with :func:`load_servable`, with no options JSON:
 - ``manifest.json``: the JAX manifest's keys (scale, nz, in_nc, cem,
   self_ensemble, shape buckets, ...) plus ``"format": "esr_tpu_torch"``, the
   ``network_G`` block, ``bf16`` and the CEM's scale and kernel, which is
-  everything needed to rebuild the model;
+  everything needed to rebuild the model (a 2-D kernel, e.g. an estimated
+  one, rebuilds CEM's fft mode, as the live model has it);
 - ``G.pth``: the generator's state dict (reference ESRGAN keys).
 
 Unlike the JAX package's StableHLO artifact, this one holds no compiled

@@ -1,10 +1,12 @@
-from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, VGG19FeatureExtractor
+from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, SRResNet, VGG19FeatureExtractor
 from esr_tpu_torch.models.base_model import BaseModel, make_eval_forward
 from esr_tpu_torch.models.networks import (
     define_D,
     define_F,
     define_G,
     discriminator_state_dict_from_jax,
+    kernelgan_state_dict_from_jax,
+    srresnet_state_dict_from_jax,
     state_dict_from_jax,
     vgg_state_dict_from_jax,
 )

@@ -3,7 +3,11 @@
 - ``RRDBNet``: conv_first -> nb RRDB blocks -> trunk conv (+residual) ->
   nearest-upsample + conv stages -> HR conv -> last conv. The explorable fork
   feeds ``num_latent_channels`` extra Z-map channels, concatenated at the
-  input.
+  input (``latent_input='first_layer'``), and with ``'all_layers'`` also
+  re-injected before every RRDB through a 1x1 ``latent_proj``.
+- ``SRResNet``: conv_first -> nb conv-ReLU-conv residual blocks (no BN) ->
+  trunk conv (+residual) -> conv + pixel-shuffle stages -> HR conv -> last
+  conv; the same Z-map input as RRDBNet.
 - ``DiscriminatorVGG128``: the VGG-style 10-conv strided stack (BatchNorm
   after all but the first conv, LeakyReLU 0.2) and two linear heads -> one
   logit.
@@ -24,12 +28,15 @@ from torch import nn
 
 from esr_tpu_torch.models.blocks import (
     RRDB,
+    Conv1x1,
     ConvLRelu,
     FusedUpsampleConvLRelu,
+    ResidualBlockNoBN,
+    pixel_shuffle,
     upsample_nearest,
 )
 
-__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "RRDBNet", "VGG19FeatureExtractor"]
+__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "RRDBNet", "SRResNet", "VGG19FeatureExtractor"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -43,43 +50,18 @@ def _up_factors(scale: int) -> tuple[int, ...]:
     return table[scale]
 
 
-class RRDBNet(nn.Module):
-    """NHWC RRDB generator. Parameters are f32 under the reference ESRGAN
-    state_dict keys; the convs compute in ``dtype`` and the output is f32.
-    Weights are seeded Kaiming(x0.1 on residual branches) from ``seed``."""
+class _Generator(nn.Module):
+    """The kernel-layout surface the models call on any generator."""
 
-    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 23, gc: int = 32,
-                 scale: int = 4, num_latent_channels: int = 0, latent_input: str = "first_layer",
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
-        super().__init__()
-        if latent_input == "all_layers" and num_latent_channels:
-            raise NotImplementedError(
-                "latent_input='all_layers' is not ported yet (ROADMAP.md Queue 1 item 2)")
-        if latent_input not in ("first_layer", "all_layers", "none"):
-            raise ValueError(f"unknown latent_input {latent_input!r}")
-        self.num_latent_channels = num_latent_channels
-        self.scale = scale
-        self.dtype = dtype
-        g = torch.Generator().manual_seed(seed)
-        self.conv_first = ConvLRelu(in_nc + num_latent_channels, nf, act=False, generator=g)
-        self.RRDB_trunk = nn.ModuleList(RRDB(nf, gc, g) for _ in range(nb))
-        self.trunk_conv = ConvLRelu(nf, nf, act=False, init_scale=0.1, generator=g)
-        for i, r in enumerate(_up_factors(scale)):
-            # 2x stages take the 4-parity rewrite; odd factors (x3) the
-            # materialized nearest upsample + conv
-            up = FusedUpsampleConvLRelu if r == 2 else ConvLRelu
-            self.add_module(f"upconv{i + 1}", up(nf, nf, act=True, generator=g))
-        self.HRconv = ConvLRelu(nf, nf, act=True, generator=g)
-        self.conv_last = ConvLRelu(nf, out_nc, act=False, generator=g)
+    def _kernel_modules(self) -> list[nn.Module]:
+        """The modules whose forward runs a CUDA kernel."""
+        return [m for m in self.modules() if isinstance(m, ConvLRelu)]
 
     def prepare_kernels(self) -> None:
         """Build every kernel's weight layout once, in ``dtype``, from the
         weights as they are now (on the CPU: nothing to build). Call it again
         after changing the weights."""
-        convs = [self.conv_first, self.trunk_conv, self.HRconv, self.conv_last]
-        convs += [getattr(self, f"upconv{i + 1}") for i in range(len(_up_factors(self.scale)))]
-        rdbs = [rdb for blk in self.RRDB_trunk for rdb in (blk.RDB1, blk.RDB2, blk.RDB3)]
-        for m in convs + rdbs:
+        for m in self._kernel_modules():
             m.prepare_kernel(self.dtype)
 
     def release_kernels(self) -> None:
@@ -89,22 +71,104 @@ class RRDBNet(nn.Module):
             if hasattr(m, "prepare_kernel"):
                 m.kernel_weights = None
 
+    def _input(self, lr: torch.Tensor, z: torch.Tensor | None) -> torch.Tensor:
+        """LR, with the Z map (zeros when None) concatenated when the net has one."""
+        if not self.num_latent_channels:
+            return lr
+        if z is None:
+            z = lr.new_zeros(lr.shape[:-1] + (self.num_latent_channels,))
+        return torch.cat([lr, z.to(lr.dtype)], dim=-1)
+
+
+class RRDBNet(_Generator):
+    """NHWC RRDB generator. Parameters are f32 under the reference ESRGAN
+    state_dict keys (``latent_proj.{i}`` for the per-block Z projections of
+    ``latent_input='all_layers'``, as ``esr_tpu``'s ``rrdb_to_torch`` names
+    them); the convs compute in ``dtype`` and the output is f32. Weights are
+    seeded Kaiming(x0.1 on residual branches) from ``seed``."""
+
+    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 23, gc: int = 32,
+                 scale: int = 4, num_latent_channels: int = 0, latent_input: str = "first_layer",
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        if latent_input not in ("first_layer", "all_layers", "none"):
+            raise ValueError(f"unknown latent_input {latent_input!r}")
+        self.num_latent_channels = num_latent_channels
+        self.scale = scale
+        self.dtype = dtype
+        self.all_layers = latent_input == "all_layers" and bool(num_latent_channels)
+        g = torch.Generator().manual_seed(seed)
+        self.conv_first = ConvLRelu(in_nc + num_latent_channels, nf, act=False, generator=g)
+        self.RRDB_trunk = nn.ModuleList(RRDB(nf, gc, g) for _ in range(nb))
+        if self.all_layers:
+            self.latent_proj = nn.ModuleList(Conv1x1(nf + num_latent_channels, nf, g) for _ in range(nb))
+        self.trunk_conv = ConvLRelu(nf, nf, act=False, init_scale=0.1, generator=g)
+        for i, r in enumerate(_up_factors(scale)):
+            # 2x stages take the 4-parity rewrite; odd factors (x3) the
+            # materialized nearest upsample + conv
+            up = FusedUpsampleConvLRelu if r == 2 else ConvLRelu
+            self.add_module(f"upconv{i + 1}", up(nf, nf, act=True, generator=g))
+        self.HRconv = ConvLRelu(nf, nf, act=True, generator=g)
+        self.conv_last = ConvLRelu(nf, out_nc, act=False, generator=g)
+
+    def _kernel_modules(self) -> list[nn.Module]:
+        """The RDB kernel runs each RDB; its five convs run inside it."""
+        convs = [self.conv_first, self.trunk_conv, self.HRconv, self.conv_last]
+        convs += [getattr(self, f"upconv{i + 1}") for i in range(len(_up_factors(self.scale)))]
+        return convs + [rdb for blk in self.RRDB_trunk for rdb in (blk.RDB1, blk.RDB2, blk.RDB3)]
+
     def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
         """lr: (N, H, W, in_nc) in [0, 1]; z: (N, H, W, num_latent_channels) or None."""
-        if self.num_latent_channels:
-            if z is None:
-                z = lr.new_zeros(lr.shape[:-1] + (self.num_latent_channels,))
-            x = torch.cat([lr, z.to(lr.dtype)], dim=-1)
-        else:
-            x = lr
+        x = self._input(lr, z)
         fea = self.conv_first(x.to(self.dtype))
         trunk = fea
-        for block in self.RRDB_trunk:
+        zc = x[..., -self.num_latent_channels :].to(self.dtype) if self.all_layers else None
+        for i, block in enumerate(self.RRDB_trunk):
+            if zc is not None:  # Z re-injected before every RRDB
+                trunk = self.latent_proj[i](torch.cat([trunk, zc], dim=-1))
             trunk = block(trunk)
         fea = fea + self.trunk_conv(trunk)
         for i, r in enumerate(_up_factors(self.scale)):
             up = getattr(self, f"upconv{i + 1}")
             fea = up(fea) if isinstance(up, FusedUpsampleConvLRelu) else up(upsample_nearest(fea, r))
+        return self.conv_last(self.HRconv(fea)).float()
+
+
+class SRResNet(_Generator):
+    """NHWC SRResNet / MSRResNet generator (``which_model_G: sr_resnet``):
+    conv_first + lrelu -> ``block{i}`` (conv, ReLU, conv, + identity) ->
+    trunk_conv (+residual) -> per stage ``upconv{i}`` (nf -> nf r^2), pixel
+    shuffle, lrelu -> HRconv + lrelu -> conv_last. The module names are the
+    flax ones; the JAX package exports no torch keys for this net. Every conv
+    is ``ConvLRelu``, so a 3x3 ``conv3x3`` kernel (the lrelu after the pixel
+    shuffle is elementwise, so it runs in the conv's epilogue)."""
+
+    def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64, nb: int = 16, scale: int = 4,
+                 num_latent_channels: int = 0, dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        self.num_latent_channels = num_latent_channels
+        self.scale = scale
+        self.dtype = dtype
+        self.nb = nb
+        g = torch.Generator().manual_seed(seed)
+        self.conv_first = ConvLRelu(in_nc + num_latent_channels, nf, act=True, generator=g)
+        for i in range(nb):
+            self.add_module(f"block{i}", ResidualBlockNoBN(nf, g))
+        self.trunk_conv = ConvLRelu(nf, nf, act=False, init_scale=0.1, generator=g)
+        for i, r in enumerate(_up_factors(scale)):
+            self.add_module(f"upconv{i + 1}", ConvLRelu(nf, nf * r * r, act=True, generator=g))
+        self.HRconv = ConvLRelu(nf, nf, act=True, generator=g)
+        self.conv_last = ConvLRelu(nf, out_nc, act=False, generator=g)
+
+    def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
+        """lr: (N, H, W, in_nc) in [0, 1]; z: (N, H, W, num_latent_channels) or None."""
+        fea = self.conv_first(self._input(lr, z).to(self.dtype))
+        trunk = fea
+        for i in range(self.nb):
+            trunk = getattr(self, f"block{i}")(trunk)
+        fea = fea + self.trunk_conv(trunk)
+        for i, r in enumerate(_up_factors(self.scale)):
+            fea = pixel_shuffle(getattr(self, f"upconv{i + 1}")(fea), r)
         return self.conv_last(self.HRconv(fea)).float()
 
 

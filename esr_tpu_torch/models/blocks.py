@@ -36,12 +36,15 @@ from esr_tpu_torch.ops.cuda.rdb_conv import (
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3
 
 __all__ = [
+    "Conv1x1",
     "ConvLRelu",
     "FusedUpsampleConvLRelu",
     "RRDB",
+    "ResidualBlockNoBN",
     "ResidualDenseBlock5C",
     "kaiming_scaled",
     "lrelu",
+    "pixel_shuffle",
     "upsample_nearest",
 ]
 
@@ -113,6 +116,32 @@ class FusedUpsampleConvLRelu(ConvLRelu):
         return upsample2x_conv3x3(x, self.hwio(), self.bias, act=True)
 
 
+class Conv1x1(nn.Module):
+    """1x1 conv + bias, no activation: a channel matmul in the input's dtype
+    (the ``latent_proj`` of ``latent_input='all_layers'``; no kernel)."""
+
+    def __init__(self, in_ch: int, features: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(kaiming_scaled((features, in_ch, 1, 1), 1.0, generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return F.linear(x, self.weight[:, :, 0, 0].to(dt), self.bias.to(dt))
+
+
+class ResidualBlockNoBN(nn.Module):
+    """SRResNet's residual block: conv, ReLU, conv, + identity (no BN)."""
+
+    def __init__(self, nf: int = 64, generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv1 = ConvLRelu(nf, nf, act=False, init_scale=0.1, generator=generator)
+        self.conv2 = ConvLRelu(nf, nf, act=False, init_scale=0.1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.conv2(F.relu(self.conv1(x)))
+
+
 class ResidualDenseBlock5C(nn.Module):
     """5-conv dense block: conv_k sees concat(x, x1..x_{k-1}); out = x + 0.2*x5."""
 
@@ -153,6 +182,15 @@ class RRDB(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + 0.2 * self.RDB3(self.RDB2(self.RDB1(x)))
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Depth-to-space, NHWC, with ``torch.pixel_shuffle``'s channel-major
+    subpixels: out[h*r + i, w*r + j, c] = x[h, w, c*r*r + i*r + j]."""
+    n, h, w, c = x.shape
+    r = int(factor)
+    x = x.reshape(n, h, w, c // (r * r), r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, h * r, w * r, c // (r * r))
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:

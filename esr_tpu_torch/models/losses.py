@@ -9,6 +9,8 @@
 - ``map_loss``: ties the local-std difference between SR and HR to the
   window-averaged Z map, which makes Z a variance control.
 - ``pixel_loss`` (l1 / l2 / Charbonnier), ``perceptual_l1``, ``tv_loss``.
+- ``jax_abs``: ``|x|`` with ``jnp.abs``'s gradient (1 at 0, where torch's
+  is 0), for the losses whose JAX originals take ``jnp.abs``.
 
 Tensors are NHWC, as in the JAX package. Pure functions of tensors ->
 0-d tensors.
@@ -23,6 +25,7 @@ __all__ = [
     "charbonnier",
     "gan_loss",
     "gradient_penalty",
+    "jax_abs",
     "local_std",
     "map_loss",
     "perceptual_l1",
@@ -32,6 +35,11 @@ __all__ = [
     "range_loss",
     "tv_loss",
 ]
+
+
+def jax_abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with JAX's gradient: sign(x), and 1 at x = 0 (torch gives 0)."""
+    return x * torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
 def _bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:

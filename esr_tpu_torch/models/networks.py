@@ -1,10 +1,11 @@
 """Network factories and the JAX -> port weight bridges (port of
 esr_tpu/models/networks.py): ``define_G`` / ``define_D`` / ``define_F`` build
-the generator, the discriminator and the frozen VGG19 feature extractor from
-the reference options dict; ``state_dict_from_jax``,
-``discriminator_state_dict_from_jax`` and ``vgg_state_dict_from_jax`` turn the
+the generator (RRDBNet or SRResNet), the discriminator and the frozen VGG19
+feature extractor from the reference options dict; ``state_dict_from_jax``,
+``srresnet_state_dict_from_jax``, ``discriminator_state_dict_from_jax``,
+``vgg_state_dict_from_jax`` and ``kernelgan_state_dict_from_jax`` turn the
 JAX package's param trees into the port's state_dicts (the reference torch
-keys)."""
+keys where there are any)."""
 
 from __future__ import annotations
 
@@ -16,29 +17,42 @@ import torch
 
 from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.data.util import parse_size
-from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, VGG19FeatureExtractor
+from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, SRResNet, VGG19FeatureExtractor
 
 __all__ = [
     "define_D",
     "define_F",
     "define_G",
     "discriminator_state_dict_from_jax",
+    "kernelgan_state_dict_from_jax",
+    "srresnet_state_dict_from_jax",
     "state_dict_from_jax",
     "vgg_state_dict_from_jax",
 ]
 
 
-def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> RRDBNet:
-    """RRDB generator from the reference options dict (``network_G`` block:
-    ``which_model_G``, ``nf``, ``nb``, ``in_nc``, ``out_nc``, ``gc``,
-    ``latent_input``, ``num_latent_channels``; top-level ``scale`` and
-    ``bf16``), in eval mode on ``device`` with seeded weights. ``fold`` and
-    ``packed`` are accepted and change nothing: per-image math is identical."""
+def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> RRDBNet | SRResNet:
+    """The generator from the reference options dict (``network_G`` block:
+    ``which_model_G`` (``RRDB_net`` or ``sr_resnet``), ``nf``, ``nb``,
+    ``in_nc``, ``out_nc``, ``gc``, ``latent_input``, ``num_latent_channels``;
+    top-level ``scale`` and ``bf16``), in eval mode on ``device`` with seeded
+    weights. ``fold`` and ``packed`` are accepted and change nothing:
+    per-image math is identical."""
     dev = resolve_device(device)
     o = opt["network_G"]
     which = (o.get("which_model_G") or "RRDB_net").lower()
     if which in ("sr_resnet", "srresnet", "msrresnet"):
-        raise NotImplementedError("SRResNet is not ported yet (ROADMAP.md Queue 1 item 2)")
+        g = SRResNet(
+            in_nc=int(o.get("in_nc") or 3),
+            out_nc=int(o.get("out_nc") or 3),
+            nf=int(o.get("nf") or 64),
+            nb=int(o.get("nb") or 16),
+            scale=int(opt.get("scale") or 4),
+            num_latent_channels=int(o.get("num_latent_channels") or 0),
+            dtype=_dtype(opt),
+            seed=seed,
+        )
+        return g.to(dev).eval()
     if which not in ("rrdb_net", "rrdbnet", "rrdb"):
         raise NotImplementedError(f"generator {which} not supported")
     latent = o.get("latent_input") or opt.get("latent_input")
@@ -105,23 +119,25 @@ def _index_tree(tree, i: int):
 def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """The JAX package's RRDBNet param tree (nested dicts of arrays, scan
     layout ``rrdb_scan/block`` with a leading (nb,) axis or unrolled
-    ``rrdb{i}``) -> this port's ``state_dict`` (reference ESRGAN keys, OIHW).
-    Loads with ``load_state_dict(strict=True)``."""
+    ``rrdb{i}``) -> this port's ``state_dict`` (reference ESRGAN keys, OIHW;
+    the ``all_layers`` projections ``rrdb_scan/latent_proj`` or
+    ``latent_proj{i}`` as ``latent_proj.{i}``, the keys of ``esr_tpu``'s
+    ``rrdb_to_torch``). Loads with ``load_state_dict(strict=True)``."""
     if "params" in params and "conv_first" not in params:
         params = params["params"]
-    if any(k.startswith("latent_proj") for k in params) or "latent_proj" in params.get(
-        "rrdb_scan", {}
-    ):
-        raise NotImplementedError(
-            "latent_input='all_layers' weights are not ported yet (ROADMAP.md Queue 1 item 2)")
     if "rrdb_scan" in params:
         stacked = params["rrdb_scan"]["block"]
         nb = int(np.asarray(stacked["rdb1"]["conv1"]["Conv_0"]["kernel"]).shape[0])
         blocks = [_index_tree(stacked, i) for i in range(nb)]
+        sp = params["rrdb_scan"].get("latent_proj")
+        projs = [] if sp is None else [_index_tree(sp, i) for i in range(nb)]
     else:
         nb = sum(1 for k in params if re.fullmatch(r"rrdb\d+", k))
         blocks = [params[f"rrdb{i}"] for i in range(nb)]
+        projs = [params[f"latent_proj{i}"] for i in range(nb) if f"latent_proj{i}" in params]
     out: dict = {}
+    for i, p in enumerate(projs):
+        out.update(_conv_entries(f"latent_proj.{i}", p))
     for name in ("conv_first", "trunk_conv", "HRconv", "conv_last"):
         out.update(_conv_entries(name, params[name]))
     for i, blk in enumerate(blocks):
@@ -132,6 +148,36 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     while f"upconv{i}" in params:
         out.update(_conv_entries(f"upconv{i}", params[f"upconv{i}"]))
         i += 1
+    return out
+
+
+def srresnet_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's SRResNet param tree -> this port's ``state_dict``.
+    The JAX package has no torch export for SRResNet, so these keys are the
+    flax module names (``conv_first``, ``block{i}.conv1/conv2``,
+    ``trunk_conv``, ``upconv{i}``, ``HRconv``, ``conv_last``), OIHW, with no
+    reference counterpart. Loads with ``load_state_dict(strict=True)``."""
+    params = params.get("params", params)
+    out: dict = {}
+    for name, sub in params.items():
+        if re.fullmatch(r"block\d+", name):
+            for conv in ("conv1", "conv2"):
+                out.update(_conv_entries(f"{name}.{conv}", sub[conv]))
+        else:
+            out.update(_conv_entries(name, sub))
+    return out
+
+
+def kernelgan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX ``LinearKernelG`` or ``PatchD`` param tree (``conv{i}`` with a
+    ``kernel`` and, for D, a ``bias``) -> the port module's ``state_dict``
+    (``conv{i}.weight`` OIHW, ``conv{i}.bias``)."""
+    params = params.get("params", params)
+    out: dict = {}
+    for name, conv in params.items():
+        out[f"{name}.weight"] = _t(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+        if "bias" in conv:
+            out[f"{name}.bias"] = _t(conv["bias"])
     return out
 
 

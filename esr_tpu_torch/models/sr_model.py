@@ -1,12 +1,13 @@
 """SRModel: the PSNR-oriented trainer and the eval model (port of
 esr_tpu/models/sr_model.py).
 
-The generator comes from ``define_G`` on ``device``; its weights from
+The generator comes from ``define_G`` on ``device`` (RRDBNet, with Z at the
+first layer or at all layers, or SRResNet); its weights from
 ``path.pretrain_model_G`` (a torch ``.pth``, see ``BaseModel.load_network``)
 when set, else ``define_G``'s seeded ones (seed ``train.manual_seed``, 0 by
 default). ``use_cem`` wraps the eval forward in the CEM projection under the
-optional top-level ``kernel`` (separable kernels only: the port's CEM has
-the matmul mode).
+optional top-level ``kernel`` (a separable one takes CEM's matmul mode, a
+2-D one its fft mode); a custom kernel also synthesises the training LR.
 
 Training (``is_train``): a pixel loss (l1 / l2 / Charbonnier) on the raw
 generator output, Adam with MultiStepLR read at the global step, optional

@@ -1,7 +1,7 @@
 """Evaluation entry point (port of esr_tpu/test.py)::
 
     python -m esr_tpu_torch.test -opt esr_tpu_torch/options/test/test_explorable.json \
-        [--save_images] [--device cuda|cpu]
+        [--save_images] [--estimate_kernel [ITERS]] [--device cuda|cpu]
 
 Per test dataset: forward without autograd, optionally save SR PNGs, log the
 average PSNR/SSIM (uint8 domain, Y channel unless ``psnr_on_y: false``,
@@ -15,6 +15,13 @@ multiple of K and crops SR back; ``self_ensemble: true`` runs the x8
 dihedral mean. Metrics of the batched and the serial path are the same
 numbers: Z draws are a pure function of (image index, draw index). Runs on
 CUDA unless ``--device cpu``.
+
+Blind eval (``--estimate_kernel [ITERS]``, or ``estimate_kernel: true|ITERS``
+in a dataset block): the downsampling kernel is estimated (KernelGAN-style,
+``esr_tpu_torch.cem.kernelgan``, ITERS iterations, 2000 by default) from
+each such dataset's first LR image, and the dataset is evaluated by a model
+whose CEM (and LR assumptions) use that kernel; ``opt['kernel']`` is
+restored after, so later datasets keep their own.
 """
 
 from __future__ import annotations
@@ -38,9 +45,6 @@ from esr_tpu_torch.utils.watchdog import arm_from_opt
 
 __all__ = ["evaluate_dataset", "main"]
 
-_BLIND = ("blind eval (estimate_kernel) is not ported yet (ROADMAP.md Queue 1 item 8, blind SR); "
-          "run it with `python -m esr_tpu.test --estimate_kernel`")
-
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {dataset name: averaged metrics}."""
@@ -48,11 +52,11 @@ def main(argv=None) -> dict:
     parser.add_argument("-opt", required=True, help="path to options JSON")
     parser.add_argument("--save_images", action="store_true")
     parser.add_argument("--estimate_kernel", nargs="?", const=2000, type=int, default=None,
-                        metavar="ITERS", help="blind eval: not ported yet (raises)")
+                        metavar="ITERS", help="blind eval: estimate the downsampling kernel from each "
+                        "test dataset's first LR image (ITERS estimator iterations, default 2000) and "
+                        "evaluate with CEM under it")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.estimate_kernel is not None:
-        raise NotImplementedError(_BLIND)
     device = resolve_device(args.device)
 
     opt = parse(args.opt, is_train=False)
@@ -65,17 +69,19 @@ def main(argv=None) -> dict:
     logger = logging.getLogger("base")
     wd = arm_from_opt(opt.get("watchdog"), opt.get("watchdog_factor"), logger, label="eval")
 
-    model = None
+    base_model = None  # built once; a blind dataset gets a model of its own
     out = {}
     try:
         for phase, dataset_opt in sorted((opt["datasets"] or {}).items()):
-            if dataset_opt.get("estimate_kernel"):
-                raise NotImplementedError(_BLIND)
             test_set = create_dataset(dataset_opt)
             test_loader = create_dataloader(test_set, dataset_opt)
             name = dataset_opt.get("name") or phase
-            if model is None:
-                model = create_model(opt, device=device)
+            est = args.estimate_kernel if args.estimate_kernel is not None else dataset_opt.get("estimate_kernel")
+            if est:
+                model = _blind_model(opt, test_set, est, logger, device, wd=wd)
+            else:
+                base_model = base_model or create_model(opt, device=device)
+                model = base_model
             logger.info(f"testing [{name}]: {len(test_set)} images")
             save_dir = os.path.join(opt["path"]["results_root"], name) if args.save_images else None
             results = evaluate_dataset(model, test_loader, opt, save_dir=save_dir, wd=wd)
@@ -97,6 +103,33 @@ def main(argv=None) -> dict:
         if wd is not None:
             wd.stop()
     return out
+
+
+def _blind_model(opt: dict, test_set, est, logger, device, wd=None):
+    """The model of a blind dataset: the kernel estimated from the dataset's
+    first LR image (``est``: True for 2000 iterations, else the count), set
+    as ``opt['kernel']`` while the model is built, then restored."""
+    from esr_tpu_torch.cem.kernelgan import conf_for_image, estimate_kernel
+
+    lr0 = np.asarray(test_set[0]["LR"])
+    iters = 2000 if est is True else int(est)
+    conf = conf_for_image(lr0.shape, int(opt.get("scale") or 4), iters)
+    logger.info(f"blind eval: estimating kernel from the first LR image ({conf.iters} iters, "
+                f"g_input {conf.g_input})...")
+    progress = None
+    if wd is not None:  # a finished chunk is progress, not an image time
+        progress = lambda done, total, m: wd.beat(count=False)  # noqa: E731
+    kernel, metrics = estimate_kernel(lr0, conf, progress=progress, device=device)
+    logger.info("estimated kernel: support %dx%d, l_g %.4f" % (*kernel.shape, metrics["l_g"]))
+    if not opt.get("use_cem"):
+        logger.info("note: use_cem is false — the estimated kernel affects nothing; "
+                    "set use_cem: true for consistency under it")
+    prev = opt.get("kernel")
+    opt["kernel"] = kernel
+    try:
+        return create_model(opt, device=device)
+    finally:
+        opt["kernel"] = prev
 
 
 def _local_std_map(gray: np.ndarray, window: int = 7) -> np.ndarray:

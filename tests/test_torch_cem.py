@@ -148,11 +148,14 @@ def test_wrap_and_pad_lr_crop_match_jax(pad):
 
 @pytest.mark.parametrize("mode", ["fft", "filter"])
 def test_unported_inv_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_cem(CEMConf(scale=4, inv_mode=mode), device="cpu")
+    """The fft and filter modes, which raised until blind SR was ported, now
+    build (tests/test_torch_cem_modes.py holds them against JAX): by name,
+    and fft as ``auto``'s choice for a 2-D kernel, as in the JAX package."""
+    assert make_cem(CEMConf(scale=4, inv_mode=mode), device="cpu")._mode == mode
     g1 = np.exp(-0.5 * (np.arange(9) - 4.0) ** 2 / 4.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # 2-D kernel -> auto picks fft
-        make_cem(CEMConf(scale=4, kernel=tuple(map(tuple, np.outer(g1, g1)))), device="cpu")
+    k2 = tuple(map(tuple, np.outer(g1, g1)))
+    assert make_cem(CEMConf(scale=4, kernel=k2), device="cpu")._mode == jmake_cem(JCEMConf(scale=4, kernel=k2))._mode
+    assert make_cem(CEMConf(scale=4, kernel=k2, inv_mode=mode), device="cpu")._mode == mode
 
 
 def test_separable_custom_kernel_matches_jax():

@@ -464,3 +464,91 @@ def test_cuda_frozen_z_step_builds_no_layout(cuda):
     (dz_per_call,) = torch.autograd.grad(g(lr, z2).square().mean(), z2)
     assert [c.count for c in layouts] != builds  # without the layouts, each call builds its own
     assert _rel_l2(dz, dz_per_call) <= 1e-3  # the same kernels; cuDNN's recompute may pick other algorithms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fft", "filter"])
+@pytest.mark.parametrize("kernel", ["aniso_gauss", "bicubic_2d"])
+def test_cuda_cem_nonseparable_modes_with_tf32_default(cuda, kernel, mode):
+    """CEM's fft and filter modes under a 2-D kernel on the card with cuDNN's
+    TF32 at torch's default (on): H equals the f64 CPU H to 1e-5 (TF32 is off
+    inside CEM's convs) and the projection is consistent (fft 1e-5; filter
+    at support 33, 2e-3)."""
+    from esr_tpu_torch.cem import CEMConf, make_cem
+    from esr_tpu_torch.cem.kernels import downsample_kernel_2d
+    from esr_tpu_torch.scripts.blind_bench import gaussian_kernel
+
+    k = gaussian_kernel() if kernel == "aniso_gauss" else downsample_kernel_2d(4)[0]
+    conf = CEMConf(scale=4, kernel=tuple(map(tuple, k)), inv_mode=mode, inv_filter_support=33)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    raw = torch.rand(2, 160, 192, 3, device=cuda, generator=g) * 3 - 1
+    lr = torch.rand(2, 40, 48, 3, device=cuda, generator=g)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cem = make_cem(conf, device=cuda)
+        with torch.no_grad():
+            res = (cem.downsample(cem.project(raw, lr)) - lr).abs().max().item()
+            h = cem.downsample(raw).double().cpu()
+        assert torch.backends.cudnn.allow_tf32  # CEM restores the caller's setting
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    h64 = make_cem(conf, device="cpu").downsample(raw.double().cpu())
+    assert cem._mode == mode and (h - h64).abs().max().item() <= 1e-5
+    assert res <= (1e-5 if mode == "fft" else 2e-3), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sr_resnet", "all_layers"])
+def test_cuda_generator_variants_on_the_kernels(cuda, which):
+    """SRResNet (nf 64, nb 2, x4) and the all_layers RRDBNet (nf 64, nb 2,
+    gc 32) in bf16 on the card: every 3x3 conv and RDB on its kernel (SRResNet's
+    64 -> 256 upconvs on the bf16 SIMT route), and the answer within twice the
+    bf16 plain path's relative L2 from the f32 plain path (the same weights
+    on the CPU)."""
+    from esr_tpu_torch.models import define_G
+
+    net = {"nf": 64, "nb": 2, "num_latent_channels": 1}
+    net.update({"which_model_G": "sr_resnet"} if which == "sr_resnet" else {"gc": 32, "latent_input": "all_layers"})
+    opt = {"network_G": net, "scale": 4, "bf16": True}
+    g = define_G(opt, device=cuda, seed=5)
+    g.prepare_kernels()
+    gen = torch.Generator().manual_seed(5)
+    lr = torch.rand(1, 16, 20, 3, generator=gen)
+    z = torch.rand(1, 16, 20, 1, generator=gen) * 2 - 1
+    simt = kpack_conv.LAUNCHES_SIMT[(3, "bf16")]
+    counters = _COUNTERS + (simt,)
+    for c in counters:
+        c.reset()
+    with torch.no_grad():
+        got = g(lr.to(cuda), z.to(cuda)).cpu()
+        torch.cuda.synchronize()
+        counts = [c.count for c in counters]
+        plain = {bf16: define_G(dict(opt, bf16=bf16), device="cpu", seed=5)(lr, z) for bf16 in (True, False)}
+    assert counts == ([0, 8, 0, 2] if which == "sr_resnet" else [6, 4, 2, 0]), counts
+    assert _rel_l2(got, plain[False]) <= 2 * _rel_l2(plain[True], plain[False])
+
+
+@pytest.mark.cuda
+def test_cuda_kernelgan_effective_kernel_is_exact(cuda):
+    """KernelGAN's linear G on the card, cuDNN's TF32 at torch's default:
+    its stride-1 output is one VALID correlation with its effective kernel
+    to 1e-5, and the strided output its ::4 subsample bit for bit."""
+    import torch.nn.functional as F
+
+    from esr_tpu_torch.cem import kernelgan as kg
+
+    conf = kg.KernelGANConf()
+    g = kg.LinearKernelG(conf, seed=3).to(cuda)
+    x = torch.rand(1, 96, 96, 1, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            k = kg.effective_kernel(g, conf)
+            flat = g(x, stride=False)
+            strided = g(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        want = F.conv2d(x.permute(0, 3, 1, 2), k[None, None]).permute(0, 2, 3, 1)
+    assert tuple(k.shape) == (21, 21) and (flat - want).abs().max().item() <= 1e-5
+    assert torch.equal(strided, flat[:, ::4, ::4])

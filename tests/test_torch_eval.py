@@ -270,8 +270,11 @@ def test_fold_runs_the_unfolded_forward(setup):
 
 @pytest.mark.parametrize("what", ["eval_tp", "eval_pp", "eval_spatial", "is_train", "estimate_kernel",
                                   "dataset_estimate_kernel", "train_phase", "packed", "non_separable"])
-def test_not_ported_options_raise(setup, tmp_path, what):
-    """What the slice leaves out raises, naming where it waits."""
+def test_not_ported_options_raise(setup, tmp_path, monkeypatch, what):
+    """What the slice leaves out raises, naming where it waits. The options
+    a later slice ported (blind eval, a non-separable kernel) run instead:
+    tests/test_torch_blind.py and tests/test_torch_cem_modes.py hold them
+    against the JAX package."""
     opt = _port_opt(setup)
     if what in ("eval_tp", "eval_pp", "eval_spatial"):
         with pytest.raises(NotImplementedError, match="item 10"):
@@ -281,8 +284,8 @@ def test_not_ported_options_raise(setup, tmp_path, what):
         with pytest.raises(NotImplementedError, match="item 10"):
             create_model(parse(dict(opt, train_tp=2), is_train=True), device="cpu")
     elif what == "non_separable":
-        with pytest.raises(NotImplementedError, match="fft"):
-            create_model(parse(dict(opt, kernel=np.ones((5, 4)).tolist()), is_train=False), device="cpu")
+        model = create_model(parse(dict(opt, kernel=np.ones((5, 4)).tolist()), is_train=False), device="cpu")
+        assert model.cem._mode == "fft"
     elif what in ("train_phase", "packed"):
         # the train phase and PACKED are ported; LMDB has no backend in either package
         d = {"mode": "LRHR_LMDB" if what == "packed" else "LRHR", "phase": "train", "scale": 4,
@@ -292,13 +295,22 @@ def test_not_ported_options_raise(setup, tmp_path, what):
     else:
         import json
 
-        if what == "dataset_estimate_kernel":
-            opt["datasets"]["test_1"]["estimate_kernel"] = True
+        from esr_tpu_torch.cem import kernelgan
+
+        seen = []
+        monkeypatch.setattr(kernelgan, "estimate_kernel", lambda lr, conf, **kw: (
+            seen.append((lr.shape, conf.iters, str(kw["device"]))) or np.ones((5, 4)) / 20, {"l_g": 0.0}))
+        opt["datasets"]["test_1"]["image_size"] = 192  # LR 48: the estimator's least
+        if what == "dataset_estimate_kernel":  # the flag on one dataset; the other keeps bicubic
+            opt["datasets"]["test_1"]["estimate_kernel"] = 30
+        else:  # the CLI flag estimates for every dataset: only LR >= 48 can take it
+            del opt["datasets"]["test_2"]
         opt_path = tmp_path / "opt.json"
         opt_path.write_text(json.dumps(opt))
         argv = ["-opt", str(opt_path), "--device", "cpu"]
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ptest.main(argv + (["--estimate_kernel"] if what == "estimate_kernel" else []))
+        results = ptest.main(argv + (["--estimate_kernel", "40"] if what == "estimate_kernel" else []))
+        assert seen == [((48, 48, 3), 30 if what == "dataset_estimate_kernel" else 40, "cpu")]
+        assert all(r["cem_residual"] <= CEM_TOL for r in results.values()) and "syn" in results
 
 
 def test_entry_points_default_to_cuda(setup, tmp_path, monkeypatch):

@@ -350,7 +350,8 @@ def test_build_session_from_opt(cli_files, setup):
     want = setup.port_forward()(lr, torch.zeros(1, 16, 16, 1))
     np.testing.assert_allclose(sess.current_sr(), want.numpy(), atol=1e-6, rtol=0)
     assert np.isfinite(sess.d_score())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # --estimate_kernel (blind SR) is ported: the LR 16 is below the estimator's least 48
+    with pytest.raises(ValueError, match="too small"):
         cli.build_session_from_opt(opt, str(tmp / "lr.png"), estimate_kernel_iters=100, device="cpu")
 
 

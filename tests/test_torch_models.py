@@ -114,10 +114,10 @@ def test_define_g_options():
     assert g2.dtype == torch.float32
     for (k, a), b in zip(g.state_dict().items(), g2.state_dict().values()):
         assert torch.equal(a, b), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_G({"network_G": dict(opt["network_G"], latent_input="all_layers")}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_G({"network_G": {"which_model_G": "sr_resnet"}}, device="cpu")
+    # the variants that raised until their slice (tests/test_torch_generators.py)
+    g3 = define_G({"network_G": dict(opt["network_G"], latent_input="all_layers")}, device="cpu", seed=3)
+    assert g3.all_layers and len(g3.latent_proj) == 1
+    assert type(define_G({"network_G": {"which_model_G": "sr_resnet", "nf": NF}}, device="cpu")).__name__ == "SRResNet"
 
 
 def test_bf16_forward_tracks_f32():
