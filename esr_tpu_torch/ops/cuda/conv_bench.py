@@ -1,5 +1,6 @@
-"""Time the bf16 kernels alone at the flagship forward's shapes: the conv
-kernel at its six conv sites and the fused RDB kernel.
+"""Time the bf16 kernels alone: the conv kernel at the flagship forward's six
+conv sites, at SRResNet's two 64 -> 256 upconvs and at 128 -> 128 in both
+modes, and the fused RDB kernel.
 
     python -m esr_tpu_torch.ops.cuda.conv_bench
 
@@ -21,10 +22,14 @@ import torch
 from esr_tpu_torch.ops.cuda.kpack_conv import conv_kernel_weights, conv_launch
 from esr_tpu_torch.ops.cuda.rdb_conv import rdb5c_kernel_weights, rdb5c_launch
 
-# (site, input edge, Cin, Cout, ksize): conv_first, trunk_conv, HRconv and
-# conv_last in 3x3 mode, the two upsample convs in 2x2 mode
+# (site, input edge, Cin, Cout, ksize): the flagship's conv_first,
+# trunk_conv, HRconv and conv_last in 3x3 mode and its two upsample convs in
+# 2x2 mode; SRResNet x4's upconvs (3x3, Cout in four slices); 128 -> 128 (two
+# K chunks, two slices) in both modes
 SITES = (("conv_first", 128, 4, 64, 3), ("trunk_conv", 128, 64, 64, 3), ("HRconv", 512, 64, 64, 3),
-         ("conv_last", 512, 64, 3, 3), ("upconv1", 128, 64, 64, 2), ("upconv2", 256, 64, 64, 2))
+         ("conv_last", 512, 64, 3, 3), ("upconv1", 128, 64, 64, 2), ("upconv2", 256, 64, 64, 2),
+         ("sr_upconv1", 128, 64, 256, 3), ("sr_upconv2", 256, 64, 256, 3), ("wide128", 128, 128, 128, 3),
+         ("wide128_up", 128, 128, 128, 2))
 
 
 def launch_ms(fn, reps: int = 20, windows: int = 5) -> float:

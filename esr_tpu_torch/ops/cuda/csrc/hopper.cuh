@@ -298,14 +298,16 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Tensor map of an NHWC bf16 tensor with 64 channels, read in boxes of
-// (64 channels, bw, bh, 1 image) into 128B-swizzled shared memory. Returns 0
-// or a CUresult (-1 if the driver has no cuTensorMapEncodeTiled).
-inline int encode_nhwc64_map(CUtensorMap* map, const void* x, int n, int h, int w, int bh, int bw) {
+// Tensor map of an NHWC bf16 tensor with c channels (a multiple of 64), read
+// in boxes of (64 channels, bw, bh, 1 image) into 128B-swizzled shared
+// memory. Returns 0 or a CUresult (-1 if the driver has no
+// cuTensorMapEncodeTiled).
+inline int encode_nhwc64_map(CUtensorMap* map, const void* x, int n, int h, int w, int bh, int bw,
+                             int c = 64) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return -1;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
-  const cuuint64_t strides[3] = {64 * 2, (cuuint64_t)w * 64 * 2, (cuuint64_t)h * w * 64 * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2, (cuuint64_t)h * w * c * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,

@@ -5,10 +5,10 @@ the fused nearest-2x upsample (``esr_tpu_torch/ops/fused.py``).
 Port of ``esr_tpu/ops/pallas/kpack_conv.py::kpack_conv3x3`` (NHWC x HWIO,
 f32 accumulation), with a fused bias + LeakyReLU(0.2) epilogue that the plain
 version computes too. A CPU tensor takes the plain version; a CUDA tensor
-launches a kernel (``csrc/conv3x3.cuh``) or raises. Three routes, by dtype
-and width: bf16 with Cin and Cout up to 64 runs the tensor-core kernel (the
-main path); a wider bf16 conv runs the SIMT kernel in bf16; f32 runs the
-SIMT kernel in f32. Each route counts its launches under its own name
+launches a kernel (``csrc/conv3x3.cuh``) or raises. Two routes, by dtype:
+bf16 runs the tensor-core kernel (Cin up to 128, Cout up to 1024; a wider
+conv raises ``ValueError``); f32 runs the SIMT kernel, for exact
+comparisons. Each route counts its launches under its own name
 (:data:`LAUNCHES`, :data:`LAUNCHES_UP`, :data:`LAUNCHES_SIMT`). The kernels
 read their weights in their own layout (:func:`conv_kernel_weights`): the
 wrappers build it per call, a module can build it once and call
@@ -39,21 +39,22 @@ __all__ = [
     "wgmma_weight_image",
 ]
 
-# launches by route and mode: the tensor-core kernel (bf16, Cin and Cout up
-# to 64: the main path) in 3x3 and 2x2 mode, the SIMT kernel by mode and
-# dtype; and the weight layouts built
+# launches by route and mode: the tensor-core kernel (bf16) in 3x3 and 2x2
+# mode, the SIMT kernel (f32) by mode; and the weight layouts built
 LAUNCHES = lib.LaunchCounter("conv3x3")
 LAUNCHES_UP = lib.LaunchCounter("upsample2x_conv3x3")
 LAUNCHES_SIMT = {
-    (ksize, dt): lib.LaunchCounter(f"{name}_simt_{dt}")
-    for ksize, name in ((3, "conv3x3"), (2, "upsample2x_conv3x3")) for dt in ("bf16", "f32")
+    (ksize, "f32"): lib.LaunchCounter(f"{name}_simt_f32")
+    for ksize, name in ((3, "conv3x3"), (2, "upsample2x_conv3x3"))
 }
 LAYOUTS = lib.LaunchCounter("conv_kernel_weights")
 
 _DTYPES = (torch.bfloat16, torch.float32)
-_TC_MAX = 64  # the tensor-core kernel's widest Cin and Cout
+# the tensor-core kernel's widest Cin (two K chunks of 64: a third chunk's 3x3
+# weights alone would fill the block's shared memory) and Cout (16 slices of 64)
+_TC_MAX_CIN, _TC_MAX_COUT = 128, 1024
 _SMEM_LIMIT = 232448
-_ROUTE_CODE = {("simt", torch.float32): 0, ("tc", torch.bfloat16): 1, ("simt", torch.bfloat16): 2}
+_ROUTE_CODE = {"simt": 0, "tc": 1}
 
 
 def _epilogue(y: torch.Tensor, act: bool) -> torch.Tensor:
@@ -101,33 +102,42 @@ def sw128_rows(m: torch.Tensor) -> torch.Tensor:
 
 
 def wgmma_weight_image(wt: torch.Tensor) -> tuple[torch.Tensor, int, int]:
-    """Per-tap weights [parities, taps, Cin, Cout] (Cin, Cout <= 64) -> the
-    tensor-core kernel's shared-memory image [parities * taps, Cout_pad, 64], with
-    Cin_pad and Cout_pad: each tap a K-major wgmma operand of Cout_pad (8 or
-    64) rows of 64 K values, zero-padded and 128B-swizzled (the B operand
-    when Cout <= 8, the A operand of out^T = W^T x^T otherwise), of which the
-    kernel reads the first Cin_pad (16 or 64). Keeps ``wt``'s dtype."""
-    cin, cout = wt.shape[-2:]
-    if cin > 64 or cout > 64:
-        raise ValueError(f"conv3x3: the tensor-core kernel takes Cin and Cout up to 64, got {cin}, {cout}")
-    cin_pad, cout_pad = (16 if cin <= 16 else 64), (8 if cout <= 8 else 64)
-    wt = F.pad(wt, (0, cout_pad - cout, 0, 64 - cin))
-    return sw128_rows(wt.transpose(-1, -2).reshape(-1, cout_pad, 64)).contiguous(), cin_pad, cout_pad
+    """Per-tap weights [parities, taps, Cin, Cout] (Cin <= 128, Cout <= 1024)
+    -> the tensor-core kernel's shared-memory image, with Cin_pad and
+    Cout_pad. The image is [parity row][slice][K chunk][parity][tap][N][64],
+    one K-major wgmma operand per (slice, K chunk, parity, tap): N = 8 rows
+    (Cout <= 8, one slice: the B operand) or 64 (a slice of 64 output
+    channels: the A operand of out^T = W^T x^T), each of 64 K values, zero-
+    padded and 128B-swizzled. A block's weights (one parity row of the 2x2
+    mode and one slice) are contiguous. Cin_pad is the K the kernel reads:
+    16 (Cin <= 16) or 64 per K chunk; Cout_pad is 8 or a multiple of 64.
+    Keeps ``wt``'s dtype."""
+    par, taps, cin, cout = wt.shape
+    if cin > _TC_MAX_CIN or cout > _TC_MAX_COUT:
+        raise ValueError(f"conv3x3: the tensor-core kernel takes Cin up to {_TC_MAX_CIN} and Cout up to "
+                         f"{_TC_MAX_COUT}, got {cin}, {cout}")
+    kc = -(-cin // 64)
+    n, slices = (8, 1) if cout <= 8 else (64, -(-cout // 64))
+    cin_pad, cout_pad = (16 if cin <= 16 else 64 * kc), n * slices
+    rows = 2 if par == 4 else 1  # the 2x2 mode's parity rows a; a block's parities b
+    wt = F.pad(wt, (0, cout_pad - cout, 0, 64 * kc - cin))
+    wt = wt.reshape(rows, par // rows, taps, kc, 64, slices, n).permute(0, 5, 3, 1, 2, 6, 4)
+    return sw128_rows(wt.reshape(-1, n, 64)).contiguous(), cin_pad, cout_pad
 
 
 class ConvKernelWeights(NamedTuple):
     """One conv's weights in the kernel's layout, for one dtype and device."""
 
-    # tc: the wgmma operand image [parities * taps][cout_pad][64] (K-major
-    # rows, 128B-swizzled); simt: [parities][taps][Cin][Cout_pad]
+    # tc: the wgmma operand image [parity row][slice][K chunk][parity][tap][N][64]
+    # (K-major rows, 128B-swizzled); simt: [parities][taps][Cin][Cout_pad]
     wt: torch.Tensor
     bias: torch.Tensor | None  # f32, zero-padded to cout_pad
     ksize: int  # 3: SAME 3x3; 2: the four parity 2x2 convs of a nearest-2x upsample
     cin: int
-    cin_pad: int  # tc: the K the kernel reads per tap (16 or 64)
+    cin_pad: int  # tc: the K the kernel reads per tap (16, or 64 per K chunk: 64, 128)
     cout: int
-    cout_pad: int  # tc: 8 (Cout <= 8) or 64; simt: Cout rounded up to 8
-    route: str  # "tc" (tensor cores) or "simt"
+    cout_pad: int  # tc: 8 (Cout <= 8) or a multiple of 64 (slices); simt: Cout rounded up to 8
+    route: str  # "tc" (tensor cores, bf16) or "simt" (f32)
 
 
 @torch.no_grad()
@@ -137,10 +147,10 @@ def conv_kernel_weights(
 ) -> ConvKernelWeights:
     """HWIO 3x3 ``kernel`` (and ``bias``) -> the kernel's layout in ``dtype``.
 
-    ``ksize=2`` takes the parity kernels of the nearest-2x rewrite. bf16 with
-    Cin and Cout at most 64 (tensor cores): :func:`wgmma_weight_image`, which
-    the kernel copies into shared memory as it is. Wider bf16 convs and f32
-    (SIMT): Cout is zero-padded to a multiple of 8."""
+    ``ksize=2`` takes the parity kernels of the nearest-2x rewrite. bf16
+    (tensor cores): :func:`wgmma_weight_image`, which the kernel copies into
+    shared memory as it is; a conv wider than it takes raises ``ValueError``.
+    f32 (SIMT): Cout is zero-padded to a multiple of 8."""
     if dtype not in _DTYPES:
         raise TypeError(f"conv3x3: dtype {dtype} not supported (bfloat16, float32)")
     if kernel.dim() != 4 or tuple(kernel.shape[:2]) != (3, 3):
@@ -153,7 +163,7 @@ def conv_kernel_weights(
     else:
         wt = parity_kernels(kernel).reshape(4, 4, cin, cout)
     wt = wt.to(device=device, dtype=dtype)
-    route = "tc" if dtype == torch.bfloat16 and cin <= _TC_MAX and cout <= _TC_MAX else "simt"
+    route = "tc" if dtype == torch.bfloat16 else "simt"
     if route == "tc":
         wt, cin_pad, cout_pad = wgmma_weight_image(wt)
     else:
@@ -191,11 +201,12 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool) -> torch.Tens
     so = lib.load("conv3x3")
     n, h, w, cin = x.shape
     up = 2 if kw.ksize == 2 else 1
-    route = _ROUTE_CODE[(kw.route, x.dtype)]
+    route = _ROUTE_CODE[kw.route]
     tc = kw.route == "tc"
-    # the tensor-core kernel writes Cout 8 < Cout < 64 as 64 channels (its TMA
-    # stores take whole 128-byte pixels); the padding is sliced off below
-    cout = kw.cout_pad if tc and kw.cout_pad == 64 else kw.cout
+    # the tensor-core kernel writes a Cout above 8 as whole slices of 64
+    # channels (its TMA stores take 128-byte pixel rows); the padding is
+    # sliced off below
+    cout = kw.cout_pad if tc and kw.cout_pad > 8 else kw.cout
     out = torch.empty((n, up * h, up * w, cout), device=x.device, dtype=x.dtype)
     x = lib.aligned16(x)
     smem = so.esr_conv_smem_bytes(route, cin, kw.cout_pad, kw.ksize)
@@ -210,7 +221,7 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool) -> torch.Tens
     if tc:
         (LAUNCHES if kw.ksize == 3 else LAUNCHES_UP).count += 1
     else:
-        LAUNCHES_SIMT[(kw.ksize, "bf16" if x.dtype == torch.bfloat16 else "f32")].count += 1
+        LAUNCHES_SIMT[(kw.ksize, "f32")].count += 1
     return out if cout == kw.cout else out[..., : kw.cout].contiguous()
 
 

@@ -5,13 +5,17 @@ chip_smoke.py). What surrounds it is plain index arithmetic, mirrored here in
 Python from the CUDA source and checked without a GPU:
 
 - the weight image that ``conv_kernel_weights`` builds decodes back to the
-  HWIO kernel through the kernel's wgmma descriptor addressing (128-byte
-  swizzle included);
+  HWIO kernel through the kernel's wgmma descriptor addressing (a block's
+  weights at (parity row, Cout slice), then K chunk, parity and tap; the
+  128-byte swizzle included), at every width the bf16 route takes; f32 keeps
+  the SIMT layout, and a bf16 conv wider than the kernel takes raises;
 - the 128B swizzle that TMA writes and wgmma reads equals ``swz(p, q, 8)``
   of common.cuh, which the ldmatrix path addresses;
-- a plain emulation of the kernel's work (persistent tile walk, the window
-  of each tile and parity, zero fill outside the image, one GEMM per tap
-  over the weight image, virtual pixels and the staging / TMA store, the
+- a plain emulation of the kernel's work (persistent walk of the blocks'
+  roles, slice-minor, over the tiles; the window of each tile, K chunk and
+  parity, zero fill outside the image and beyond Cin; one GEMM per chunk
+  and tap over the weight image; virtual pixels, the staging and the TMA
+  store at its channel offset through the output's tensor map; the
   pixels-as-M path for Cout <= 8) equals ``conv3x3_reference`` and
   ``upsample2x_conv3x3_reference`` in f32 on ragged shapes.
 
@@ -61,31 +65,58 @@ def _case(shape, cin, cout, seed):
 # -- layouts -------------------------------------------------------------------
 
 
+def _per_tap(w, ksize):
+    """HWIO (3, 3, Cin, Cout) -> the per-tap weights [parities, taps, Cin, Cout] of a mode."""
+    cin, cout = w.shape[2:]
+    return w.reshape(1, 9, cin, cout) if ksize == 3 else kpack_conv.parity_kernels(w).reshape(4, 4, cin, cout)
+
+
+def _decode(image, par, taps, cin_pad, cout_pad):
+    """The tensor-core weight image read as the kernel reads it: block (parity
+    row a, slice j) copies its bytes from ((a * S + j) * KC ...) on, and the
+    operand of (K chunk c, parity b, tap) starts at ((c * P + b) * taps +
+    tap) * N * 128 bytes into them; row n at 128 n bytes, K step kb at 32 kb,
+    swizzled by address. -> [parities, taps, 64 KC, Cout_pad]."""
+    n_blk = 8 if cout_pad == 8 else 64
+    slices, kc = cout_pad // n_blk, max(cin_pad // 64, 1)
+    rows, pp = (2, 2) if par == 4 else (1, 1)
+    flat = image.reshape(-1)
+    k = torch.arange(64)[:, None]
+    n = torch.arange(n_blk)[None, :]
+    out = torch.full((par, taps, 64 * kc, cout_pad), float("nan"))
+    block_bytes = kc * pp * taps * n_blk * 128
+    for a in range(rows):
+        for j in range(slices):
+            for c in range(kc):
+                for b in range(pp):
+                    for tap in range(taps):
+                        start = (a * slices + j) * block_bytes + ((c * pp + b) * taps + tap) * n_blk * 128
+                        got = flat[sw128(start + n * 128 + (k // 16) * 32 + (k % 16) * 2) // 2]  # [K, N]
+                        out[a * pp + b, tap, 64 * c:64 * c + 64, j * n_blk:(j + 1) * n_blk] = got
+    assert flat.numel() == rows * slices * block_bytes // 2  # nothing else in the image
+    return out
+
+
+def _expected_pads(cin, cout):
+    return (16 if cin <= 16 else 64 * -(-cin // 64)), (8 if cout <= 8 else 64 * -(-cout // 64))
+
+
 @pytest.mark.parametrize("ksize", [3, 2])
-@pytest.mark.parametrize("cin,cout", [(64, 64), (4, 64), (64, 3)])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (4, 64), (64, 3), (64, 256), (128, 128), (96, 3), (64, 96)])
 def test_weight_image_decodes_to_hwio(cin, cout, ksize):
-    """Each tap's B (Cout <= 8) or A (Cout 64) operand, read the way the
-    kernel's descriptor reads it (row n at 128 n bytes, K step kb at 32 kb
-    bytes, swizzled by address), is the HWIO kernel's [Cin, Cout] slice,
+    """Each (slice, K chunk, parity, tap) A operand (Cout above 8) or B
+    operand (Cout <= 8), read the way the kernel's descriptor reads it, is
+    its [64-channel K chunk, 64-channel Cout slice] of the HWIO kernel,
     exactly, with zeros in the padding."""
     _, w, _ = _case((1, 1, 1), cin, cout, seed=cin + cout + ksize)
-    image, cin_pad, cout_pad = kpack_conv.wgmma_weight_image(
-        w.reshape(1, 9, cin, cout) if ksize == 3 else kpack_conv.parity_kernels(w).reshape(4, 4, cin, cout))
-    assert (cin_pad, cout_pad) == ((16 if cin <= 16 else 64), (8 if cout <= 8 else 64))
-    flat = image.reshape(-1)
-    taps = 9 if ksize == 3 else 16
-    want = w.reshape(9, cin, cout) if ksize == 3 else kpack_conv.parity_kernels(w).reshape(16, cin, cout)
-    k = torch.arange(64)[:, None]
-    n = torch.arange(cout_pad)[None, :]
-    for tap in range(taps):
-        start = tap * cout_pad * 128
-        got = flat[sw128(start + n * 128 + (k // 16) * 32 + (k % 16) * 2) // 2]  # [K, N]
-        assert torch.equal(got[:cin, :cout], want[tap]), tap
-        assert not got[cin:].any() and not got[:, cout:].any()
+    want = _per_tap(w, ksize)
+    image, cin_pad, cout_pad = kpack_conv.wgmma_weight_image(want)
+    assert (cin_pad, cout_pad) == _expected_pads(cin, cout)
+    got = _decode(image, want.shape[0], want.shape[1], cin_pad, cout_pad)
+    assert torch.equal(got[:, :, :cin, :cout], want)
+    assert not got[:, :, cin:].any() and not got[..., cout:].any()
     bf = kpack_conv.conv_kernel_weights(w, torch.ones(cout), torch.bfloat16, torch.device("cpu"), ksize)
-    assert torch.equal(bf.wt.float(), kpack_conv.wgmma_weight_image(
-        w.bfloat16().float().reshape(1, 9, cin, cout) if ksize == 3
-        else kpack_conv.parity_kernels(w).bfloat16().float().reshape(4, 4, cin, cout))[0])
+    assert torch.equal(bf.wt.float(), kpack_conv.wgmma_weight_image(_per_tap(w, ksize).bfloat16().float())[0])
     assert bf.bias.shape == (cout_pad,) and (bf.cin_pad, bf.cout_pad) == (cin_pad, cout_pad)
 
 
@@ -117,38 +148,64 @@ def test_stmatrix_staging_is_what_the_tma_store_reads():
 
 @pytest.mark.parametrize("ksize", [3, 2])
 @pytest.mark.parametrize("cin,cout", [(128, 64), (64, 128), (128, 128), (96, 3)])
-def test_bf16_wide_convs_take_the_simt_layout(cin, cout, ksize):
-    """A bf16 conv with Cin or Cout above 64 takes the SIMT kernel's layout
-    (the tensor-core image refuses it): [parities][taps][Cin][Cout_pad] in
-    bf16, the HWIO kernel (or its parity kernels) in place and zeros in the
-    Cout padding to a multiple of 8; bf16 convs up to 64 keep the tensor-core
-    route."""
+def test_bf16_wide_convs_take_the_tensor_core_layout(cin, cout, ksize):
+    """A bf16 conv with Cin or Cout above 64 takes the tensor-core kernel's
+    layout: Cin in K chunks of 64 (cin_pad 128), Cout in slices of 64 (or 8
+    for Cout <= 8), the image decoding back to the bf16 HWIO kernel (or its
+    parity kernels) through the slice / chunk addressing, zeros in the
+    padding, the bias zero-padded to Cout_pad."""
     _, w, b = _case((1, 1, 1), cin, cout, seed=cin + cout + ksize)
-    with pytest.raises(ValueError, match="up to 64"):
-        kpack_conv.wgmma_weight_image(w.reshape(1, 9, cin, cout))
     kw = kpack_conv.conv_kernel_weights(w, b, torch.bfloat16, torch.device("cpu"), ksize)
+    cin_pad, cout_pad = _expected_pads(cin, cout)
+    assert (kw.route, kw.cin, kw.cout, kw.cin_pad, kw.cout_pad, kw.ksize) == ("tc", cin, cout, cin_pad, cout_pad, ksize)
+    want = _per_tap(w, ksize).bfloat16()
+    assert kw.wt.dtype == torch.bfloat16
+    got = _decode(kw.wt.float(), want.shape[0], want.shape[1], cin_pad, cout_pad)
+    assert torch.equal(got[:, :, :cin, :cout], want.float())
+    assert not got[:, :, cin:].any() and not got[..., cout:].any()
+    assert torch.equal(kw.bias[:cout], b) and not kw.bias[cout:].any()
+
+
+@pytest.mark.parametrize("ksize", [3, 2])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 128), (200, 3)])
+def test_f32_convs_keep_the_simt_layout(cin, cout, ksize):
+    """f32 convs of any width take the SIMT kernel's layout
+    [parities][taps][Cin][Cout_pad], the HWIO kernel (or its parity kernels)
+    in place and zeros in the Cout padding to a multiple of 8."""
+    _, w, b = _case((1, 1, 1), cin, cout, seed=cin + cout + ksize)
+    kw = kpack_conv.conv_kernel_weights(w, b, torch.float32, torch.device("cpu"), ksize)
     cout_pad = -(-cout // 8) * 8
     assert (kw.route, kw.cin, kw.cout, kw.cout_pad, kw.ksize) == ("simt", cin, cout, cout_pad, ksize)
-    want = w.reshape(1, 9, cin, cout) if ksize == 3 else kpack_conv.parity_kernels(w).reshape(4, 4, cin, cout)
-    assert kw.wt.dtype == torch.bfloat16 and tuple(kw.wt.shape) == tuple(want.shape[:3]) + (cout_pad,)
-    assert torch.equal(kw.wt[..., :cout], want.bfloat16()) and not kw.wt[..., cout:].any()
+    want = _per_tap(w, ksize)
+    assert kw.wt.dtype == torch.float32 and tuple(kw.wt.shape) == tuple(want.shape[:3]) + (cout_pad,)
+    assert torch.equal(kw.wt[..., :cout], want) and not kw.wt[..., cout:].any()
     assert torch.equal(kw.bias[:cout], b) and not kw.bias[cout:].any()
-    assert kpack_conv.conv_kernel_weights(w[:, :, :64, :64], b[:64], torch.bfloat16, torch.device("cpu"),
-                                          ksize).route == "tc"
+
+
+@pytest.mark.parametrize("ksize", [3, 2])
+@pytest.mark.parametrize("cin,cout", [(129, 64), (64, 1025), (256, 256)])
+def test_bf16_convs_past_the_limit_raise(cin, cout, ksize):
+    """A bf16 conv wider than the tensor-core kernel takes (Cin above 128,
+    Cout above 1024) raises ValueError naming the limits; nothing falls back."""
+    w = torch.zeros(3, 3, cin, cout)
+    with pytest.raises(ValueError, match="Cin up to 128 and Cout up to 1024"):
+        kpack_conv.conv_kernel_weights(w, None, torch.bfloat16, torch.device("cpu"), ksize)
 
 
 # -- the kernel's work, emulated ---------------------------------------------------
 
 
-def _window(x, n, y0, x0):
-    """A stage after the tile's window load: the (18, 18, 64) box from (y0 -
-    1, x0 - 1), zero outside the image and in channels >= Cin, 128B-swizzled
-    into a flat buffer (with the room after it that the last virtual pixels
-    read)."""
+def _window(x, n, y0, x0, c0):
+    """A stage after the window load of K chunk c0 / 64 of a tile: the (18,
+    18, 64) box of channels c0 .. c0 + 63 from (y0 - 1, x0 - 1), zero outside
+    the image and in channels >= Cin, 128B-swizzled into a flat buffer (with
+    the room after it that the last virtual pixels read)."""
     _, h, w, cin = x.shape
     box = torch.zeros(WIN, WIN, 64)
     ys, xs = slice(max(y0 - 1, 0), min(y0 - 1 + WIN, h)), slice(max(x0 - 1, 0), min(x0 - 1 + WIN, w))
-    box[ys.start - (y0 - 1):ys.stop - (y0 - 1), xs.start - (x0 - 1):xs.stop - (x0 - 1), :cin] = x[n, ys, xs]
+    live = min(cin - c0, 64)
+    box[ys.start - (y0 - 1):ys.stop - (y0 - 1), xs.start - (x0 - 1):xs.stop - (x0 - 1), :live] = \
+        x[n, ys, xs, c0:c0 + live]
     buf = torch.full((WIN_STRIDE // 2 + 2 * 64,), float("nan"))
     p = torch.arange(WIN * WIN)[:, None]
     c = torch.arange(64)[None, :]
@@ -169,30 +226,64 @@ def _emulate(x, kw, act, grid):
     (N, 2H, 2W, Cout)."""
     n_img, h, w, _ = x.shape
     up = kw.ksize == 2
-    kh, n_pad, ks = (2 if up else 3), kw.cout_pad, kw.cin_pad // 16
+    kh, par = (2, 2) if up else (3, 1)
+    n_blk = 8 if kw.cout_pad == 8 else 64
+    slices = kw.cout_pad // n_blk
+    kc, ks = (1, 1) if kw.cin_pad == 16 else (kw.cin_pad // 64, 4)
+    roles = (2 if up else 1) * slices  # launch_tc: the grid is a multiple of the roles
+    assert grid % roles == 0
     tiles_x, tiles_y = -(-w // TILE), -(-h // TILE)
     n_tiles = n_img * tiles_x * tiles_y
-    cout = n_pad if n_pad == 64 else kw.cout  # the kernel writes 8 < Cout < 64 as 64 channels
+    cout = kw.cout_pad if n_blk == 64 else kw.cout  # the kernel writes Cout above 8 as whole slices
     out = torch.full((n_img, (2 if up else 1) * h, (2 if up else 1) * w, cout), float("nan"))
+    omap = _out_map(out, up, h, w) if n_blk == 64 else None
     flat_w = kw.wt.float().reshape(-1)
-    bias = kw.bias if kw.bias is not None else torch.zeros(n_pad)
-    par = 2 if up else 1
+    bias = kw.bias if kw.bias is not None else torch.zeros(kw.cout_pad)
+    block_bytes = kc * par * kh * kh * n_blk * 128  # conv_tc_wbytes
     for blk in range(grid):
-        pa = blk % 2 if up else 0
-        t0, t_step = (blk // 2, grid // 2) if up else (blk, grid)
-        w_base = pa * par * kh * kh  # the block's first tap matrix in the image
+        role = blk % roles
+        pa, sl = (role & 1, role >> 1) if up else (0, role)
+        t0, t_step = blk // roles, grid // roles
+        w_base = (pa * slices + sl) * block_bytes  # the block's weights in the image
         for t in range(t0, n_tiles, t_step):
             n, r = divmod(t, tiles_x * tiles_y)
             y0, x0 = (r // tiles_x) * TILE, (r % tiles_x) * TILE
-            buf = _window(x, n, y0, x0)
+            wins = [_window(x, n, y0, x0, 64 * c) for c in range(kc)]
             for pb in range(par):
-                taps = [(w_base + pb * kh * kh + tap, (tap // kh + pa) * WIN + tap % kh + pb)
-                        for tap in range(kh * kh)]
-                if n_pad == 64:
-                    _tn_unit(out, buf, flat_w, taps, ks, bias, act, n, y0, x0, pa, pb, up)
+                # (window, tap operand start, window offset) per K chunk and tap
+                steps = [(wins[c], w_base + ((c * par + pb) * kh * kh + tap) * n_blk * 128,
+                          (tap // kh + pa) * WIN + tap % kh + pb) for c in range(kc) for tap in range(kh * kh)]
+                if n_blk == 64:
+                    _tn_unit(omap, steps, flat_w, ks, bias[64 * sl:64 * sl + 64], act, n, y0, x0, pa, pb, up, sl,
+                             slices)
                 else:
-                    _rs_unit(out, buf, flat_w, taps, ks, bias, act, n, y0, x0, pa, pb, up, kw.cout)
+                    _rs_unit(out, steps, flat_w, ks, bias, act, n, y0, x0, pa, pb, up, kw.cout)
     return out[..., : kw.cout]
+
+
+def _out_map(out, up, h, w):
+    """launch_tc's 5-D tensor map of the output (channels, x, parity row, y,
+    image) over ``out``'s storage: (flat view, dims, byte strides)."""
+    c = out.shape[-1]
+    px = (2 if up else 1) * c * 2
+    row = w * px
+    strides = (px, row, 2 * row if up else row, h * (2 if up else 1) * row)
+    dims = ((2 if up else 1) * c, w, 2 if up else 1, h, out.shape[0])
+    return out.view(-1), dims, strides
+
+
+def _tma_store(omap, staging, coords):
+    """One TMA store of an 8 x 16-pixel staging tile (64 channels, read with
+    the 128B swizzle) at coords (c0, x, parity row, y, image); the parts of
+    the box outside the tensor are not written."""
+    flat, dims, strides = omap
+    c0, x0, p, y0, n = coords
+    yy, xx, cc = torch.arange(8)[:, None, None], torch.arange(TILE)[None, :, None], torch.arange(64)[None, None, :]
+    vals = staging[sw128((yy * TILE + xx) * 128 + 2 * cc) // 2]
+    inside = ((c0 + cc < dims[0]) & (x0 + xx < dims[1]) & (y0 + yy < dims[3])).expand(vals.shape)
+    off = ((c0 + cc) * 2 + (x0 + xx) * strides[0] + p * strides[1] + (y0 + yy) * strides[2]
+           + n * strides[3]) // 2
+    flat[off.expand(vals.shape)[inside]] = vals[inside]
 
 
 def _put(out, n, gy, gx, pa, pb, up, vals):
@@ -208,14 +299,15 @@ def _epi(acc, bias, act):
     return torch.where(y >= 0, y, 0.2 * y) if act else y
 
 
-def _tn_unit(out, buf, flat_w, taps, ks, bias, act, n, y0, x0, pa, pb, up):
-    """Cout 64: each warpgroup's 144 virtual pixels as the wgmma N, weights
-    as M; staged as 8 x 16 pixels, stored by TMA (clipped to the image)."""
+def _tn_unit(omap, steps, flat_w, ks, bias, act, n, y0, x0, pa, pb, up, sl, slices):
+    """N = 64: each warpgroup's 144 virtual pixels as the wgmma N, the
+    slice's weights as M, accumulated over K chunks and taps; staged as 8 x
+    16 pixels, stored by TMA at channel (pb x Cout_pad +) 64 x slice."""
     for g in range(2):
         acc = torch.zeros(64, VIRT)
-        for tap_m, off in taps:
+        for buf, w_start, off in steps:
             for kb in range(ks):
-                a_op = _operand(flat_w, tap_m * 64 * 128, 64, kb)  # [64 out channels, 16]
+                a_op = _operand(flat_w, w_start, 64, kb)  # [64 out channels, 16]
                 b_op = _operand(buf, (g * VIRT + off) * 128, VIRT, kb)  # [144 pixels, 16]
                 acc += a_op @ b_op.T
         vals = _epi(acc.T, bias, act)  # [virtual pixel, channel]
@@ -226,26 +318,25 @@ def _tn_unit(out, buf, flat_w, taps, ks, bias, act, n, y0, x0, pa, pb, up):
                 slot = row * TILE + col
                 ch = torch.arange(64)
                 staging[(slot * 128 + (((ch // 8) ^ (slot & 7)) << 4) + (ch % 8) * 2) // 2] = vals[v]
-        for slot in range(TILE // 2 * TILE):
-            row, col = divmod(slot, TILE)
-            ch = torch.arange(64)
-            _put(out, n, y0 + g * 8 + row, x0 + col, pa, pb, up, staging[sw128(slot * 128 + 2 * ch) // 2])
+        c0 = (pb * 64 * slices if up else 0) + 64 * sl
+        _tma_store(omap, staging, (c0, x0, pa if up else 0, y0 + g * (TILE // 2), n))
 
 
-def _rs_unit(out, buf, flat_w, taps, ks, bias, act, n, y0, x0, pa, pb, up, cout):
+def _rs_unit(out, steps, flat_w, ks, bias, act, n, y0, x0, pa, pb, up, cout):
     """Cout <= 8: pixels as M (warp w of warpgroup g, m64 tile mt: tile row
-    8 g + 4 mt + w, A rows by ldmatrix from swz), weights as an n8 B operand."""
+    8 g + 4 mt + w, A rows by ldmatrix from swz), weights as an n8 B operand,
+    accumulated over K chunks and taps."""
     for g in range(2):
         for mt in range(2):
             for w4 in range(4):
                 row = g * 8 + mt * 4 + w4
                 acc = torch.zeros(TILE, 8)
-                for tap_m, off in taps:
+                for buf, w_start, off in steps:
                     for kb in range(ks):
                         p = row * WIN + torch.arange(TILE)[:, None] + off
                         kk = torch.arange(16)[None, :]
                         a_op = buf[swz(p, kb * 2 + kk // 8, 8) + kk % 8]  # [16 pixels, 16]
-                        b_op = _operand(flat_w, tap_m * 8 * 128, 8, kb)  # [8, 16]
+                        b_op = _operand(flat_w, w_start, 8, kb)  # [8, 16]
                         acc += a_op @ b_op.T
                 vals = _epi(acc, bias, act)
                 for i in range(TILE):
@@ -262,14 +353,20 @@ def _rs_unit(out, buf, flat_w, taps, ks, bias, act, n, y0, x0, pa, pb, up, cout)
         ((2, 19, 37), 64, 3, 3, False, 5),
         ((1, 17, 20), 64, 3, 2, True, 2),
         ((1, 18, 18), 16, 32, 3, True, 2),
+        ((1, 19, 21), 64, 256, 3, True, 8),
+        ((1, 21, 19), 64, 576, 3, False, 18),
+        ((1, 19, 21), 128, 128, 3, True, 6),
+        ((1, 17, 23), 128, 128, 2, True, 8),
+        ((2, 9, 19), 64, 96, 3, True, 4),
+        ((1, 19, 17), 96, 3, 3, False, 3),
     ],
-    ids=["3x3-64", "2x2-64", "3x3-cin4-b1", "2x2-cin4", "3x3-cout3", "2x2-cout3", "3x3-cout32"],
+    ids=["3x3-64", "2x2-64", "3x3-cin4-b1", "2x2-cin4", "3x3-cout3", "2x2-cout3", "3x3-cout32",
+         "3x3-64to256", "3x3-64to576", "3x3-128", "2x2-128", "3x3-64to96", "3x3-96to3"],
 )
 def test_emulated_kernel_tiling_matches_plain(shape, cin, cout, ksize, act, grid):
     x, w, b = _case(shape, cin, cout, seed=sum(shape) + cin + cout + ksize)
     kw = kpack_conv.conv_kernel_weights(w, b, torch.float32, torch.device("cpu"))
-    image, cin_pad, cout_pad = kpack_conv.wgmma_weight_image(
-        w.reshape(1, 9, cin, cout) if ksize == 3 else kpack_conv.parity_kernels(w).reshape(4, 4, cin, cout))
+    image, cin_pad, cout_pad = kpack_conv.wgmma_weight_image(_per_tap(w, ksize))
     kw = kw._replace(wt=image, ksize=ksize, cin_pad=cin_pad, cout_pad=cout_pad,
                      bias=torch.nn.functional.pad(b, (0, cout_pad - cout)))
     got = _emulate(x, kw, act, grid)

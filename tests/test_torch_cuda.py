@@ -397,26 +397,62 @@ def test_cuda_rdb5c_bf16_simt_widths_within_band(cuda, nf, gc, shape):
         assert (got.float() - ref).abs().max().item() <= tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout", [(128, 128), (64, 96), (128, 3)])
-def test_cuda_conv_bf16_simt_wide_within_band(cuda, cin, cout):
-    """bf16 convs wider than 64 channels run the SIMT kernel in bf16 in both
-    modes (counted under its own route), within the bf16 conv band."""
+def _wide_conv_case(cuda, shape, cin, cout):
     g = torch.Generator(device=cuda).manual_seed(cin + cout)
-    x = torch.randn(2, 21, 19, cin, device=cuda, generator=g).bfloat16()
+    x = torch.randn(*shape, cin, device=cuda, generator=g).bfloat16()
     w = torch.randn(3, 3, cin, cout, device=cuda, generator=g) * (2.0 / (9 * cin)) ** 0.5
     b = 0.1 * torch.randn(cout, device=cuda, generator=g)
-    for ksize, fn, plain in ((3, kpack_conv.kpack_conv3x3, kpack_conv.conv3x3_reference),
-                             (2, upsample2x_conv3x3, upsample2x_conv3x3_reference)):
-        counter = kpack_conv.LAUNCHES_SIMT[(ksize, "bf16")]
-        before = counter.count
+    return x, w, b
+
+
+def _conv_band(plain, x, w, b):
+    """The bf16 conv band against the f32 plain version on the same bf16 inputs."""
+    ref = plain(x.float(), w, b, True)
+    tol = max(2 * (plain(x, w, b, True).float() - ref).abs().max().item(), 2.0**-6 * ref.abs().max().item())
+    return ref, tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(128, 128), (64, 96), (128, 3)])
+def test_cuda_conv_bf16_wide_on_tensor_cores_within_band(cuda, cin, cout):
+    """bf16 convs wider than 64 channels (Cin in K chunks, Cout in slices of
+    64) run the tensor-core kernel in both modes, one launch counted on its
+    mode's counter and none on the other or the f32 SIMT ones, within the
+    bf16 conv band."""
+    x, w, b = _wide_conv_case(cuda, (2, 21, 19), cin, cout)
+    counters = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values())
+    for i, (fn, plain) in enumerate(((kpack_conv.kpack_conv3x3, kpack_conv.conv3x3_reference),
+                                     (upsample2x_conv3x3, upsample2x_conv3x3_reference))):
+        before = [c.count for c in counters]
         with torch.no_grad():
             got = fn(x, w, b, True)
         torch.cuda.synchronize()
-        assert counter.count == before + 1
-        ref = plain(x.float(), w, b, True)
-        tol = max(2 * (plain(x, w, b, True).float() - ref).abs().max().item(), 2.0**-6 * ref.abs().max().item())
+        assert [c.count - n for c, n in zip(counters, before)] == [int(i == j) for j in range(len(counters))]
+        ref, tol = _conv_band(plain, x, w, b)
         assert got.shape == ref.shape and (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_conv_bf16_64_to_576_within_band(cuda):
+    """SRResNet x3's upconv width, 64 -> 576 (nine Cout slices), on a ragged
+    batch-2 grid: one tensor-core launch, within the bf16 conv band."""
+    x, w, b = _wide_conv_case(cuda, (2, 37, 53), 64, 576)
+    before = kpack_conv.LAUNCHES.count
+    with torch.no_grad():
+        got = kpack_conv.kpack_conv3x3(x, w, b, True)
+    torch.cuda.synchronize()
+    assert kpack_conv.LAUNCHES.count == before + 1
+    ref, tol = _conv_band(kpack_conv.conv3x3_reference, x, w, b)
+    assert got.shape == ref.shape and (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_conv_bf16_past_the_limit_raises(cuda):
+    """A bf16 conv wider than the tensor-core kernel takes raises ValueError
+    on the card too; no other route runs it."""
+    x, w, b = _wide_conv_case(cuda, (1, 8, 8), 192, 64)
+    with torch.no_grad(), pytest.raises(ValueError, match="Cin up to 128"):
+        kpack_conv.kpack_conv3x3(x, w, b, True)
 
 
 @pytest.mark.cuda
@@ -501,10 +537,10 @@ def test_cuda_cem_nonseparable_modes_with_tf32_default(cuda, kernel, mode):
 @pytest.mark.parametrize("which", ["sr_resnet", "all_layers"])
 def test_cuda_generator_variants_on_the_kernels(cuda, which):
     """SRResNet (nf 64, nb 2, x4) and the all_layers RRDBNet (nf 64, nb 2,
-    gc 32) in bf16 on the card: every 3x3 conv and RDB on its kernel (SRResNet's
-    64 -> 256 upconvs on the bf16 SIMT route), and the answer within twice the
-    bf16 plain path's relative L2 from the f32 plain path (the same weights
-    on the CPU)."""
+    gc 32) in bf16 on the card: every 3x3 conv and RDB on its tensor-core
+    kernel (SRResNet's 64 -> 256 upconvs too), and the answer within twice
+    the bf16 plain path's relative L2 from the f32 plain path (the same
+    weights on the CPU)."""
     from esr_tpu_torch.models import define_G
 
     net = {"nf": 64, "nb": 2, "num_latent_channels": 1}
@@ -515,16 +551,14 @@ def test_cuda_generator_variants_on_the_kernels(cuda, which):
     gen = torch.Generator().manual_seed(5)
     lr = torch.rand(1, 16, 20, 3, generator=gen)
     z = torch.rand(1, 16, 20, 1, generator=gen) * 2 - 1
-    simt = kpack_conv.LAUNCHES_SIMT[(3, "bf16")]
-    counters = _COUNTERS + (simt,)
-    for c in counters:
+    for c in _COUNTERS:
         c.reset()
     with torch.no_grad():
         got = g(lr.to(cuda), z.to(cuda)).cpu()
         torch.cuda.synchronize()
-        counts = [c.count for c in counters]
+        counts = [c.count for c in _COUNTERS]
         plain = {bf16: define_G(dict(opt, bf16=bf16), device="cpu", seed=5)(lr, z) for bf16 in (True, False)}
-    assert counts == ([0, 8, 0, 2] if which == "sr_resnet" else [6, 4, 2, 0]), counts
+    assert counts == ([0, 10, 0] if which == "sr_resnet" else [6, 4, 2]), counts
     assert _rel_l2(got, plain[False]) <= 2 * _rel_l2(plain[True], plain[False])
 
 
