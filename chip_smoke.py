@@ -6,15 +6,18 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch / CUDA versions, compute capability, card name and
    power limit; TF32 off for every f32 comparison;
-2. build the hand-written CUDA kernels (nvcc, sm_90a) from the checkout;
+2. build the hand-written CUDA kernels (nvcc, sm_90a) from the checkout
+   (ptxas: no spills in ``rdb5c_tc_kernel``, the 18 ``conv_tc_kernel`` and
+   the 8 ``conv_f32_kernel`` instances);
 3. hold each kernel against its plain PyTorch version on the card, at the
    flagship widths and main-path shapes: the bf16 tensor-core kernels the
    main path runs (with a band shown to see a faulty RDB kernel), the RDB
    kernel on ragged grids, batch 1 and an image smaller than a tile (and a
    bf16 tile other than 16 x 16, a schedule hint), the conv kernel on ragged
-   grids, batch 1, Cin 4 and Cout 3 in both modes, the f32 SIMT kernels of
-   the same sources (timed at the flagship shapes beside the f32 bound,
-   plain and library), the bf16 convs wider than 64 channels on the
+   grids, batch 1, Cin 4 and Cout 3 in both modes, the f32 route
+   (``conv_f32_kernel``: every f32 conv site and the f32 RDB as five of its
+   launches, timed at the flagship shapes beside the f32 bound, plain and
+   library, and a Cin 256 conv), the bf16 convs wider than 64 channels on the
    tensor-core conv kernel (128 -> 128 and 128 -> 3 in both modes, 64 -> 96
    and 64 -> 576 on a ragged grid; B16 x 128^2 128 -> 128 in both modes) and
    the bf16 SIMT RDB kernel of the widths the tensor-core RDB kernel does not
@@ -31,6 +34,11 @@ Phases (any failure exits non-zero and prints no result):
    the weight layout rebuilt in every call, and bf16 plain path; profile
    two kernel-path forwards (device time by kernel, busy share, the RDB
    kernel's time per forward, the conv kernel's beside the library calls');
+   then the f32 flagship forward (``"bf16": false``, the f32 route's path)
+   against the f32 plain path in turns: launches per forward on the f32
+   counters and of ``conv_f32_kernel`` itself, CEM residual, max error
+   within 1e-4 of the f32 plain path (a band the plain path with TF32 on
+   misses), ms per forward, ``conv_f32_kernel``'s device time in it;
 6. the eval CLI (``esr_tpu_torch.test.main``) at the flagship width on the
    weights of ``define_G(seed=0)`` loaded back from a ``.pth``: a SYNTHETIC
    set (4 images, HR 512) and a folder of PNGs written by the port's codec
@@ -80,10 +88,11 @@ Phases (any failure exits non-zero and prints no result):
    MATLAB-bicubic 2-D kernel with cuDNN's TF32 default on: residual, H
    against f64, adjointness, fft == matmul for bicubic, the filter residual
    at support 33, ms per ``project`` at B16; (b) KernelGAN: the
-   effective-kernel identity, the supervised probe (corr > 0.88), the
-   adversarial estimate through ``scripts.blind_bench`` (LR 96, 2000
-   iterations), ms per iteration and the device's idle share; (c) the
-   ``estimate_kernel`` script at 200 iterations; (d) blind eval through
+   effective-kernel identity, the supervised probe (corr > 0.88; run twice,
+   the same kernel bit for bit), the adversarial estimate through
+   ``scripts.blind_bench`` (LR 96, 2000 iterations), ms per iteration and
+   the device's idle share; (c) the ``estimate_kernel`` script at 200
+   iterations; (d) blind eval through
    ``test.main --estimate_kernel 200`` at the flagship width on two 1/f
    images and their Gaussian LR, beside the run without the flag, and with
    G's output zeroed, the estimator returning the true kernel against no
@@ -168,9 +177,9 @@ REPO = Path(__file__).resolve().parent
 # cores and HBM3. Bounds are stated against these whatever the power limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores: the f32 SIMT kernels' bound
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores: the f32 kernel's bound
 
-F32_TOL = 1e-4  # f32 kernel vs f32 plain: up to 9*192 terms summed in another order
+F32_TOL = 1e-4  # f32 kernel vs f32 plain: up to 9*256 terms summed in another order
 CEM_TOL = 1e-5  # max |H(out) - lr|: the projection is exact up to f32 rounding
 PSNR_MARGIN_DB = 1.0  # bf16 kernel path may trail the bf16 plain path by this much
 
@@ -211,16 +220,16 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def f32_simt_row(kernel: str, site: str, shape: str, fn, plain, library, flops: float, nbytes: float) -> dict:
-    """An f32 SIMT kernel at a flagship shape: ms beside its plain version and
-    the library call (f32, TF32 off), and its bound against the f32
-    non-tensor peak; ranks the f32 kernels for later work."""
+    """The f32 route (``conv_f32_kernel`` on the FP32 units) at a flagship
+    shape: ms beside its plain version and the library call (f32, TF32 off),
+    and its bound against the f32 non-tensor peak."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     row = {"kernel": kernel, "site": site, "shape": shape, "ms": cuda_ms(fn, reps=3, windows=3),
            "plain_ms": cuda_ms(plain, reps=3, windows=3),
            "library_ms": None if library is None else cuda_ms(library, reps=3, windows=3),
            "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-    print(f"  f32 SIMT {kernel:<18s} {site:<11s} {shape:<24s} kernel {row['ms']:.4f} ms, library {lib_ms}, "
+    print(f"  f32 {kernel:<22s} {site:<11s} {shape:<24s} kernel {row['ms']:.4f} ms, library {lib_ms}, "
           f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
           f"{100 * row['bound_ms'] / row['ms']:.0f}%)", flush=True)
     return row
@@ -228,6 +237,23 @@ def f32_simt_row(kernel: str, site: str, shape: str, fn, plain, library, flops: 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+# every launch counter: the bf16 and f32 routes of both kernel families, and
+# conv_f32_kernel's own (last), which counts each launch of the f32 kernel
+ALL_COUNTERS = (rdb_conv.LAUNCHES, *rdb_conv.LAUNCHES_SIMT.values(), kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP,
+                *kpack_conv.LAUNCHES_SIMT.values(), kpack_conv.LAUNCHES_F32)
+# launches of conv_f32_kernel that one call of each f32 route makes
+F32_KERNEL_LAUNCHES = {rdb_conv.LAUNCHES_SIMT["f32"]: 5, **{c: 1 for c in kpack_conv.LAUNCHES_SIMT.values()}}
+
+
+def launched_once(before: list[int], counter) -> bool:
+    """Exactly one call counted since ``before`` (the counts of
+    ALL_COUNTERS), on ``counter``, and the launches of conv_f32_kernel that
+    its route makes (none for a bf16 route)."""
+    want = [int(c is counter) for c in ALL_COUNTERS]
+    want[-1] = F32_KERNEL_LAUNCHES.get(counter, 0)
+    return [c.count - b for c, b in zip(ALL_COUNTERS, before)] == want
 
 
 def conv_bf16_band(ref: torch.Tensor, plain_err: float) -> float:
@@ -372,6 +398,10 @@ def phase_build() -> None:
             check(len(tc) == 18 and not spilled and not serialized,
                   f"ptxas conv_tc_kernel: {len(tc)} instances, spilling {spilled}; wgmma serialization "
                   f"warnings: {len(serialized)}")
+            # the f32 route: N 8 / 16 / 32 / 64 in both modes, nothing in local memory
+            f32 = [i for i, ln in enumerate(report) if "Function properties" in ln and "conv_f32_kernel" in ln]
+            spilled = [report[i + 1].strip() for i in f32 if "0 bytes spill stores" not in report[i + 1]]
+            check(len(f32) == 8 and not spilled, f"ptxas conv_f32_kernel: {len(f32)} instances, spilling {spilled}")
     print(f"build: {secs:.1f} s (nvcc, all sources in parallel)", flush=True)
 
 
@@ -381,12 +411,13 @@ def phase_build() -> None:
 @torch.no_grad()
 def phase_kernels() -> list[dict]:
     """Each kernel against its plain version. The main path runs the bf16
-    tensor-core kernels (both wgmma); the f32 checks
-    run the f32 SIMT kernels of the same sources, which only f32 callers
-    reach. Each row's ``max_abs_err`` is the bf16 kernel's,
-    ``f32_simt_max_abs_err`` the f32 one's."""
+    tensor-core kernels (both wgmma); the f32 checks run the f32 route
+    (``conv_f32_kernel``; the RDB as five of its launches), which only f32
+    callers reach. Each bf16 row's ``max_abs_err`` is the bf16 kernel's,
+    ``f32_simt_max_abs_err`` the f32 one's; the ``conv_f32`` row gathers the
+    f32 route."""
     rows = []
-    print(f"tolerances: f32 SIMT kernels vs f32 plain {F32_TOL} (up to 9 x 192 products summed in "
+    print(f"tolerances: f32 kernel vs f32 plain {F32_TOL} (up to 9 x 256 products summed in "
           "another order than cuDNN's, TF32 off). bf16 tensor-core kernels vs f32 plain on the same "
           "bf16 inputs: rdb5c within twice the bf16 plain version's own error, at weights where the "
           "residual branch is a third of the output, and the band must be a quarter or less of what "
@@ -403,8 +434,11 @@ def phase_kernels() -> list[dict]:
         ("fused_rdb5c", xm, lambda t: fused_rdb5c(t, p)),
     ):
         label = f"{label} {tuple(x.shape)}"
+        before = [c.count for c in ALL_COUNTERS]
         e = max_err(fn(x), rdb5c_reference(x, p))
-        check(e <= F32_TOL, f"rdb5c f32 SIMT {label}: max err {e:.3g} <= {F32_TOL}")
+        ran = launched_once(before, rdb_conv.LAUNCHES_SIMT["f32"])
+        check(ran and e <= F32_TOL, f"rdb5c f32 (five conv_f32_kernel launches) {label}: max err {e:.3g} <= "
+              f"{F32_TOL}, one launch counted on the f32 RDB counter only {ran}")
         f32_errs.append(e)
     bf16_errs = []
     for x, calls in (
@@ -438,12 +472,12 @@ def phase_kernels() -> list[dict]:
     nbytes = 2 * xb.numel() * 2 + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items())
     b_ms, b_by = bound(flops, nbytes)
     kw32 = rdb5c_kernel_weights(p, torch.float32, xm.device)
-    rdb_f32 = [f32_simt_row("rdb5c_kernel<float>", "RRDB block", "x (16,128,128,64) f32", lambda: rdb5c_launch(xm, kw32),
+    rdb_f32 = [f32_simt_row("conv_f32_kernel x5", "RRDB block", "x (16,128,128,64) f32", lambda: rdb5c_launch(xm, kw32),
                             lambda: rdb5c_reference(xm, p), None, flops,
                             2 * xm.numel() * 4 + sum(v.numel() * 4 for v in p.values()))]
     rows.append({
         "name": "rdb5c", "route": "cuda",
-        "source": "esr_tpu_torch/ops/cuda/csrc/rdb5c.cuh (rdb5c_tc_kernel; f32: rdb5c_kernel)",
+        "source": "esr_tpu_torch/ops/cuda/csrc/rdb5c.cuh (rdb5c_tc_kernel; f32: five conv_f32.cuh launches)",
         "replaces": "esr_tpu/ops/pallas/rdb_conv.py:163 (fused_rdb5c), :215 (fused_rdb5c_tiled)",
         "tpu_kernel": "K1 fused_rdb5c + K2 fused_rdb5c_tiled",
         "shape": "x (16,128,128,64) bf16, nf 64 gc 32",
@@ -466,12 +500,15 @@ def phase_kernels() -> list[dict]:
         x = gen((B, s, s, cin), 20 + i)
         w = gen((3, 3, cin, cout), 30 + i, math.sqrt(2.0 / (9 * cin)))
         bias = gen((cout,), 40 + i, 0.01)
+        before = [c.count for c in ALL_COUNTERS]
         e = max_err(kpack_conv3x3(x, w, bias, act), conv3x3_reference(x, w, bias, act))
-        check(e <= F32_TOL, f"conv3x3 f32 SIMT {site} {cin}->{cout} at {s}x{s}: max err {e:.3g} <= {F32_TOL}")
+        ran = launched_once(before, kpack_conv.LAUNCHES_SIMT[(3, "f32")])
+        check(ran and e <= F32_TOL, f"conv3x3 f32 conv_f32_kernel {site} {cin}->{cout} at {s}x{s}: max err {e:.3g} "
+              f"<= {F32_TOL}, one launch counted on its f32 counter only {ran}")
         f32_errs.append(e)
         kw32, xc32, w32 = conv_kernel_weights(w, bias, torch.float32, x.device), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         f32_sites.append(f32_simt_row(
-            "conv_kernel<float>", site, f"B{B} {s}x{s} {cin}->{cout}", lambda: conv_launch(x, kw32, act),
+            "conv_f32_kernel", site, f"B{B} {s}x{s} {cin}->{cout}", lambda: conv_launch(x, kw32, act),
             lambda: conv3x3_reference(x, w, bias, act), lambda: F.conv2d(xc32, w32, bias, padding=1),
             2 * 9 * cin * cout * B * s * s, 4 * B * s * s * (cin + cout) + 4 * w.numel()))
         del kw32, xc32, w32
@@ -509,9 +546,11 @@ def phase_kernels() -> list[dict]:
         w = gen((3, 3, NF, NF), 60 + i, math.sqrt(2.0 / (9 * NF)))
         bias = gen((NF,), 70 + i, 0.01)
         ref = conv3x3_reference(upsample_nearest(x, 2), w, bias, act=True)
+        before = [c.count for c in ALL_COUNTERS]
         e = max_err(upsample2x_conv3x3(x, w, bias, act=True), ref)
-        check(e <= F32_TOL, f"upsample2x_conv3x3 f32 SIMT at {s}->{2 * s} vs nearest-2x + F.conv2d: "
-              f"max err {e:.3g} <= {F32_TOL}")
+        ran = launched_once(before, kpack_conv.LAUNCHES_SIMT[(2, "f32")])
+        check(ran and e <= F32_TOL, f"upsample2x_conv3x3 f32 conv_f32_kernel at {s}->{2 * s} vs nearest-2x + "
+              f"F.conv2d: max err {e:.3g} <= {F32_TOL}, one launch counted on its f32 counter only {ran}")
         f32_errs.append(e)
         xc = x.permute(0, 3, 1, 2)
         e = max_err(F.leaky_relu(F.conv_transpose2d(xc, convT_weight(w), bias, stride=2, padding=1), 0.2)
@@ -520,7 +559,7 @@ def phase_kernels() -> list[dict]:
         del ref
         kw32, w4 = conv_kernel_weights(w, bias, torch.float32, x.device, ksize=2), convT_weight(w)
         f32_sites.append(f32_simt_row(
-            "conv_kernel<float>", f"upconv{i + 1}", f"B{B} {s}->{2 * s} 64->64", lambda: conv_launch(x, kw32, True),
+            "conv_f32_kernel", f"upconv{i + 1}", f"B{B} {s}->{2 * s} 64->64", lambda: conv_launch(x, kw32, True),
             lambda: upsample2x_conv3x3_reference(x, w, bias, act=True),
             lambda: F.conv_transpose2d(xc, w4, bias, stride=2, padding=1),
             2 * 16 * NF * NF * B * s * s, 4 * B * s * s * NF * 5 + 4 * 16 * NF * NF))
@@ -557,7 +596,48 @@ def phase_kernels() -> list[dict]:
     conv_edge_checks()
     conv_wide_checks(rows)
     bf16_simt_checks(rows)
+    rows.append(f32_route_row(rows))
     return rows
+
+
+def f32_route_row(rows: list[dict]) -> dict:
+    """The f32 route's kernel, ``conv_f32_kernel``, as a row of the kernels
+    line: a conv of Cin 256 (which the earlier f32 kernel could not hold in
+    shared memory) checked and timed beside the flagship's f32 sites. The
+    row's bound is that of one f32 flagship forward's convs (six conv sites,
+    69 RDBs); its launches and times are the f32 forward's, which phase 5
+    measures (:func:`phase_f32_forward`) and ``main`` fills in."""
+    x = gen((B, LR, LR, 256), 95)
+    w = gen((3, 3, 256, NF), 96, math.sqrt(2.0 / (9 * 256)))
+    bias = gen((NF,), 97, 0.01)
+    before = [c.count for c in ALL_COUNTERS]
+    e = max_err(kpack_conv3x3(x, w, bias, True), conv3x3_reference(x, w, bias, True))
+    ran = launched_once(before, kpack_conv.LAUNCHES_SIMT[(3, "f32")])
+    check(ran and e <= F32_TOL, f"conv3x3 f32 conv_f32_kernel Cin 256 -> 64 at B{B} {LR}x{LR} (raised before: "
+          f"its window did not fit shared memory): max err {e:.3g} <= {F32_TOL}, one launch counted {ran}")
+    kw32, xc, wc = conv_kernel_weights(w, bias, torch.float32, x.device), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    cin256 = f32_simt_row("conv_f32_kernel", "cin256", f"B{B} {LR}x{LR} 256->64", lambda: conv_launch(x, kw32, True),
+                          lambda: conv3x3_reference(x, w, bias, True), lambda: F.conv2d(xc, wc, bias, padding=1),
+                          2 * 9 * 256 * NF * B * LR * LR, 4 * B * LR * LR * (256 + NF) + 4 * w.numel())
+    del x, kw32, xc, wc
+    by_name = {r["name"]: r for r in rows}
+    conv_sites = by_name["conv3x3"]["f32_simt"] + by_name["upsample2x_conv3x3"]["f32_simt"]
+    rdb = by_name["rdb5c"]["f32_simt"][0]
+    return {
+        "name": "conv_f32", "route": "cuda", "source": "esr_tpu_torch/ops/cuda/csrc/conv_f32.cuh (conv_f32_kernel)",
+        "replaces": "esr_tpu/ops/pallas/kpack_conv.py:61 (kpack_conv3x3), its 2x2 window for "
+                    "esr_tpu/ops/fused.py:32, and esr_tpu/ops/pallas/rdb_conv.py:163 / :215 (fused_rdb5c, "
+                    "five launches), in f32",
+        "tpu_kernel": "K1 / K2 / K3 / K3' in f32",
+        "shape": f"the CEM-wrapped f32 flagship forward at B{B} x LR {LR} (ms: the kernel path, plain_ms: the f32 "
+                 f"plain path, in turns; kernel_device_ms: conv_f32_kernel's device time in it; bound: its six conv "
+                 f"sites + {3 * NB} RDBs; library: none, the RDB has no one-call counterpart; each conv site's own "
+                 "library time is in its entry)",
+        "max_abs_err": max([e] + [r["f32_simt_max_abs_err"] for r in rows]),
+        "bound_ms": sum(site["bound_ms"] for site in conv_sites) + 3 * NB * rdb["bound_ms"],
+        "library_ms": None, "bound_by": "operations",
+        "sites": conv_sites + [rdb, cin256],
+    }
 
 
 def bf16_simt_checks(rows: list[dict]) -> None:
@@ -588,7 +668,7 @@ def bf16_simt_checks(rows: list[dict]) -> None:
         flops = 2 * 9 * (sum((nf + k * gc) * gc for k in range(4)) + (nf + 4 * gc) * nf) * px
         b_ms, b_by = bound(flops, 2 * 2 * px * nf + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items()))
         rdb_row["bf16_simt"].append({
-            "kernel": "rdb5c_kernel<__nv_bfloat16>", "shape": f"x {shape + (nf,)} bf16, nf {nf} gc {gc}",
+            "kernel": "rdb5c_kernel", "shape": f"x {shape + (nf,)} bf16, nf {nf} gc {gc}",
             "max_abs_err": e, "band": tol, "ms": cuda_ms(lambda: rdb5c_launch(xb, kw)),
             "plain_ms": cuda_ms(lambda: rdb5c_reference(xb, p)), "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by})
@@ -597,7 +677,8 @@ def bf16_simt_checks(rows: list[dict]) -> None:
               f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})", flush=True)
 
 
-CONV_COUNTERS = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values())
+CONV_COUNTERS = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values(),
+                 kpack_conv.LAUNCHES_F32)
 
 
 def conv_wide_row(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, ksize: int, what: str,
@@ -617,7 +698,7 @@ def conv_wide_row(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, ksize: i
     before = [c.count for c in CONV_COUNTERS]
     got = conv_launch(x, kw, True)
     torch.cuda.synchronize()
-    ran = [c.count - b for c, b in zip(CONV_COUNTERS, before)] == [int(ksize == 3), int(ksize == 2), 0, 0]
+    ran = [c.count - b for c, b in zip(CONV_COUNTERS, before)] == [int(ksize == 3), int(ksize == 2), 0, 0, 0]
     e = max_err(got, ref) if got.shape == ref.shape else math.inf
     del ref, got
     check(ran and kw.route == "tc" and e <= tol, f"{what} bf16 tensor cores {ksize}x{ksize} mode {tuple(x.shape)} "
@@ -835,12 +916,82 @@ def phase_timing(card: str, rows: list[dict]) -> None:
           flush=True)
     conv = [e for e in kernels if "conv_tc_kernel" in e.key]
     conv_ms = sum(e.self_device_time_total for e in conv) / 1e3 / 2
-    lib_ms = sum(r["library_ms"] for r in rows if r["name"] != "rdb5c")
+    lib_ms = sum(r["library_ms"] for r in rows if r["name"] in ("conv3x3", "upsample2x_conv3x3"))
     print(f"conv_tc_kernel (3x3 and 2x2 modes, {sum(e.count for e in conv) // 2} launches): "
           f"{conv_ms:.3f} ms of device time per forward; the library calls for the same six convs "
           f"(phase 3): {lib_ms:.3f} ms", flush=True)
     for e in sorted(conv, key=lambda e: e.key):
         print(f"  {e.self_device_time_total / 1e3 / 2:9.3f} ms/forward x{e.count // 2:<3d} {e.key[:90]}", flush=True)
+
+
+# the f32 route's path: the flagship forward with "bf16": false, per forward:
+# calls of each f32 route, and conv_f32_kernel's launches (five an RDB)
+F32_PER_FORWARD = {"rdb5c_simt_f32": 3 * NB, "conv3x3_simt_f32": 4, "upsample2x_conv3x3_simt_f32": 2,
+                   "conv_f32_kernel": 5 * 3 * NB + 4 + 2}
+
+
+@torch.no_grad()
+def phase_f32_forward(card: str) -> dict:
+    """Phase 5, the f32 route: the CEM-wrapped flagship with ``"bf16":
+    false`` (what the JAX package evaluates at ``eval_precision: "highest"``)
+    at B16 x LR 128, its layouts built once (make_eval_forward). Checks, on
+    one forward with every counter zeroed just before: its launches on the
+    f32 counters (69 RDBs, 4 + 2 convs, 351 conv_f32_kernel launches) and
+    none on the bf16 ones, the answer's shape and finiteness, the CEM
+    residual, and its max error against the f32 plain path within F32_TOL,
+    a band that the same plain path with cuDNN's TF32 on must miss by 4x.
+    Then ms per forward beside the f32 plain path in turns (plain, kernels,
+    kernels, plain) and conv_f32_kernel's device time in one forward (the
+    profiler). Returns the launches and the measured numbers."""
+    opt = {"network_G": {"nf": NF, "nb": NB, "gc": GC, "num_latent_channels": NZ}, "scale": SCALE, "bf16": False}
+    g = define_G(opt, device="cuda", seed=0)
+    dev = next(g.parameters()).device
+    cem = make_cem(CEMConf(scale=SCALE), device=dev)
+    fwd = make_eval_forward(g, cem)
+    lr = torch.rand(B, LR, LR, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    z = torch.zeros(B, LR, LR, NZ, device=dev)
+    out, counts, _ = counted(lambda: fwd(lr, z), ALL_COUNTERS)
+    want = {c.name: F32_PER_FORWARD.get(c.name, 0) for c in ALL_COUNTERS}
+    check(counts == want, f"f32 flagship forward B{B} x LR {LR}: launches {counts} == {want}")
+    check(tuple(out.shape) == (B, SCALE * LR, SCALE * LR, 3) and bool(torch.isfinite(out).all()),
+          f"f32 flagship forward: answer {tuple(out.shape)}, every value finite")
+    res = max_err(cem.downsample(out), lr)
+    check(res <= CEM_TOL, f"f32 flagship forward: CEM residual max|H(out) - lr| {res:.3g} <= {CEM_TOL}")
+    plain = lambda: cem.project(plain_forward(g, lr, z, torch.float32), lr)  # noqa: E731
+    ref = plain()
+    err = max_err(out, ref)
+    del out
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                     allow_tf32=True):
+        tf32_err = max_err(plain(), ref)
+    del ref
+    check(err <= F32_TOL and 4 * F32_TOL <= tf32_err,
+          f"f32 flagship forward vs the f32 plain path: max err {err:.3g} <= {F32_TOL}, a band that the f32 plain "
+          f"path with cuDNN's TF32 on misses by 4x or more (off by {tf32_err:.3g})")
+    t = {"plain": [], "kernels": []}
+    for name in ("plain", "kernels", "kernels", "plain"):
+        t[name].append(cuda_ms(plain if name == "plain" else lambda: fwd(lr, z), reps=2, warmup=1, windows=2))
+    hr_mp = B * (LR * SCALE) ** 2 / 1e6
+    for name, ms in t.items():
+        m = statistics.mean(ms)
+        print(f"f32 flagship forward B{B} LR{LR} x{SCALE} ({name}, f32, TF32 off): {m:.2f} ms/forward "
+              f"({', '.join(f'{v:.2f}' for v in ms)}), {hr_mp / (m / 1e3):.3f} HR MP/s on {card}", flush=True)
+    print(f"f32 kernel path / f32 plain path: {statistics.mean(t['kernels']) / statistics.mean(t['plain']):.3f} "
+          "of the time per forward", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd(lr, z)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    conv = [e for e in kernels if "conv_f32_kernel" in e.key]
+    conv_ms = sum(e.self_device_time_total for e in conv) / 1e3
+    print(f"profile, 1 f32 forward: device busy {busy_ms:.2f} ms, conv_f32_kernel {conv_ms:.2f} ms "
+          f"({sum(e.count for e in conv)} launches, {100 * conv_ms / max(busy_ms, 1e-9):.1f}% of busy)", flush=True)
+    return {"launches": counts, "ms": statistics.mean(t["kernels"]), "plain_ms": statistics.mean(t["plain"]),
+            "kernel_device_ms": conv_ms, "max_abs_err": err, "tf32_control_err": tf32_err}
 
 
 # -- phases 6 and 7: the inference entry points --------------------------------
@@ -1784,7 +1935,7 @@ BENCH_ITERS = 2000  # blind_bench's adversarial estimate
 BLIND_DEVICE = "cuda"
 ZERO_BY_DESIGN = {p: ("rdb5c", "upsample2x_conv3x3") for p in ("srresnet", "srresnet_train")}
 F32_SIMT = (rdb_conv.LAUNCHES_SIMT["f32"], kpack_conv.LAUNCHES_SIMT[(3, "f32")],
-            kpack_conv.LAUNCHES_SIMT[(2, "f32")])
+            kpack_conv.LAUNCHES_SIMT[(2, "f32")], kpack_conv.LAUNCHES_F32)
 
 
 def kernel_tuple(k) -> tuple:
@@ -1886,12 +2037,14 @@ def kernelgan_checks(tmp: Path) -> tuple[np.ndarray, dict]:
     t0 = time.perf_counter()
     k_est, m = kernelgan.estimate_kernel(img, probe, loss_override=loss_override, device=BLIND_DEVICE)
     secs = time.perf_counter() - t0
+    k_again, _ = kernelgan.estimate_kernel(img, probe, loss_override=loss_override, device=BLIND_DEVICE)
     corr = blind_bench.aligned_corr(k_est, k_true)
-    check(corr > 0.88 and abs(k_est.sum() - 1) < 1e-6,
-          f"KernelGAN supervised probe (tests/test_kernelgan.py's conf, 1000 iterations): aligned corr {corr:.4f} > "
-          f"0.88, unit sum; {secs:.2f} s ({secs:.3f} ms per iteration x 1000), l_g {m['l_g']:.5f}")
+    check(corr > 0.88 and abs(k_est.sum() - 1) < 1e-6 and np.array_equal(k_est, k_again),
+          f"KernelGAN supervised probe (tests/test_kernelgan.py's conf, 1000 iterations, cuDNN deterministic): "
+          f"aligned corr {corr:.4f} > 0.88, unit sum; a second run gives the same kernel bit for bit "
+          f"{np.array_equal(k_est, k_again)}; {secs:.2f} s ({secs:.3f} ms per iteration x 1000), l_g {m['l_g']:.5f}")
 
-    # the adversarial estimator as blind_bench runs it (G nf 16 / nb 2 / gc 8 in f32: the f32 SIMT kernels)
+    # the adversarial estimator as blind_bench runs it (G nf 16 / nb 2 / gc 8 in f32: the f32 route, conv_f32_kernel)
     row, counts, secs = counted(lambda: blind_bench.run_case("aniso_gauss", k_true, BLIND_LR, BENCH_ITERS, seed=0,
                                                              device=BLIND_DEVICE), F32_SIMT)
     fin = all(math.isfinite(row[f"{p}_{lab}"]) for p in ("psnr", "true_res") for lab in ("est", "true", "bicubic"))
@@ -1901,7 +2054,7 @@ def kernelgan_checks(tmp: Path) -> tuple[np.ndarray, dict]:
           f"est/true/bicubic {row['psnr_est']:.2f}/{row['psnr_true']:.2f}/{row['psnr_bicubic']:.2f} dB; true-operator "
           f"residual est/true/bicubic {row['true_res_est']:.3g}/{row['true_res_true']:.3g}/{row['true_res_bicubic']:.3g};"
           f" self residual est {row['self_res_est']:.3g}; estimate {row['estimate_s']:.2f} s "
-          f"({row['estimate_s'] * 1e3 / BENCH_ITERS:.3f} ms per iteration); f32 SIMT launches {counts}")
+          f"({row['estimate_s'] * 1e3 / BENCH_ITERS:.3f} ms per iteration); f32 route launches {counts}")
     # where an iteration's time goes: one chunk of 100, profiled
     _, lr96 = blind_lr(0, k_true)
     from torch.profiler import ProfilerActivity, profile
@@ -2184,6 +2337,7 @@ def main() -> int:
     rows = phase_kernels()
     by_path = {"forward": phase_requests()}
     phase_timing(env["card"], rows)
+    f32_forward = phase_f32_forward(env["card"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         pth = str(tmp / "G.pth")
@@ -2197,6 +2351,13 @@ def main() -> int:
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:
+        if r["name"] == "conv_f32":  # the f32 route's main path is the f32 forward (phase 5)
+            counts = {k: v for k, v in f32_forward["launches"].items() if k in F32_PER_FORWARD}
+            r.update(launches=counts["conv_f32_kernel"], launches_by_path={"f32_forward": counts},
+                     **{k: f32_forward[k] for k in ("ms", "plain_ms", "kernel_device_ms", "tf32_control_err")})
+            r["max_abs_err"] = max(r["max_abs_err"], f32_forward["max_abs_err"])
+            check(all(counts.values()), f"conv_f32 launched on the f32 forward's every counter: {counts}")
+            continue
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         # SRResNet runs no RDB and upsamples by pixel shuffle: zero there by design

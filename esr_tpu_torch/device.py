@@ -11,12 +11,13 @@ __all__ = ["full_f32", "resolve_device"]
 
 
 @contextlib.contextmanager
-def full_f32():
+def full_f32(deterministic: bool = False):
     """cuDNN convs in full f32 inside (TF32 off, whatever the caller's global
-    setting); the caller's cuDNN flags are restored after."""
+    setting), and only cuDNN's deterministic algorithms where
+    ``deterministic``; the caller's cuDNN flags are restored after."""
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
-                     allow_tf32=False):
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=deterministic or cudnn.deterministic, allow_tf32=False):
         yield
 
 

@@ -19,13 +19,9 @@
 // (SRResNet's upconvs, pixel-shuffled after) and 128 -> 128 do 460 and 580
 // FLOP per byte, bound by the tensor cores.
 //
-// Two kernels: bf16 (conv_tc_kernel, design below) on the Hopper tensor
-// cores, every bf16 conv with Cin up to 128 and Cout up to 1024; and
-// conv_kernel<float> on the SIMT units, for exact comparisons in f32: one
-// block per 16 x 16 output tile (and parity) loads its window planar into
-// shared memory, weights from L2, 128 pixels x 8 channels per warp item;
-// Cout is padded in its weight layout only and the stores mask the ragged
-// channel edge (conv_last's 3).
+// This file holds the bf16 kernel, conv_tc_kernel (design below), on the
+// Hopper tensor cores: every bf16 conv with Cin up to 128 and Cout up to 1024.
+// The f32 convs run conv_f32_kernel (conv_f32.cuh), on the FP32 units.
 #pragma once
 
 #include "common.cuh"
@@ -35,77 +31,12 @@ namespace esr {
 
 constexpr int kTile = 16;
 
-template <typename T>
-struct ConvArgs {
-  const T* x;         // (n, h, w, cin) NHWC
-  const T* wt;        // [parities][k*k][cin][cout_pad]
-  const float* bias;  // [cout] or nullptr
-  T* out;             // (n, h, w, cout), or (n, 2h, 2w, cout) in 2x2 mode
-  int n, h, w, cin, cout, cout_pad;
-  int ksize;  // 3: SAME 3x3 conv; 2: the four parity convs of upsample2x + conv3x3
-  int act;    // apply lrelu_0.2
-};
-
-inline size_t conv_smem_bytes(int cin, int ksize, size_t elem) {
-  return (size_t)cin * (kTile + ksize - 1) * (kTile + ksize - 1) * elem;
-}
-
 // Output pixel of tile pixel (gy, gx): its own place, or its interleaved place
 // (2 gy + a, 2 gx + b) of parity q = 2a + b in the 2x2 mode.
 __device__ __forceinline__ size_t conv_out_pixel(int n, int h, int w, int gy, int gx, bool up,
                                                  int pa, int pb) {
   return up ? ((size_t)n * 2 * h + 2 * gy + pa) * (2 * w) + 2 * gx + pb
             : ((size_t)n * h + gy) * w + gx;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) conv_kernel(const ConvArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* win = reinterpret_cast<T*>(smem_raw);
-  const int ks = a.ksize, ww = kTile + ks - 1, plane = ww * ww;
-  const bool up = ks == 2;
-  const int nq = up ? 4 : 1;
-  const int n = blockIdx.z / nq, q = blockIdx.z % nq, pa = q >> 1, pb = q & 1;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  // the window of output (i, j) starts at input (i - 1 + a, j - 1 + b')
-  load_window(win, a.x, n, a.h, a.w, a.cin, y0 - 1 + pa, x0 - 1 + pb, ww, ww);
-  __syncthreads();
-
-  const T* wq = a.wt + (size_t)q * ks * ks * a.cin * a.cout_pad;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int n_pb = kTile * kTile / kPixBlock, n_cg = a.cout_pad / kCO;
-  for (int item = warp; item < n_pb * n_cg; item += nwarps) {
-    const int ib = item % n_pb, cg = item / n_pb;
-    int pr[kPX], pc[kPX], base[kPX];
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) {
-      const int qq = ib * kPixBlock + lane + 32 * p;
-      pr[p] = qq / kTile;
-      pc[p] = qq % kTile;
-      base[p] = pr[p] * ww + pc[p];
-    }
-    float acc[kPX][kCO];
-#pragma unroll
-    for (int c = 0; c < kCO; ++c) {
-      const int co = cg * kCO + c;
-      const float bv = (a.bias != nullptr && co < a.cout) ? a.bias[co] : 0.f;
-#pragma unroll
-      for (int p = 0; p < kPX; ++p) acc[p][c] = bv;
-    }
-    accumulate<T>(acc, win, plane, ww, base, a.cin, ks, ks, wq + cg * kCO, a.cin * a.cout_pad,
-                  a.cout_pad);
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) {
-      const int gy = y0 + pr[p], gx = x0 + pc[p];
-      if (gy >= a.h || gx >= a.w) continue;
-      T* o = a.out + conv_out_pixel(n, a.h, a.w, gy, gx, up, pa, pb) * a.cout;
-#pragma unroll
-      for (int c = 0; c < kCO; ++c) {
-        const int co = cg * kCO + c;
-        if (co < a.cout) o[co] = from_float<T>(a.act ? lrelu(acc[p][c]) : acc[p][c]);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -32,7 +32,10 @@
 // no intermediate or concat ever reaches device memory; only the halo is
 // recomputed (1.34x the FLOPs at 16 x 16). The dense concat is never built:
 // each earlier feature adds its own slice of the weight's cin axis. Two
-// kernels, three routes:
+// kernels, one route each (an f32 RDB is five launches of conv_f32.cuh's
+// kernel, chained by rdb_conv.py through a scratch tensor: in f32 the fused
+// tile's window and x_1..x_4 do not fit shared memory at a tile whose halo
+// is cheap):
 //  - rdb5c_tc_kernel (bf16, the main path; nf 64, gc 32, 16 x 16 tiles fixed
 //    at compile time): persistent blocks of a producer warpgroup (one thread
 //    works; its registers go to the consumers) and two consumer
@@ -49,15 +52,14 @@
 //    M-tiles of a conv in registers, so each weight stage is read once per
 //    warpgroup. A named barrier over the consumer threads separates conv k
 //    from conv k + 1; the producer runs ahead across it.
-//  - rdb5c_kernel<T>, SIMT FMAs over planar windows, any tile, weights from
-//    L2, f32 accumulation: T = float for exact comparisons, and T = bf16 for
-//    the widths the tensor-core kernel does not take (the x window and
-//    x_1..x_4 kept in bf16, each x_k rounded to bf16 as the plain version
-//    rounds it). nf and gc are multiples of 8 (kCO): rdb_conv.py zero-pads
-//    other widths in the weight layout (zero weights and bias give x_k = 0
-//    in the padded channels). At nf 16, gc 8 a launch does ~18 FLOP per
-//    byte of activation: bound by operations on the SIMT units (67 TFLOP/s
-//    f32), not by memory.
+//  - rdb5c_kernel, SIMT FMAs over planar windows, any tile, weights from L2,
+//    f32 accumulation, for the bf16 widths the tensor-core kernel does not
+//    take (the x window and x_1..x_4 kept in bf16, each x_k rounded to bf16
+//    as the plain version rounds it). nf and gc are multiples of 8 (kCO):
+//    rdb_conv.py zero-pads other widths in the weight layout (zero weights
+//    and bias give x_k = 0 in the padded channels). At nf 16, gc 8 a launch
+//    does ~18 FLOP per byte of activation: bound by operations on the SIMT
+//    units, not by memory.
 #pragma once
 
 #include "common.cuh"
@@ -65,35 +67,33 @@
 
 namespace esr {
 
-template <typename T>
 struct RdbArgs {
-  const T* x;         // (n, h, w, nf) NHWC
-  T* out;             // (n, h, w, nf) NHWC
-  const T* wt[5];     // conv k: [9][cin_k][cout_k], K = 9 * (nf + (k-1) gc) tap-major
-  const float* b[5];  // conv k bias: [cout_k]
+  const __nv_bfloat16* x;      // (n, h, w, nf) NHWC
+  __nv_bfloat16* out;          // (n, h, w, nf) NHWC
+  const __nv_bfloat16* wt[5];  // conv k: [9][cin_k][cout_k], K = 9 * (nf + (k-1) gc) tap-major
+  const float* b[5];           // conv k bias: [cout_k]
   int n, h, w, nf, gc, strip, wtile;
 };
 
-// Shared-memory bytes one block of the f32 kernel needs.
-inline size_t rdb5c_smem_bytes(int nf, int gc, int strip, int wtile, size_t elem) {
+// Shared-memory bytes one block of the SIMT kernel needs.
+inline size_t rdb5c_smem_bytes(int nf, int gc, int strip, int wtile) {
   size_t n = (size_t)nf * (strip + 10) * (wtile + 10);
   for (int k = 1; k < 5; ++k) n += (size_t)gc * (strip + 10 - 2 * k) * (wtile + 10 - 2 * k);
-  return n * elem;
+  return n * sizeof(__nv_bfloat16);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs<T> a) {
+__global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // feature k lives on a (fh[k] x fw[k]) grid whose origin is k pixels inside
   // the input window's origin
-  T* feat[5];
+  __nv_bfloat16* feat[5];
   int fh[5], fw[5], fc[5];
   size_t off = 0;
   for (int k = 0; k < 5; ++k) {
     fh[k] = a.strip + 10 - 2 * k;
     fw[k] = a.wtile + 10 - 2 * k;
     fc[k] = k == 0 ? a.nf : a.gc;
-    feat[k] = reinterpret_cast<T*>(smem_raw) + off;
+    feat[k] = reinterpret_cast<__nv_bfloat16*>(smem_raw) + off;
     off += (size_t)fc[k] * fh[k] * fw[k];
   }
   const int n = blockIdx.z, y0 = blockIdx.y * a.strip, x0 = blockIdx.x * a.wtile;
@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs<T> a) {
     const int oh = k < 5 ? fh[k] : a.strip, ow = k < 5 ? fw[k] : a.wtile;
     const int cout = k < 5 ? a.gc : a.nf, cin_total = a.nf + (k - 1) * a.gc;
     const int npx = oh * ow, n_pb = (npx + kPixBlock - 1) / kPixBlock, n_cg = cout / kCO;
-    const T* wk = a.wt[k - 1];
+    const __nv_bfloat16* wk = a.wt[k - 1];
     const float* bk = a.b[k - 1];
     // a warp item: kPixBlock output pixels x kCO channels (warp-uniform)
     for (int item = warp; item < n_pb * n_cg; item += nwarps) {
@@ -136,8 +136,8 @@ __global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs<T> a) {
         int base[kPX];
 #pragma unroll
         for (int p = 0; p < kPX; ++p) base[p] = (pr[p] + s) * fw[j] + pc[p] + s;
-        accumulate<T>(acc, feat[j], fh[j] * fw[j], fw[j], base, fc[j], 3, 3,
-                      wk + (size_t)cin_off * cout + cg * kCO, cin_total * cout, cout);
+        accumulate(acc, feat[j], fh[j] * fw[j], fw[j], base, fc[j], 3, 3,
+                   wk + (size_t)cin_off * cout + cg * kCO, cin_total * cout, cout);
         cin_off += fc[j];
       }
       if (k < 5) {
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs<T> a) {
 #pragma unroll
           for (int c = 0; c < kCO; ++c) {
             const float v = inside ? lrelu(acc[p][c]) : 0.f;
-            feat[k][(cg * kCO + c) * npx + q[p]] = from_float<T>(v);
+            feat[k][(cg * kCO + c) * npx + q[p]] = __float2bfloat16(v);
           }
         }
       } else {
@@ -159,11 +159,11 @@ __global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs<T> a) {
           const int gy = y0 + pr[p], gx = x0 + pc[p];
           if (!ok[p] || gy >= a.h || gx >= a.w) continue;
           const int xi = (pr[p] + 5) * fw[0] + pc[p] + 5;
-          T* o = a.out + (((size_t)n * a.h + gy) * a.w + gx) * a.nf + cg * kCO;
+          __nv_bfloat16* o = a.out + (((size_t)n * a.h + gy) * a.w + gx) * a.nf + cg * kCO;
 #pragma unroll
           for (int c = 0; c < kCO; ++c) {
-            const float xv = to_float(feat[0][(cg * kCO + c) * plane0 + xi]);
-            o[c] = from_float<T>(xv + 0.2f * acc[p][c]);
+            const float xv = __bfloat162float(feat[0][(cg * kCO + c) * plane0 + xi]);
+            o[c] = __float2bfloat16(xv + 0.2f * acc[p][c]);
           }
         }
       }

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_VP, _I, _SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_VP, _I, _SZ, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_float
 # C signatures of the kernels' entry points, by library
 _SIGNATURES = {
     "rdb5c": {
@@ -41,8 +41,8 @@ _SIGNATURES = {
         "esr_rdb5c_weight_image_bytes": ([], _SZ),
     },
     "conv3x3": {
-        "esr_conv": ([_I] + [_VP] * 4 + [_I] * 9 + [_VP], _I),
-        "esr_conv_smem_bytes": ([_I] * 4, _SZ),
+        "esr_conv": ([_VP] * 4 + [_I] * 9 + [_VP], _I),
+        "esr_conv_f32": ([_VP, _I, _I] * 2 + [_VP] * 3 + [_I, _I, _VP, _I, _F] + [_I] * 7 + [_VP], _I),
     },
 }
 

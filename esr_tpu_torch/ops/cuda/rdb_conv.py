@@ -2,20 +2,26 @@
 plain PyTorch version.
 
 Port of ``esr_tpu/ops/pallas/rdb_conv.py``: ``fused_rdb5c`` and
-``fused_rdb5c_tiled`` keep their signatures and both reach the kernels in
-``csrc/rdb5c.cuh``. Three routes, by dtype and width: bf16 at nf 64, gc 32
-runs the tensor-core kernel (the main path); bf16 at any other width runs the
-SIMT kernel in bf16; f32 runs the SIMT kernel in f32. Each route counts its
-launches under its own name (:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`). The
-``strip`` x ``wtile`` tile is a schedule hint, as on the TPU, since tiling
-changes no output pixel: the SIMT kernels run the tile asked for, the
-tensor-core kernel its own 16 x 16 whatever is asked. Widths that are not
-multiples of 8 are zero-padded in the SIMT weight layout (zero weights and
-bias: the padded channels of each x_k are lrelu(0) = 0, and the later convs
-read them through zero rows), so the function is the same. The kernels read
-their weights in their own layout (:func:`rdb5c_kernel_weights`; tensor
-cores: :func:`rdb5c_weight_image`): the wrappers build it per call, a module
-can build it once and call :func:`rdb5c_launch`. Tensors are NHWC and
+``fused_rdb5c_tiled`` keep their signatures and reach the kernels by three
+routes, by dtype and width: bf16 at nf 64, gc 32 runs the tensor-core kernel
+of ``csrc/rdb5c.cuh`` (the main path); bf16 at any other width runs that
+file's SIMT kernel in bf16; f32 runs the block as five launches of the f32
+conv kernel (``csrc/conv_f32.cuh``, :func:`_rdb5c_f32`): conv k reads x and
+x_1..x_{k-1} from two sources, so the dense concat is never built, and
+writes x_k into its channels of one scratch tensor; conv 5 adds the
+residual. Each route counts one launch a block under its own name
+(:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`), the f32 one too. The ``strip`` x
+``wtile`` tile is a schedule hint, as on the TPU, since tiling changes no
+output pixel: the bf16 SIMT kernel runs the tile asked for, the tensor-core
+kernel its own 16 x 16 and the f32 convs theirs whatever is asked. bf16
+widths that are not multiples of 8 are zero-padded in the SIMT weight layout
+(zero weights and bias: the padded channels of each x_k are lrelu(0) = 0,
+and the later convs read them through zero rows), so the function is the
+same. The kernels read their weights in their own layout
+(:func:`rdb5c_kernel_weights`; tensor cores: :func:`rdb5c_weight_image`;
+f32: :class:`Rdb5cF32Weights`):
+the wrappers build it per call, a module can build it once and call
+:func:`rdb5c_launch`. Tensors are NHWC and
 weights HWIO, as in the JAX package. A CPU tensor takes
 :func:`rdb5c_reference`; a CUDA tensor launches a kernel or raises. The
 kernels are forward-only, like the Pallas one.
@@ -28,13 +34,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from esr_tpu_torch.ops.cuda import lib
-from esr_tpu_torch.ops.cuda.kpack_conv import sw128_rows
+from esr_tpu_torch.ops.cuda import kpack_conv, lib
+from esr_tpu_torch.ops.cuda.kpack_conv import ConvKernelWeights, sw128_rows
 
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_SIMT",
     "LAYOUTS",
+    "Rdb5cF32Weights",
     "Rdb5cKernelWeights",
     "fused_rdb5c",
     "fused_rdb5c_tiled",
@@ -45,19 +52,21 @@ __all__ = [
     "rdb5c_weight_image",
 ]
 
-# launches by route: the tensor-core kernel (bf16, nf 64, gc 32: the main
-# path), and the SIMT kernel by dtype; and the weight layouts built
+# launches by route, one a block: the tensor-core kernel (bf16, nf 64, gc
+# 32: the main path), the bf16 SIMT kernel, and the f32 route (five f32 conv
+# launches a block); and the weight layouts built
 LAUNCHES = lib.LaunchCounter("rdb5c")
 LAUNCHES_SIMT = {dt: lib.LaunchCounter(f"rdb5c_simt_{dt}") for dt in ("bf16", "f32")}
 LAYOUTS = lib.LaunchCounter("rdb5c_kernel_weights")
 
-# Default tile edge per dtype for the SIMT kernel, shrunk until the block's
-# window fits the 227 KB of shared memory (f32 8x8 at nf 64, gc 32: 168 KB).
-# Larger tiles recompute less halo. The tensor-core kernel's tile is 16 x 16.
-_DEFAULT_TILE = {torch.bfloat16: 16, torch.float32: 8}
+_DTYPES = (torch.bfloat16, torch.float32)
+# Default tile edge of the bf16 SIMT kernel, halved until the block's window
+# fits the 227 KB of shared memory. Larger tiles recompute less halo. The
+# tensor-core kernel's tile is 16 x 16.
+_SIMT_TILE = 16
 _TC_NF, _TC_GC, _TC_TILE = 64, 32, 16
 _SMEM_LIMIT = 232448
-_ROUTE_CODE = {("simt", torch.float32): 0, ("tc", torch.bfloat16): 1, ("simt", torch.bfloat16): 2}
+_ROUTE_CODE = {"tc": 1, "simt": 2}
 
 
 def _ceil8(n: int) -> int:
@@ -99,8 +108,9 @@ def fused_rdb5c_tiled(
     x: torch.Tensor, params: dict, strip: int | None = None, wtile: int | None = None
 ) -> torch.Tensor:
     """Fused RDB forward over ``strip`` x ``wtile`` output tiles (ragged edges
-    allowed; a schedule hint: the tensor-core kernel runs 16 x 16 whatever is
-    asked). Tile edges default to the dtype's largest fitting square."""
+    allowed; a schedule hint: the tensor-core kernel and the f32 convs run
+    their own tiles whatever is asked). The bf16 SIMT kernel's tile edges
+    default to its largest fitting square."""
     if x.device.type == "cpu":
         return rdb5c_reference(x, params)
     _require_cuda(x)
@@ -109,7 +119,7 @@ def fused_rdb5c_tiled(
 
 
 class Rdb5cKernelWeights(NamedTuple):
-    """One RDB's weights in the kernel's layout, for one dtype and device."""
+    """One bf16 RDB's weights in the kernel's layout, on one device."""
 
     # tc: (rdb5c_weight_image,); simt: w_k as [9][cin_k][cout_k], zero-padded
     # to nf_pad / gc_pad channels per source feature and output
@@ -120,6 +130,16 @@ class Rdb5cKernelWeights(NamedTuple):
     route: str  # "tc" (tensor cores) or "simt"
     nf_pad: int  # nf and gc as the kernel runs them (simt: rounded up to multiples of 8)
     gc_pad: int
+
+
+class Rdb5cF32Weights(NamedTuple):
+    """One f32 RDB's weights: its five convs in the f32 conv kernel's layout
+    (:func:`~esr_tpu_torch.ops.cuda.kpack_conv.f32_weight_layout`, bias
+    included), on one device."""
+
+    convs: tuple[ConvKernelWeights, ...]
+    nf: int
+    gc: int
 
 
 def rdb5c_weight_image(params: dict) -> torch.Tensor:
@@ -154,12 +174,15 @@ def _pad_simt(w: torch.Tensor, b: torch.Tensor, k: int, nf: int, gc: int, nf_p: 
 
 
 @torch.no_grad()
-def rdb5c_kernel_weights(params: dict, dtype: torch.dtype, device: torch.device) -> Rdb5cKernelWeights:
+def rdb5c_kernel_weights(
+    params: dict, dtype: torch.dtype, device: torch.device
+) -> Rdb5cKernelWeights | Rdb5cF32Weights:
     """HWIO ``w1..w5``, ``b1..b5`` -> the kernel's layout in ``dtype`` (the
     port's counterpart of ``rdb5c_params_from_flax``'s kernel layout): the
-    tensor-core weight image for bf16 at nf 64, gc 32, else the SIMT layout,
-    zero-padded to multiples of 8 channels."""
-    if dtype not in _DEFAULT_TILE:
+    tensor-core weight image for bf16 at nf 64, gc 32; the five convs' f32
+    conv layouts for f32 (any width); else the bf16 SIMT layout, zero-padded
+    to multiples of 8 channels."""
+    if dtype not in _DTYPES:
         raise TypeError(f"fused_rdb5c: dtype {dtype} not supported (bfloat16, float32)")
     nf, gc = params["w5"].shape[-1], params["w1"].shape[-1]
     ws, bs = {}, []
@@ -172,6 +195,10 @@ def rdb5c_kernel_weights(params: dict, dtype: torch.dtype, device: torch.device)
         ws[f"w{k}"] = wk.to(device=device, dtype=dtype)
         bs.append(bk.to(device=device, dtype=torch.float32))
     LAYOUTS.count += 1
+    if dtype == torch.float32:
+        convs = tuple(kpack_conv.conv_kernel_weights(ws[f"w{k}"], bs[k - 1], dtype, device, _count=False)
+                      for k in range(1, 6))
+        return Rdb5cF32Weights(convs, nf, gc)
     if dtype == torch.bfloat16 and (nf, gc) == (_TC_NF, _TC_GC):
         return Rdb5cKernelWeights((rdb5c_weight_image(ws).contiguous(),), tuple(b.contiguous() for b in bs),
                                   nf, gc, "tc", nf, gc)
@@ -185,18 +212,23 @@ def rdb5c_kernel_weights(params: dict, dtype: torch.dtype, device: torch.device)
 
 
 def rdb5c_launch(
-    x: torch.Tensor, kw: Rdb5cKernelWeights, strip: int | None = None, wtile: int | None = None
+    x: torch.Tensor, kw: Rdb5cKernelWeights | Rdb5cF32Weights, strip: int | None = None, wtile: int | None = None
 ) -> torch.Tensor:
     """Launch the kernel on CUDA tensor ``x`` (N, H, W, nf) with weights in its layout."""
     _require_cuda(x)
     lib.forward_only("fused_rdb5c", x)
     if x.dim() != 4 or x.shape[3] != kw.nf:
         raise ValueError(f"fused_rdb5c: x must be (N, H, W, {kw.nf}), got {tuple(x.shape)}")
-    if kw.wts[0].dtype != x.dtype or kw.wts[0].device != x.device:
-        raise ValueError(f"fused_rdb5c: weights in {kw.wts[0].dtype} on {kw.wts[0].device}, "
-                         f"x in {x.dtype} on {x.device}")
+    f32 = isinstance(kw, Rdb5cF32Weights)
+    w = kw.convs[0].wt if f32 else kw.wts[0]
+    if w.dtype != x.dtype or w.device != x.device:
+        raise ValueError(f"fused_rdb5c: weights in {w.dtype} on {w.device}, x in {x.dtype} on {x.device}")
+    if f32:
+        out = _rdb5c_f32(x.contiguous(), kw, kpack_conv.conv_f32_launch)
+        LAUNCHES_SIMT["f32"].count += 1
+        return out
     so = lib.load("rdb5c")
-    route = _ROUTE_CODE[(kw.route, x.dtype)]
+    route = _ROUTE_CODE[kw.route]
     tc = kw.route == "tc"
     if tc and kw.wts[0].numel() * 2 != so.esr_rdb5c_weight_image_bytes():
         raise ValueError("fused_rdb5c: the weight image does not have the kernel's size")
@@ -204,7 +236,7 @@ def rdb5c_launch(
     if tc:
         strip = wtile = _TC_TILE
     elif strip is None and wtile is None:  # the default square, halved until it fits
-        strip = wtile = _DEFAULT_TILE[x.dtype]
+        strip = wtile = _SIMT_TILE
         while strip > 1 and so.esr_rdb5c_smem_bytes(route, nf, gc, strip, strip) > _SMEM_LIMIT:
             strip = wtile = strip // 2
     else:
@@ -226,12 +258,27 @@ def rdb5c_launch(
         n, h, w, nf, gc, strip, wtile, lib.stream(x),
     )
     lib.check(so, err, "rdb5c launch")
-    (LAUNCHES if tc else LAUNCHES_SIMT["bf16" if x.dtype == torch.bfloat16 else "f32"]).count += 1
+    (LAUNCHES if tc else LAUNCHES_SIMT["bf16"]).count += 1
     return out if nf == kw.nf else out[..., : kw.nf].contiguous()
+
+
+def _rdb5c_f32(x: torch.Tensor, kw: Rdb5cF32Weights, conv) -> torch.Tensor:
+    """The f32 RDB as five launches of ``conv`` (the f32 conv kernel's
+    :func:`~esr_tpu_torch.ops.cuda.kpack_conv.conv_f32_launch`): conv k < 5
+    reads x and x_1..x_{k-1} (channels [0, (k-1) gc) of one scratch tensor)
+    and writes x_k = lrelu(conv + b_k) into channels [(k-1) gc, k gc) of it;
+    conv 5 returns x + 0.2 (conv + b_5). Each conv zero-pads at the image
+    edge by itself, so no intermediate needs re-zeroing."""
+    n, h, w, _ = x.shape
+    gc = kw.gc
+    scratch = torch.empty((n, h, w, 4 * gc), device=x.device, dtype=x.dtype)
+    for k in range(1, 5):
+        conv(x, kw.convs[k - 1], True, x2=scratch, cin2=(k - 1) * gc, out=scratch, out_c0=(k - 1) * gc)
+    return conv(x, kw.convs[4], False, x2=scratch, cin2=4 * gc, residual=x, res_scale=0.2)
 
 
 def _require_cuda(x: torch.Tensor) -> None:
     if not x.is_cuda:
         raise RuntimeError(f"fused_rdb5c: no kernel for device {x.device}")
-    if x.dtype not in _DEFAULT_TILE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"fused_rdb5c: dtype {x.dtype} not supported (bfloat16, float32)")

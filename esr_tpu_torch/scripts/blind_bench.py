@@ -21,7 +21,7 @@ Run::
         [--json out.json] [--device cuda|cpu]
 
 The generator is the port's seeded ``RRDBNet(nf 16, nb 2, gc 8)`` in f32 (on
-CUDA: the f32 SIMT kernels).
+CUDA: the f32 kernel, ``conv_f32_kernel``).
 """
 
 from __future__ import annotations

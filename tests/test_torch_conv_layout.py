@@ -7,8 +7,9 @@ Python from the CUDA source and checked without a GPU:
 - the weight image that ``conv_kernel_weights`` builds decodes back to the
   HWIO kernel through the kernel's wgmma descriptor addressing (a block's
   weights at (parity row, Cout slice), then K chunk, parity and tap; the
-  128-byte swizzle included), at every width the bf16 route takes; f32 keeps
-  the SIMT layout, and a bf16 conv wider than the kernel takes raises;
+  128-byte swizzle included), at every width the bf16 route takes; f32 takes
+  the f32 kernel's layout (tests/test_torch_f32_conv.py decodes it), and a
+  bf16 conv wider than the kernel takes raises;
 - the 128B swizzle that TMA writes and wgmma reads equals ``swz(p, q, 8)``
   of common.cuh, which the ldmatrix path addresses;
 - a plain emulation of the kernel's work (persistent walk of the blocks'
@@ -169,16 +170,22 @@ def test_bf16_wide_convs_take_the_tensor_core_layout(cin, cout, ksize):
 @pytest.mark.parametrize("ksize", [3, 2])
 @pytest.mark.parametrize("cin,cout", [(64, 64), (128, 128), (200, 3)])
 def test_f32_convs_keep_the_simt_layout(cin, cout, ksize):
-    """f32 convs of any width take the SIMT kernel's layout
-    [parities][taps][Cin][Cout_pad], the HWIO kernel (or its parity kernels)
-    in place and zeros in the Cout padding to a multiple of 8."""
+    """f32 convs of any width take the f32 kernel's layout (FP32 units, the
+    SIMT route): [slice][chunk][parities][taps][8][N], N = 8 / 16 / 32 for a
+    Cout that small and slices of 64 above, Cin in chunks of 8; the HWIO
+    kernel (or its parity kernels) in place and zeros in the Cin and Cout
+    padding."""
     _, w, b = _case((1, 1, 1), cin, cout, seed=cin + cout + ksize)
     kw = kpack_conv.conv_kernel_weights(w, b, torch.float32, torch.device("cpu"), ksize)
-    cout_pad = -(-cout // 8) * 8
-    assert (kw.route, kw.cin, kw.cout, kw.cout_pad, kw.ksize) == ("simt", cin, cout, cout_pad, ksize)
+    n = 8 if cout <= 8 else 64
+    slices, chunks = -(-cout // n), -(-cin // 8)
+    assert (kw.route, kw.cin, kw.cout, kw.cin_pad, kw.cout_pad, kw.ksize) == (
+        "f32", cin, cout, 8 * chunks, n * slices, ksize)
     want = _per_tap(w, ksize)
-    assert kw.wt.dtype == torch.float32 and tuple(kw.wt.shape) == tuple(want.shape[:3]) + (cout_pad,)
-    assert torch.equal(kw.wt[..., :cout], want) and not kw.wt[..., cout:].any()
+    par, taps = want.shape[:2]
+    assert kw.wt.dtype == torch.float32 and tuple(kw.wt.shape) == (slices, chunks, par, taps, 8, n)
+    got = kw.wt.permute(2, 3, 1, 4, 0, 5).reshape(par, taps, 8 * chunks, n * slices)
+    assert torch.equal(got[:, :, :cin, :cout], want) and not got[:, :, cin:].any() and not got[..., cout:].any()
     assert torch.equal(kw.bias[:cout], b) and not kw.bias[cout:].any()
 
 

@@ -7,7 +7,7 @@ only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-f32 tolerance 1e-4: up to 9 * 192 products summed in another order than
+f32 tolerance 1e-4: up to 9 * 256 products summed in another order than
 cuDNN's (TF32 off). bf16: within twice the bf16 plain version's own error
 against the f32 plain version.
 """
@@ -40,17 +40,62 @@ def _rdb_params(nf, gc, device, seed=0):
     return p
 
 
+F32_TOL = 1e-4
+ALL_COUNTERS = (rdb_conv.LAUNCHES, *rdb_conv.LAUNCHES_SIMT.values(), kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP,
+                *kpack_conv.LAUNCHES_SIMT.values(), kpack_conv.LAUNCHES_F32)
+# launches of conv_f32_kernel that one call of each f32 route makes
+F32_KERNEL_LAUNCHES = {rdb_conv.LAUNCHES_SIMT["f32"]: 5, **{c: 1 for c in kpack_conv.LAUNCHES_SIMT.values()}}
+
+
+def _counts():
+    return [c.count for c in ALL_COUNTERS]
+
+
+def _launched(before, counter):
+    """Exactly one call since ``before``, on ``counter``, and the launches of
+    conv_f32_kernel that its route makes (none for a bf16 route)."""
+    want = [int(c is counter) for c in ALL_COUNTERS]
+    want[-1] = F32_KERNEL_LAUNCHES.get(counter, 0)
+    return [c.count - b for c, b in zip(ALL_COUNTERS, before)] == want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("strip,wtile", [(8, 8), (5, 7), (8, 12)])
 def test_cuda_rdb5c_matches_plain(cuda, strip, wtile):
+    """The f32 RDB (five f32 conv launches; the tile a hint) within F32_TOL of
+    the plain version, one launch counted on the f32 RDB counter and none on
+    any other, the conv counters included."""
     p = _rdb_params(64, 32, cuda)
     x = torch.randn(2, 19, 23, 64, device=cuda)
-    before = rdb_conv.LAUNCHES_SIMT["f32"].count
+    before = _counts()
     with torch.no_grad():
         got = rdb_conv.fused_rdb5c_tiled(x, p, strip=strip, wtile=wtile)
     torch.cuda.synchronize()
-    assert rdb_conv.LAUNCHES_SIMT["f32"].count == before + 1
-    torch.testing.assert_close(got, rdb_conv.rdb5c_reference(x, p), atol=1e-4, rtol=0)
+    assert _launched(before, rdb_conv.LAUNCHES_SIMT["f32"])
+    torch.testing.assert_close(got, rdb_conv.rdb5c_reference(x, p), atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,gc,shape", [(64, 32, (2, 37, 53)), (64, 32, (1, 5, 7)), (16, 8, (2, 37, 53)),
+                                         (16, 8, (1, 16, 40)), (12, 6, (1, 19, 21))])
+def test_cuda_rdb5c_f32_widths_prepared(cuda, nf, gc, shape):
+    """The f32 RDB through rdb5c_launch with its layouts built once, at the
+    flagship's nf 64 / gc 32 and at nf 16 / gc 8 and nf 12 / gc 6 (widths
+    that are not multiples of 8 need no padding), on ragged grids, batch 1
+    and an image smaller than a tile, with and without a tile hint: within
+    F32_TOL of the plain version, the same answer whatever the hint, one
+    launch a block on the f32 RDB counter."""
+    p = _rdb_params(nf, gc, cuda, seed=nf + sum(shape))
+    x = torch.randn(*shape, nf, device=cuda, generator=torch.Generator(device=cuda).manual_seed(nf))
+    kw = rdb_conv.rdb5c_kernel_weights(p, torch.float32, cuda)
+    before = _counts()
+    with torch.no_grad():
+        got = rdb_conv.rdb5c_launch(x, kw)
+    torch.cuda.synchronize()
+    assert _launched(before, rdb_conv.LAUNCHES_SIMT["f32"])
+    torch.testing.assert_close(got, rdb_conv.rdb5c_reference(x, p), atol=F32_TOL, rtol=0)
+    with torch.no_grad():
+        assert torch.equal(rdb_conv.rdb5c_launch(x, kw, strip=12, wtile=8), got)
 
 
 @pytest.mark.cuda
@@ -59,12 +104,67 @@ def test_cuda_conv3x3_matches_plain(cuda, cin, cout, act):
     x = torch.randn(2, 21, 19, cin, device=cuda)
     w = torch.randn(3, 3, cin, cout, device=cuda) * 0.1
     b = torch.randn(cout, device=cuda)
+    before = _counts()
     got = kpack_conv.kpack_conv3x3(x, w, b, act)
+    assert _launched(before, kpack_conv.LAUNCHES_SIMT[(3, "f32")])
     ref = kpack_conv.conv3x3_reference(x, w, b, act)
-    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, ref, atol=F32_TOL, rtol=0)
+    before = _counts()
     up = upsample2x_conv3x3(x, w, b, act)
+    assert _launched(before, kpack_conv.LAUNCHES_SIMT[(2, "f32")])
     ref_up = kpack_conv.conv3x3_reference(upsample_nearest(x, 2), w, b, act)
-    torch.testing.assert_close(up, ref_up, atol=1e-4, rtol=0)
+    torch.testing.assert_close(up, ref_up, atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 16, 40), (1, 5, 7)], ids=["ragged", "b1", "smaller-than-a-tile"])
+@pytest.mark.parametrize("cout", [3, 8, 64, 256])
+@pytest.mark.parametrize("cin", [3, 4, 64, 192, 256])
+def test_cuda_conv_f32_any_width(cuda, shape, cin, cout):
+    """conv_f32_kernel in both modes and both act values through conv_launch
+    with its layout built once: Cin 3 and 4 (a zero-filled chunk tail) up to
+    192 and 256 (which raised before: their whole window did not fit shared
+    memory), Cout 3 and 8 (the narrow instance) up to 256 (four slices), on
+    ragged grids, batch 1 and an image smaller than a tile: within F32_TOL of
+    the f32 plain version, one launch counted on its mode's f32 counter and
+    none on any other."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + cin + cout)
+    x = torch.randn(*shape, cin, device=cuda, generator=g)
+    w = torch.randn(3, 3, cin, cout, device=cuda, generator=g) * (2.0 / (9 * cin)) ** 0.5
+    b = 0.1 * torch.randn(cout, device=cuda, generator=g)
+    for ksize, plain in ((3, kpack_conv.conv3x3_reference), (2, upsample2x_conv3x3_reference)):
+        kw = kpack_conv.conv_kernel_weights(w, b, torch.float32, cuda, ksize)
+        for act in (False, True):
+            before = _counts()
+            with torch.no_grad():
+                got = kpack_conv.conv_launch(x, kw, act)
+            torch.cuda.synchronize()
+            assert _launched(before, kpack_conv.LAUNCHES_SIMT[(ksize, "f32")]), (ksize, act)
+            torch.testing.assert_close(got, plain(x, w, b, act), atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_f32_two_sources_offset_residual(cuda):
+    """conv_f32_launch as the f32 RDB uses it: the first cin1 channels of x
+    then the first cin2 of x2 (a chunk straddles them), written at a channel
+    offset of a wider tensor (its other channels untouched), then with a
+    residual: within F32_TOL of the plain conv of the concat."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, x2 = torch.randn(2, 23, 29, 12, device=cuda, generator=g), torch.randn(2, 23, 29, 24, device=cuda, generator=g)
+    w = torch.randn(3, 3, 30, 6, device=cuda, generator=g) * 0.1
+    b = torch.randn(6, device=cuda, generator=g)
+    kw = kpack_conv.conv_kernel_weights(w, b, torch.float32, cuda, 3)
+    cat = torch.cat([x, x2[..., :18]], -1)
+    out = torch.full((2, 23, 29, 24), -7.0, device=cuda)
+    before = kpack_conv.LAUNCHES_F32.count
+    with torch.no_grad():
+        kpack_conv.conv_f32_launch(x, kw, True, x2=x2, cin2=18, out=out, out_c0=18)
+        res = torch.randn(2, 23, 29, 6, device=cuda, generator=g)
+        got = kpack_conv.conv_f32_launch(x, kw, False, x2=x2, cin2=18, residual=res, res_scale=0.2)
+    assert kpack_conv.LAUNCHES_F32.count == before + 2
+    assert (out[..., :18] == -7).all()
+    torch.testing.assert_close(out[..., 18:], kpack_conv.conv3x3_reference(cat, w, b, True), atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(got, res + 0.2 * kpack_conv.conv3x3_reference(cat, w, b, False), atol=F32_TOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -417,10 +517,11 @@ def _conv_band(plain, x, w, b):
 def test_cuda_conv_bf16_wide_on_tensor_cores_within_band(cuda, cin, cout):
     """bf16 convs wider than 64 channels (Cin in K chunks, Cout in slices of
     64) run the tensor-core kernel in both modes, one launch counted on its
-    mode's counter and none on the other or the f32 SIMT ones, within the
-    bf16 conv band."""
+    mode's counter and none on the other, the f32 routes or the f32 kernel,
+    within the bf16 conv band."""
     x, w, b = _wide_conv_case(cuda, (2, 21, 19), cin, cout)
-    counters = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values())
+    counters = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values(),
+                kpack_conv.LAUNCHES_F32)
     for i, (fn, plain) in enumerate(((kpack_conv.kpack_conv3x3, kpack_conv.conv3x3_reference),
                                      (upsample2x_conv3x3, upsample2x_conv3x3_reference))):
         before = [c.count for c in counters]

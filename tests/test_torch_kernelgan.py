@@ -13,7 +13,8 @@ against the JAX package's (esr_tpu.cem.kernelgan), on the CPU in f32.
   likewise. Longer runs are not compared: Adam's ratio of nearly cancelled
   moments lets f32 rounding part the trajectories.
 - The supervised probe of tests/test_kernelgan.py, on the port's own crops
-  and init: aligned correlation > 0.88.
+  and init: aligned correlation > 0.88; its step takes cuDNN's deterministic
+  algorithms.
 - ``conf_for_image`` and the size checks raise as JAX's do.
 """
 
@@ -182,6 +183,25 @@ def test_supervised_recovery():
     assert calls == [(100 * i, 1000) for i in range(1, 11)]
     assert aligned_corr(k_est, k_true) > 0.88, (aligned_corr(k_est, k_true), metrics)
 
+
+def test_supervised_step_takes_deterministic_cudnn():
+    """The supervised step runs its convs (G, the loss, the backward) with
+    cuDNN's deterministic algorithms and TF32 off, so that the probe repeats
+    bit for bit on the card; the caller's flags come back after."""
+    conf = kg.KernelGANConf(**TINY)
+    g = kg.LinearKernelG(conf)
+    cudnn = torch.backends.cudnn
+    seen = []
+
+    def loss(fake, g_in):
+        seen.append((cudnn.deterministic, cudnn.allow_tf32))
+        return torch.mean(fake**2)
+
+    step = kg.make_override_step(g, conf, Adam(g.parameters(), b1=0.5), loss)
+    before = (cudnn.deterministic, cudnn.allow_tf32)
+    step(torch.rand(1, conf.g_input, conf.g_input, 1, generator=torch.Generator().manual_seed(0)))
+    assert seen == [(True, False)]
+    assert (cudnn.deterministic, cudnn.allow_tf32) == before
 
 def test_adversarial_estimate_runs_in_chunks():
     """The adversarial path at TINY: progress after every chunk of 100 and at

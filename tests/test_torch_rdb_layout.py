@@ -229,7 +229,8 @@ def test_bf16_tiles_are_hints_and_other_widths_take_simt(nf, gc):
     image, and every other bf16 width the SIMT layout: each conv's
     [9][cin_pad][cout_pad] with the HWIO weights in their place, zero rows and
     columns (and zero bias) in the padding to multiples of 8 channels. The
-    padded block, run on x padded with zero channels, is the block."""
+    padded block, run on x padded with zero channels, is the block. f32 at
+    the same widths takes the f32 conv layouts, unpadded."""
     p = _params(4)
     x = torch.zeros(1, 8, 8, NF, dtype=torch.bfloat16)
     for strip, wtile in ((8, 8), (12, 8), (16, 12), (16, 16)):
@@ -261,8 +262,13 @@ def test_bf16_tiles_are_hints_and_other_widths_take_simt(nf, gc):
     assert not got[..., nf:].any()
     want = rdb_conv.rdb5c_reference(xs, {k: v.bfloat16().float() if k[0] == "w" else v for k, v in q.items()})
     torch.testing.assert_close(got[..., :nf], want, atol=ATOL, rtol=0)
+    # f32 takes the five convs' f32 conv layouts, unpadded widths
+    # (tests/test_torch_f32_conv.py runs them)
     kw32 = rdb_conv.rdb5c_kernel_weights(q, torch.float32, torch.device("cpu"))
-    assert kw32.route == "simt" and kw32.wts[0].dtype == torch.float32 and kw32.nf_pad == nf_p
+    assert isinstance(kw32, rdb_conv.Rdb5cF32Weights) and (kw32.nf, kw32.gc) == (nf, gc)
+    for k, conv in enumerate(kw32.convs, start=1):
+        assert conv.route == "f32" and conv.wt.dtype == torch.float32
+        assert (conv.cin, conv.cout) == (nf + (k - 1) * gc, nf if k == 5 else gc)
 
 
 # -- the kernel's work, emulated ---------------------------------------------------

@@ -1,21 +1,23 @@
 """Build variants of the port's CUDA kernels and time them in turns on one GPU.
 
-    python tools/kernel_variants.py SPEC.json ORDER [--test-k EXPR] [--profile]
+    python tools/kernel_variants.py SPEC.json ORDER [--test-k EXPR] [--kernel NAME] [--f32] [--profile]
 
 SPEC.json maps a variant name to a list of ``[file, old, new]`` text
 replacements in the package (``old`` must occur exactly once; the specs of
 ``tools/rdb5c_variants/`` apply to this commit's sources). Each variant is a copy of ``esr_tpu_torch/`` and ``tests/`` in a
 temporary directory; they are built two at a time (nvcc, one per source), then:
 
-- the ptxas lines of ``rdb5c_tc_kernel`` (registers, spills, C75xx
-  serialization warnings) are printed per variant;
+- the ptxas lines of the kernel named by ``--kernel`` (default
+  ``rdb5c_tc_kernel``: registers, spills, C75xx serialization warnings) are
+  printed per variant;
 - a variant whose name does not start with ``x_`` must pass
   ``pytest --noconftest tests/test_torch_cuda.py -k EXPR`` (default
   ``rdb5c``); ``x_`` variants are timing probes that compute wrong results
   on purpose, and are not tested;
-- ``python -m esr_tpu_torch.ops.cuda.conv_bench`` runs in each directory in
-  ORDER (comma-separated names, e.g. ``a,b,b,a``), so that versions are
-  compared inside one process tree on one card;
+- ``python -m esr_tpu_torch.ops.cuda.conv_bench`` (with ``--f32``: its f32
+  route) runs in each directory in ORDER (comma-separated names, e.g.
+  ``a,b,b,a``), so that versions are compared inside one process tree on one
+  card;
 - with ``--profile``, variants whose source defines ``esr_rdb5c_prof`` (see
   ``tools/rdb5c_variants/profile.json``) print the median clock cycles of
   each conv's MMA loop, epilogue and barrier in a tile, per warpgroup.
@@ -75,14 +77,14 @@ def make_variant(d: Path, reps: list) -> None:
         p.write_text(s.replace(old, new))
 
 
-def ptxas_lines(d: Path) -> list[str]:
+def ptxas_lines(d: Path, kernel: str) -> list[str]:
     out = []
-    for log in sorted((d / BUILD).glob("librdb5c-*.log")):
+    for log in sorted((d / BUILD).glob("lib*.log")):
         lines = log.read_text().splitlines()
-        out += [ln for ln in lines if "C75" in ln and "rdb5c_tc_kernel" in ln]
+        out += [ln for ln in lines if "C75" in ln and kernel in ln]
         for i, ln in enumerate(lines):
-            if "Function properties" in ln and "rdb5c_tc_kernel" in ln:
-                out += [x.strip() for x in lines[i + 1:i + 3]]
+            if "Function properties" in ln and kernel in ln:
+                out += [ln.split()[-1][:60]] + [x.strip() for x in lines[i + 1:i + 3]]
     return out
 
 
@@ -91,6 +93,8 @@ def main() -> None:
     ap.add_argument("spec")
     ap.add_argument("order")
     ap.add_argument("--test-k", default="rdb5c")
+    ap.add_argument("--kernel", default="rdb5c_tc_kernel", help="the kernel whose ptxas lines are printed")
+    ap.add_argument("--f32", action="store_true", help="time conv_bench's f32 route")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     spec = json.loads(Path(args.spec).read_text())
@@ -111,7 +115,8 @@ def main() -> None:
             for n, proc in batch.items():
                 log, _ = proc.communicate()
                 ok[n] = proc.returncode == 0
-                print(f"== build {n}: rc {proc.returncode}", *ptxas_lines(dirs[n]), sep="\n  ", flush=True)
+                print(f"== build {n}: rc {proc.returncode}", *ptxas_lines(dirs[n], args.kernel), sep="\n  ",
+                      flush=True)
                 if not ok[n]:
                     print(log[-3000:], flush=True)
         for n, d in dirs.items():
@@ -126,9 +131,9 @@ def main() -> None:
         for n in args.order.split(","):
             if n not in dirs or not ok[n]:  # x_ variants: built; the others: tested
                 continue
-            r = subprocess.run([sys.executable, "-m", "esr_tpu_torch.ops.cuda.conv_bench"], cwd=dirs[n],
-                               capture_output=True, text=True, timeout=600)
-            print(f"== bench {n}:", r.stdout.strip()[-300:], r.stderr[-1500:] if r.returncode else "", flush=True)
+            r = subprocess.run([sys.executable, "-m", "esr_tpu_torch.ops.cuda.conv_bench"] + ["--f32"] * args.f32,
+                               cwd=dirs[n], capture_output=True, text=True, timeout=600)
+            print(f"== bench {n}:", r.stdout.strip()[-1200:], r.stderr[-1500:] if r.returncode else "", flush=True)
         if args.profile:
             for n, d in dirs.items():
                 if ok[n] and "esr_rdb5c_prof" in (d / "esr_tpu_torch/ops/cuda/csrc/rdb5c.cu").read_text():
