@@ -105,9 +105,27 @@ Phases (any failure exits non-zero and prints no result):
    and SRResNet nf 64 nb 16 (forward, 38 tensor-core conv launches, its
    64 -> 256 ``upconv``s no slower than ``F.conv2d`` beside them, two
    SR-trainer steps).
+11. the parallel axes, 2 ranks sharing the one card over gloo (spawned, a
+   file store; NCCL needs a GPU per rank), seeded flagship weights, bf16,
+   CEM matmul: (a) ``eval_spatial: 2`` at halo 32 and 16, B16 x LR 128
+   (raw G rows a halo from the seam against the whole-image kernel forward
+   bit for bit, CEM residual, PSNR against f32 plain); (b) ``eval_tp: 2``
+   (PSNR; 0 / 349 / 2 launches a rank); (c) ``eval_pp: 2`` at nb 24, 8
+   microbatches (the single-rank forward bit for bit); (d) ``dist_eval``
+   over phase 6's SYNTHETIC set in the ranks and under ``python -m
+   torch.distributed.run --nproc_per_node 2 -m esr_tpu_torch.test`` (the
+   one-rank batched metrics; rank 0 alone reports and writes); (e) a
+   ``dist`` GAN step, 2 x B8 against one process at B16, and (f) one of
+   ``train_spatial``, ``train_tp`` and ``train_pp`` (nb 24): losses and G's
+   gradients within phase 8's bands of one process's, G and D bit-identical
+   on both ranks, each band shown to fail a planted fault (a TP backward
+   scaled by T, a halo of 0, a dropped microbatch); (g) ``python -m
+   esr_tpu_torch.parallel.multihost``, 2 processes against 1. Every rank
+   reports its launches; the ms of each path is printed as that of 2 ranks
+   on one card, not a scaling number.
 
 Every phase counts the kernel launches of the path it drives (counters set
-to 0 just before, read just after). The last line is
+to 0 just before, read just after; phase 11 in each rank). The last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -115,6 +133,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1298,7 +1317,7 @@ class GradCapture:
     def __init__(self, params):
         self.params, self.count, self.grads = list(params), 0, None
 
-    def step(self, grads, lr) -> None:  # noqa: ARG002
+    def step(self, grads, lr, sq_sum=None) -> None:  # noqa: ARG002
         self.grads = [g.float() for g in grads]
 
 
@@ -1522,6 +1541,13 @@ def phase_train(tmp: Path) -> dict[str, dict]:
           f"{float(m_k['l_g']):.5f} / {float(m_b['l_g']):.5f} / {float(m_f['l_g']):.5f}")
     names = [n for n, _ in g.named_parameters()]
     worst, rows_k, rows_b = grad_band(names, g_k, g_b, g_f)
+    # phase 11 holds the parallel steps' gradients and losses to these bands: twice the bf16 plain
+    # path's distance from f32 plain (relative; absolute for the mean logits), at least a bf16 half-ulp
+    launches["_grad_bands"] = {n: max(2 * rb, GRAD_BAND_FLOOR)
+                               for n, rb in zip([n for n in names if n not in NOISE_GRADS], rows_b)}
+    launches["_loss_bands"] = {
+        k: max(2 * abs(float(m_b[k]) - float(v)) / (1.0 if k in ("D_real", "D_fake") else max(abs(float(v)), 1e-12)),
+               GRAD_BAND_FLOOR) for k, v in m_f.items()}
     check(worst <= 1.0, f"G gradients through the kernels vs f32 plain: per-tensor relative L2 within twice the bf16 "
           f"plain path's (floor {GRAD_BAND_FLOOR:.3g}) for all {len(rows_k)} tensors: kernel median "
           f"{statistics.median(rows_k):.3g} max {max(rows_k):.3g}, bf16 plain median {statistics.median(rows_b):.3g} "
@@ -2331,6 +2357,513 @@ def phase_blind(tmp: Path, pth: str, rows: list[dict]) -> dict[str, dict]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the parallel axes, 2 ranks on the one card over gloo
+
+PAR_WIDTHS = {"nf": NF, "nb": NB, "gc": GC}  # the flagship's
+PAR_NB_PP = 24  # the pipeline's depth: the flagship's 23 does not divide over 2 stages
+# eval_spatial halos: at LR 128 a halo of 32 makes each window the whole image, 16 windows of 96 rows
+PAR_HALOS = (32, 16)
+PAR_TRAIN_HALO = 4  # train_spatial at LR 32: windows of 24 of the 32 rows
+TP_CONV_BOUND = 2.0**-6  # eval_tp: a row-parallel conv's sum against the f32 conv, relative max error
+PAR_LABEL = "2 ranks on one H100 over gloo"
+ZERO_BY_DESIGN.update({p: ("rdb5c",) for p in ("eval_tp", "train_tp")})
+
+
+def par_eval_options(tmp: Path, pth: str, name: str, nb: int | None = None, datasets=None, **extra) -> dict:
+    opt = flagship_options(tmp, pth, name, datasets or {}, dist_backend="gloo", **extra)
+    opt["network_G"].update(PAR_WIDTHS if nb is None else dict(PAR_WIDTHS, nb=nb))
+    return opt
+
+
+def par_train_options(tmp: Path, name: str, nb: int | None = None, **extra) -> dict:
+    opt = train_options(tmp, name, "train_explorable_SR.json", None, niter=2)
+    opt["network_G"].update(PAR_WIDTHS if nb is None else dict(PAR_WIDTHS, nb=nb))
+    opt.update(dist_backend="gloo", **extra)
+    return opt
+
+
+def par_counts(counters=COUNTERS) -> dict:
+    return {c.name: c.count for c in counters}
+
+
+def par_digest(states: list[dict]) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for st in states:
+        for k in sorted(st):
+            h.update(k.encode())
+            h.update(st[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def par_gan_step(opt: dict, hr_u8: torch.Tensor, device, fault=None) -> dict:
+    """One GAN step (then a timed second one) of the trainer ``opt`` builds, on
+    this rank's rows of the fixed host batch: losses, G's step-1 gradients (full
+    width, rank 0), launches of step 1, ms of step 2, a digest of G and D."""
+    import contextlib
+
+    from esr_tpu_torch.parallel import tensor as ptensor
+
+    model = create_model(parse(opt, is_train=True), device=device)
+    seen = []
+    step = model.g_opt.step
+
+    def record(grads, lr, sq_sum=None):
+        seen.append([g.detach().float() for g in grads])
+        step(grads, lr, sq_sum)
+
+    model.g_opt.step = record
+    i, n = model.data_shard()
+    rows = hr_u8[i * hr_u8.shape[0] // n : (i + 1) * hr_u8.shape[0] // n]
+    with fault() if fault is not None else contextlib.nullcontext():
+        model.feed_data({"HR": rows})
+        for c in COUNTERS:
+            c.reset()
+        model.optimize_parameters(1)
+        torch.cuda.synchronize()
+        counts = par_counts()
+        losses = model.get_current_losses()
+        model.feed_data({"HR": rows})
+        t0 = time.perf_counter()
+        model.optimize_parameters(2)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    names = [nm for nm, _ in model.g_module.named_parameters()]
+    grads = dict(zip(names, ptensor.full_param_tensors(model.g_module, seen[0])))
+    digest = par_digest([model._full_state(model.g_module), model.d_module.state_dict()])
+    out = {"losses": losses, "counts": counts, "ms": ms, "digest": digest, "shard": (i, n)}
+    if dist_rank() == 0:
+        out["grads"] = {k: v.cpu() for k, v in grads.items()}
+    del model
+    return out
+
+
+def dist_rank() -> int:
+    from esr_tpu_torch.parallel import comm
+
+    return comm.world()[0]
+
+
+@torch.no_grad()
+def par_forward(opt: dict, lr: torch.Tensor, z: torch.Tensor, device, raw_fn=None, timed: bool = True,
+                fault=None, inspect=None) -> dict:
+    """The eval forward ``opt`` builds (``create_model``), counted, then timed
+    by a second call (``timed``; else the counted call is timed): the SR (and
+    the raw G output ``raw_fn(model)`` gives) on rank 0, and the LR heights G
+    ran on (a spatial window's). ``fault``: a context the counted call runs
+    in; ``inspect(model)``, called before it, returns a function whose dict
+    joins the result after it (and before the timed call)."""
+    import contextlib
+
+    model = create_model(parse(opt, is_train=False), device=device)
+    after = inspect(model) if inspect is not None else None
+    rows = set()
+    hook = model.g_module.conv_first.register_forward_pre_hook(lambda m, a: rows.add(a[0].shape[1]))
+    for c in COUNTERS:
+        c.reset()
+    t0 = time.perf_counter()
+    with fault() if fault is not None else contextlib.nullcontext():
+        sr = model._forward(lr, z)
+    hook.remove()
+    torch.cuda.synchronize()
+    counts = par_counts()
+    out = {"counts": counts, "rows": sorted(rows), **(after() if after is not None else {})}
+    if timed:
+        t0 = time.perf_counter()
+        model._forward(lr, z)
+        torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    raw = raw_fn(model) if raw_fn is not None else None
+    if dist_rank() == 0:
+        out["sr"] = sr.cpu()
+        out["raw"] = None if raw is None else raw.cpu()
+    del model
+    return out
+
+
+def tp_convs(model):
+    """``par_forward``'s inspector for eval_tp: as each row-parallel RDB runs,
+    each of its five convs' sum of the ranks' partials (before the bias)
+    against the f32 conv of the full weight (the slices gathered) on the same
+    input, the features the RDB built from those sums; after the forward,
+    ``conv_rel``: max |error| / max |f32 conv| of every conv in order."""
+    from esr_tpu_torch.models.blocks import lrelu
+    from esr_tpu_torch.parallel import comm
+
+    orig, sums, rel = comm.reduce, [], []
+
+    def reduce(x, g):
+        y = orig(x, g)
+        sums.append(y)
+        return y
+
+    def pre(m, a):
+        sums.clear()
+        comm.reduce = reduce
+
+    def post(m, a, y):
+        comm.reduce = orig
+        x = a[0]
+        feats = [x]
+        for k, got in enumerate(sums, start=1):
+            conv = getattr(m, f"conv{k}")
+            w = comm.gather(conv.weight, m.tp.group, dim=1).float()
+            with full_f32():
+                want = F.conv2d(torch.cat(feats, -1).float().permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+            rel.append(max_err(got, want) / want.abs().max().item())
+            if k < 5:  # the RDB's own next input: lrelu of the rounded sum plus bias
+                feats.append(lrelu((got + conv.bias).to(x.dtype)))
+        sums.clear()
+
+    rdbs = [getattr(b, f"RDB{j}") for b in model.g_module.RRDB_trunk for j in (1, 2, 3)]
+    hooks = [h for r in rdbs for h in (r.register_forward_pre_hook(pre), r.register_forward_hook(post))]
+
+    def after() -> dict:
+        for h in hooks:
+            h.remove()
+        return {"conv_rel": list(rel)}
+
+    return after
+
+
+def par_rank(spec: dict) -> dict:
+    """Phase 11 on one rank (``comm.spawn``): the sharded eval forwards (and
+    eval_tp's with a planted fault), the eval CLI under dist_eval, and one GAN
+    step of each train axis and of its planted fault; rank 0 returns the
+    tensors, every rank its counts."""
+    import contextlib
+
+    from esr_tpu_torch import parallel as P
+    from esr_tpu_torch.parallel import comm, pipeline
+    from esr_tpu_torch.parallel import tensor as ptensor
+
+    device = comm.rank_device("cuda")
+    torch.cuda.set_device(device)
+    tmp = Path(spec["tmp"])
+    lr, z = spec["lr"].to(device), spec["z"].to(device)
+    out = {"device": str(device), "backend": torch.distributed.get_backend()}
+    for halo in PAR_HALOS:
+        opt = par_eval_options(tmp, spec["pth"], f"par_spatial{halo}", eval_spatial=2, eval_spatial_halo=halo)
+        out[f"eval_spatial{halo}"] = par_forward(opt, lr, z, device, lambda m, h=halo: P.spatial_window_forward(
+            m.g_module, m._eval_mesh, scale=SCALE, halo=h)(lr, z))
+
+    @contextlib.contextmanager
+    def dropped_partial():  # rank 1's partial of the first row-parallel conv left out of the sum
+        orig, calls = ptensor._partial_conv, [0]
+
+        def patched(conv, xs):
+            part = orig(conv, xs)
+            calls[0] += 1
+            return torch.zeros_like(part) if comm.world()[0] == 1 and calls[0] == 1 else part
+
+        ptensor._partial_conv = patched
+        try:
+            yield
+        finally:
+            ptensor._partial_conv = orig
+
+    # its 345 partial sums through the host take seconds a forward
+    tp_opt = par_eval_options(tmp, spec["pth"], "par_tp", eval_tp=2)
+    out["eval_tp"] = par_forward(tp_opt, lr, z, device, inspect=tp_convs)
+    # the planted fault on 2 of the images (the conv check reads each conv alone; the sums through the host
+    # shrink with the batch)
+    out["eval_tp_fault"] = par_forward(tp_opt, lr[:2], z[:2], device, timed=False, fault=dropped_partial,
+                                       inspect=tp_convs)
+    out["eval_pp"] = par_forward(par_eval_options(tmp, spec["pth_pp"], "par_pp", nb=PAR_NB_PP, eval_pp=2),
+                                 lr, z, device)
+    # the eval CLI in this process group: dist_eval over the 2 ranks
+    path = tmp / f"par_dist_eval_{comm.world()[0]}.json"
+    path.write_text(json.dumps(spec["dist_eval_opt"]))
+    res, counts, secs = counted(lambda: eval_cli.main(["-opt", str(path), "--device", "cuda"]))
+    out["dist_eval"] = {"metrics": res, "counts": counts, "s": secs}
+    torch.cuda.empty_cache()
+
+    hr_u8 = spec["hr_u8"]  # host rows, as a loader hands them over
+
+    @contextlib.contextmanager
+    def tp_scaled():  # the row-parallel sum's backward scaled by T (a psum's transpose counted T times)
+        orig = comm._Reduce.backward
+        comm._Reduce.backward = staticmethod(lambda ctx, grad: (grad * 2, None))
+        try:
+            yield
+        finally:
+            comm._Reduce.backward = orig
+
+    @contextlib.contextmanager
+    def dropped_micro():  # the first microbatch's gradient dropped from the pipeline's backward
+        orig = pipeline._Schedule.backward
+
+        def drop(self, inputs, x, zz, grad_out, params, needs):
+            g = grad_out.clone()
+            g[: g.shape[0] // self.m] = 0
+            return orig(self, inputs, x, zz, g, params, needs)
+
+        pipeline._Schedule.backward = drop
+        try:
+            yield
+        finally:
+            pipeline._Schedule.backward = orig
+
+    runs = {"train_dist": (par_train_options(tmp / "par_dist", "par_dist", dist=True), None),
+            "train_tp": (par_train_options(tmp / "par_tp", "par_tp", train_tp=2), None),
+            "train_tp_fault": (par_train_options(tmp / "par_tpf", "par_tpf", train_tp=2), tp_scaled),
+            "train_spatial": (par_train_options(tmp / "par_sp", "par_sp", train_spatial=2,
+                                                train_spatial_halo=PAR_TRAIN_HALO), None),
+            "train_spatial_fault": (par_train_options(tmp / "par_spf", "par_spf", train_spatial=2,
+                                                      train_spatial_halo=0), None),
+            "train_pp": (par_train_options(tmp / "par_pp", "par_pp", nb=PAR_NB_PP, train_pp=2), None),
+            "train_pp_fault": (par_train_options(tmp / "par_ppf", "par_ppf", nb=PAR_NB_PP, train_pp=2),
+                               dropped_micro)}
+    for name, (opt, fault) in runs.items():
+        out[name] = par_gan_step(opt, hr_u8, device, fault)
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_grad_band(bands: dict, got: dict, want: dict) -> tuple[float, float]:
+    """The worst ratio of a tensor's relative L2 (``got`` against ``want``) to
+    its phase 8 band, and the largest relative L2; a name phase 8 has no band
+    for (block 23 of the 24-block pipeline net) takes the trunk's widest."""
+    trunk = max((v for k, v in bands.items() if k.startswith("RRDB_trunk.")), default=GRAD_BAND_FLOOR)
+    worst = biggest = 0.0
+    for k, w in want.items():
+        if k in NOISE_GRADS:
+            continue
+        r = rel_l2(got[k], w)
+        biggest = max(biggest, r)
+        worst = max(worst, r / bands.get(k, trunk if k.startswith("RRDB_trunk.") else GRAD_BAND_FLOOR))
+    return worst, biggest
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(tmp: Path, pth: str, card: str, bands: dict) -> dict[str, dict]:
+    """Phase 11: every parallel axis on 2 ranks sharing the one card over
+    gloo (spawned, a file store); returns the launches by path (both ranks).
+    ``bands``: phase 8's per-tensor gradient bands ("grads") and per-metric
+    loss bands ("losses") of the GAN step at this shape."""
+    import re
+
+    from esr_tpu_torch.parallel import comm
+
+    tmp = tmp / "parallel"
+    tmp.mkdir(parents=True, exist_ok=True)
+    device = "cuda"
+    rng = np.random.default_rng(11)
+    lr = torch.from_numpy(rng.random((B, LR, LR, 3), dtype=np.float32))
+    z = torch.from_numpy(rng.uniform(-1, 1, (B, LR, LR, NZ)).astype(np.float32))
+    pth_pp = str(tmp / "G_nb24.pth")
+    g_opt = {"network_G": dict(PAR_WIDTHS, nb=PAR_NB_PP, num_latent_channels=NZ), "scale": SCALE}
+    torch.save(define_G(g_opt, device=device, seed=0).state_dict(), pth_pp)
+    ds = SyntheticDataset({"phase": "train", "n_images": B, "image_size": 160, "HR_size": TRAIN_HR})
+    hr_u8 = torch.from_numpy(np.stack([ds[i]["HR"] for i in range(B)]))
+    datasets = {"test_1": {"name": "synthetic", "mode": "SYNTHETIC", "n_images": 4, "image_size": 512}}
+    dist_eval_opt = par_eval_options(tmp, pth, "par_dist_eval", datasets=datasets, num_random_Z=2, dist_eval=True,
+                                     eval_batch=2)
+
+    # the references, one process: the whole-image forwards and the one-process GAN steps
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = create_model(parse(par_eval_options(tmp, pth, "par_ref"), is_train=False), device=device)
+        g, cem = model.g_module, model.cem
+        lr_d, z_d = lr.to(device), z.to(device)
+        ref_raw = g(lr_d, z_d)
+        ref = cem.project(ref_raw, lr_d)
+        ref32 = cem.project(plain_forward(g, lr_d, z_d, torch.float32), lr_d)
+        plain16 = cem.project(plain_forward(g, lr_d, z_d, torch.bfloat16), lr_d)
+        p_plain = psnr(plain16, ref32)
+        plain_rel = max_err(plain16, ref) / ref.abs().max().item()
+        refs = {"raw": ref_raw.cpu(), "sr": ref.cpu(), "f32": ref32.cpu()}
+        del model, g, ref32, plain16
+        model = create_model(parse(par_eval_options(tmp, pth_pp, "par_ref_pp", nb=PAR_NB_PP), is_train=False),
+                             device=device)
+        refs["pp"] = model._forward(lr_d, z_d).cpu()
+        del model
+    one = {}
+    for name, nb in (("flagship", None), ("pp", PAR_NB_PP)):
+        opt = par_train_options(tmp / f"one_{name}", f"one_{name}", nb=nb)
+        one[name] = par_gan_step(opt, hr_u8, device)
+    batched, _, _ = run_cli(tmp, dict(dist_eval_opt, name="par_one_batched", dist_eval=False, eval_batch=4),
+                            "--device", device)
+    torch.cuda.empty_cache()
+    print(f"parallel: references (whole-image forwards, f32 / bf16 plain, one-process GAN steps, one-rank "
+          f"batched eval) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    spec = {"tmp": str(tmp), "pth": pth, "pth_pp": pth_pp, "lr": lr, "z": z, "hr_u8": hr_u8,
+            "dist_eval_opt": dist_eval_opt}
+    t0 = time.perf_counter()
+    ranks = comm.spawn(par_rank, 2, tmp / "store", args=(spec,), backend="gloo", timeout=900.0)
+    print(f"parallel: 2 ranks spawned and run in {time.perf_counter() - t0:.1f} s", flush=True)
+    r0 = ranks[0]
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"] and all(r["device"].startswith("cuda")
+                                                                    for r in ranks),
+          f"parallel: ranks on {[r['device'] for r in ranks]} over {[r['backend'] for r in ranks]} (explicit; "
+          "NCCL cannot put two ranks on one GPU)")
+    launches = {}
+
+    def per_rank(name, want):
+        counts = [r[name]["counts"] for r in ranks]
+        check(all(c == want for c in counts), f"{name}: launches per rank {counts} == {want}")
+        launches[name] = {k: sum(c[k] for c in counts) for k in want}
+
+    # (a) eval_spatial
+    per_forward = EXPECTED_PER_FORWARD
+    seam = LR // 2 * SCALE
+    for halo in PAR_HALOS:
+        a = r0[f"eval_spatial{halo}"]
+        key = f"eval_spatial{halo}"
+        per_rank(key, per_forward)
+        far = torch.cat([a["raw"][:, : seam - halo * SCALE], a["raw"][:, seam + halo * SCALE:]], 1)
+        far_ref = torch.cat([refs["raw"][:, : seam - halo * SCALE], refs["raw"][:, seam + halo * SCALE:]], 1)
+        exact = bool(torch.equal(far, far_ref))
+        res = max_err(cem.downsample(a["sr"].to(device)), lr_d)
+        pk = psnr(a["sr"], refs["f32"])
+        check(res <= CEM_TOL and pk >= p_plain - PSNR_MARGIN_DB,
+              f"(a) eval_spatial 2, halo {halo}: CEM residual {res:.3g} <= {CEM_TOL}; PSNR vs f32 plain "
+              f"{pk:.2f} dB (bf16 plain {p_plain:.2f}, margin {PSNR_MARGIN_DB}); max |sr - whole-image forward| "
+              f"{max_err(a['sr'], refs['sr']):.3g}")
+        window = min(LR, LR // 2 + 2 * halo)
+        check(exact and a["rows"] == [window],
+              f"(a) eval_spatial 2, halo {halo}: G ran on windows of {a['rows']} of {LR} LR rows (want {window}); "
+              f"raw G rows >= a halo from the seam equal the whole-image kernel forward's bit for bit: {exact} "
+              f"(max diff {max_err(far, far_ref):.3g}; at the seam {max_err(a['raw'], refs['raw']):.3g})")
+    # (b) eval_tp
+    per_rank("eval_tp", {"rdb5c": 0, "conv3x3": 4 + 5 * 3 * PAR_WIDTHS["nb"], "upsample2x_conv3x3": 2})
+    pk = psnr(r0["eval_tp"]["sr"], refs["f32"])
+    top = refs["sr"].abs().max().item()
+    tp_rel = max_err(r0["eval_tp"]["sr"], refs["sr"]) / top
+    # the output bound: twice the bf16 plain path's own distance from the kernel forward
+    check(pk >= p_plain - PSNR_MARGIN_DB and max_err(cem.downsample(r0["eval_tp"]["sr"].to(device)), lr_d) <= CEM_TOL
+          and tp_rel <= 2 * plain_rel,
+          f"(b) eval_tp 2: PSNR vs f32 plain {pk:.2f} dB (bf16 plain {p_plain:.2f}, margin {PSNR_MARGIN_DB}); max "
+          f"|sr - whole-image kernel forward| / max |whole| {tp_rel:.4g} <= 2 x the bf16 plain path's "
+          f"{plain_rel:.4g} (max |whole| {top:.4g})")
+    n_conv = 15 * PAR_WIDTHS["nb"]
+    convs = [max(r["eval_tp"]["conv_rel"]) for r in ranks]
+    check(all(len(r["eval_tp"]["conv_rel"]) == n_conv for r in ranks) and max(convs) <= TP_CONV_BOUND,
+          f"(b) eval_tp 2: each of the {n_conv} row-parallel convs' sum of partials against the f32 conv of the "
+          f"gathered weight on its input: worst relative max error per rank {convs} <= {TP_CONV_BOUND} (median "
+          f"{float(np.median(r0['eval_tp']['conv_rel'])):.4g})")
+    f = r0["eval_tp_fault"]["conv_rel"]
+    check(f[0] > TP_CONV_BOUND >= max(f[1:]),
+          f"(b) eval_tp 2 on 2 images, rank 1's partial of the first RDB's conv1 dropped: that conv {f[0]:.4g} > "
+          f"{TP_CONV_BOUND} >= the other {len(f) - 1}'s worst {max(f[1:]):.4g}: the conv bound fails it, and only it; "
+          f"max |sr - whole| / max |whole| on those 2 images "
+          f"{max_err(r0['eval_tp_fault']['sr'], refs['sr'][:2]) / top:.4g} (the output bound {2 * plain_rel:.4g} is "
+          "not made to see one conv)")
+    # (c) eval_pp
+    n_micro = 8 if B == 16 else B
+    per_rank("eval_pp", {"rdb5c": 3 * PAR_NB_PP // 2 * n_micro, "conv3x3": 4, "upsample2x_conv3x3": 2})
+    check(torch.equal(r0["eval_pp"]["sr"], refs["pp"]),
+          f"(c) eval_pp 2 at nb {PAR_NB_PP}, {n_micro} microbatches: the single-rank forward bit for bit "
+          f"(max diff {max_err(r0['eval_pp']['sr'], refs['pp']):.3g}); "
+          f"{3 * PAR_NB_PP // 2} rdb5c launches per stage per microbatch")
+    # (d) dist_eval, in the ranks' process group
+    d = [r["dist_eval"] for r in ranks]
+    check(d[1]["metrics"] == {}, "(d) dist_eval: rank 1 reports nothing (rank 0 scores and writes)")
+    for k, v in batched["synthetic"].items():
+        got = d[0]["metrics"]["synthetic"].get(k, math.inf)
+        tol = CEM_TOL if k == "cem_residual" else METRIC_TOL.get(k, 1e-3 * abs(v))
+        check(got <= CEM_TOL if k == "cem_residual" else abs(got - v) <= tol,
+              f"(d) dist_eval over 2 ranks [{k}]: {got:.6f}, one-rank batched {v:.6f} (tol {tol:.3g})")
+    launches["dist_eval"] = {k: sum(r["counts"][k] for r in d) for k in per_forward}
+    # 4 images, 2 a rank (eval_batch 2): one forward a draw on each rank
+    check([r["counts"] for r in d] == [{k: v * 3 for k, v in per_forward.items()}] * 2,
+          f"(d) dist_eval: 4 images dealt 2 a rank, 3 draws: launches per rank {[r['counts'] for r in d]} (3 "
+          "forwards each)")
+    # (e), (f) the GAN steps
+    steps_want = {"train_dist": per_forward, "train_spatial": per_forward,
+                  "train_tp": {"rdb5c": 0, "conv3x3": 4 + 5 * 3 * PAR_WIDTHS["nb"], "upsample2x_conv3x3": 2},
+                  "train_pp": {"rdb5c": 2 * 3 * PAR_NB_PP // 2 * n_micro, "conv3x3": 4, "upsample2x_conv3x3": 2}}
+    for name, want in steps_want.items():
+        per_rank(name, want)
+        ref = one["pp" if name == "train_pp" else "flagship"]
+        got = r0[name]
+        ldiff = {k: abs(got["losses"][k] - v) / (1.0 if k in ("D_real", "D_fake") else max(abs(v), 1e-12))
+                 for k, v in ref["losses"].items()}
+        lworst = max(ldiff, key=lambda k: ldiff[k] / bands["losses"].get(k, GRAD_BAND_FLOOR))
+        lratio = ldiff[lworst] / bands["losses"].get(lworst, GRAD_BAND_FLOOR)
+        worst, biggest = par_grad_band(bands["grads"], got["grads"], ref["grads"])
+        same = len({r[name]["digest"] for r in ranks}) == 1
+        check(lratio <= 1.0 and worst <= 1.0 and same,
+              f"({'e' if name == 'train_dist' else 'f'}) {name}, one GAN step at B{B} x HR {TRAIN_HR} (rows "
+              f"{[r[name]['shard'] for r in ranks]}): losses within phase 8's band of one process's (worst "
+              f"{lworst} {ldiff[lworst]:.3g}, ratio {lratio:.3f}; l_g_pix {ldiff.get('l_g_pix', math.nan):.3g}); "
+              f"G's gradients within phase 8's band of its (worst ratio {worst:.3f}, largest relative L2 "
+              f"{biggest:.3g}); G and D bit-identical on both ranks: {same}")
+        fault = name + "_fault"
+        if fault in r0:
+            fw, fb = par_grad_band(bands["grads"], r0[fault]["grads"], ref["grads"])
+            what = {"train_tp_fault": "the row-parallel sum's backward scaled by T",
+                    "train_spatial_fault": "a halo of 0 at the seam",
+                    "train_pp_fault": "the first microbatch's gradient dropped"}[fault]
+            check(fw > 1.0, f"(f) {name} with {what}: worst ratio to the band {fw:.3f} > 1 (largest relative L2 "
+                  f"{fb:.3g}): the band fails it")
+        launches[name] = {k: sum(r[name]["counts"][k] for r in ranks) for k in want}
+
+    # (d) the eval CLI under torch.distributed.run, and (g) the multihost dry run
+    path = tmp / "par_torchrun.json"
+    path.write_text(json.dumps(dict(dist_eval_opt, name="par_torchrun")))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_port",
+                          str(free_port()), "-m", "esr_tpu_torch.test", "-opt", str(path), "--save_images",
+                          "--device", "cuda"],
+                         capture_output=True, text=True, timeout=600, env=env, cwd=str(REPO))
+    secs = time.perf_counter() - t0
+    text = run.stdout + run.stderr
+    lines = [ln for ln in text.splitlines() if "avg PSNR" in ln]
+    m = re.search(r"avg PSNR: ([0-9.]+) dB, avg SSIM: ([0-9.]+)", lines[0]) if lines else None
+    pngs = sorted((tmp / "results" / "par_torchrun" / "synthetic").glob("*.png"))
+    b = batched["synthetic"]
+    check(run.returncode == 0 and len(lines) == 1 and m is not None
+          and abs(float(m.group(1)) - b["psnr"]) <= 1e-3 + 5e-5 and abs(float(m.group(2)) - b["ssim"]) <= 1e-4
+          and len(pngs) == 4 * 3,
+          f"(d) python -m torch.distributed.run --nproc_per_node 2 -m esr_tpu_torch.test (dist_eval, gloo): rc "
+          f"{run.returncode}, {len(lines)} result line(s) (rank 0 alone logs): {m.groups() if m else None} against "
+          f"the one-rank batched {b['psnr']:.4f} / {b['ssim']:.4f} (printed to 4 decimals); {len(pngs)} PNGs (4 "
+          f"images x 3 draws, rank 0 alone writes); {secs:.1f} s")
+    if run.returncode:
+        print(text[-3000:], file=sys.stderr, flush=True)
+    port = free_port()
+    cmd = [sys.executable, "-m", "esr_tpu_torch.parallel.multihost", "--backend", "gloo", "--device", "cuda"]
+    procs = [subprocess.Popen(cmd + ["--coordinator", f"localhost:{port}", "--num-processes", "2", "--process-id",
+                                     str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=str(REPO)) for i in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    single = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO))
+    try:
+        mh = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+        one_mh = json.loads(single.stdout.strip().splitlines()[-1])
+        ok = (all(p.returncode == 0 for p in procs) and single.returncode == 0 and mh[0]["loss"] == mh[1]["loss"]
+              and abs(mh[0]["loss"] - one_mh["loss"]) <= 1e-5 * abs(one_mh["loss"])
+              and abs(mh[0]["param_l1"] - one_mh["param_l1"]) <= 1e-5 * abs(one_mh["param_l1"]))
+        what = f"2 processes {[(o['loss'], o['param_l1']) for o in mh]}, 1 process {(one_mh['loss'], one_mh['param_l1'])}"
+    except (ValueError, IndexError, KeyError):
+        ok, what = False, " / ".join(e[-500:] for _, e in outs) + single.stderr[-500:]
+    check(ok, f"(g) python -m esr_tpu_torch.parallel.multihost (CUDA, gloo): the same loss and param_l1: {what}")
+
+    for name in [f"eval_spatial{h}" for h in PAR_HALOS] + ["eval_tp", "eval_pp"]:
+        print(f"{PAR_LABEL} ({card}): {name} forward, B{B} x LR {LR}, CEM included: "
+              f"{r0[name]['ms']:.2f} ms (host clock, a second forward)", flush=True)
+    for name in ("train_dist", "train_tp", "train_spatial", "train_pp"):
+        ref = one["pp" if name == "train_pp" else "flagship"]
+        print(f"{PAR_LABEL} ({card}): {name} GAN step, B{B} x HR {TRAIN_HR}: {r0[name]['ms']:.1f} ms (one "
+              f"process, one card: {ref['ms']:.1f} ms; not a scaling number)", flush=True)
+    print(f"{PAR_LABEL} ({card}): dist_eval CLI over the SYNTHETIC set (4 images x 3 draws) "
+          f"{d[0]['s']:.2f} s in the ranks, {secs:.1f} s under torch.distributed.run", flush=True)
+    return launches
+
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
@@ -2346,8 +2879,10 @@ def main() -> int:
         by_path.update(phase_eval(tmp, pth))
         by_path["serve"] = phase_serve(tmp, pth)
         train_paths = phase_train(tmp)
+        bands = {"grads": train_paths.pop("_grad_bands"), "losses": train_paths.pop("_loss_bands")}
         by_path["explore"] = phase_explore(tmp, pth)
         by_path.update(phase_blind(tmp, pth, rows))
+        by_path.update(phase_parallel(tmp, pth, env["card"], bands))
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:

@@ -68,7 +68,10 @@ class DataLoader:
     ``shuffle`` orders each epoch by ``np.random.default_rng(seed + epoch)``;
     ``drop_last`` drops a short last batch. Each ``__iter__`` is one epoch:
     it tells the dataset its epoch (``set_epoch``, for the crop draws) and
-    starts where ``set_position`` put it."""
+    starts where ``set_position`` put it. ``set_shard(i, n)`` (data
+    parallelism) makes it load only rows i*B/n .. (i+1)*B/n - 1 of each
+    batch of ``batch_size`` B: with the datasets' (seed, epoch, index) crops,
+    the rows that one process loading the whole batch would hold there."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, drop_last: bool = False,
                  prefetch: int = 2, seed: int = 0, collate_keys=("LR", "HR")):
@@ -81,6 +84,13 @@ class DataLoader:
         self.collate_keys = collate_keys
         self._epoch = 0
         self._skip = 0
+        self._shard = (0, 1)
+
+    def set_shard(self, index: int, n_shards: int) -> None:
+        if self.batch_size % n_shards:
+            raise ValueError(f"batch_size {self.batch_size} does not divide over {n_shards} data-parallel ranks "
+                             "— use a divisible batch size")
+        self._shard = (int(index), int(n_shards))
 
     def __len__(self):
         n = len(self.dataset)
@@ -107,6 +117,8 @@ class DataLoader:
         self._epoch += 1
         first, self._skip = min(self._skip, len(self)), 0
         bs = self.batch_size
+        i, n_shards = self._shard
+        rows = slice(i * bs // n_shards, (i + 1) * bs // n_shards)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()  # set when the consumer abandons the iterator
 
@@ -122,7 +134,7 @@ class DataLoader:
         def worker():
             try:
                 for b in range(first, len(self)):
-                    batch = collate_samples([self.dataset[int(i)] for i in idx[b * bs : (b + 1) * bs]],
+                    batch = collate_samples([self.dataset[int(k)] for k in idx[b * bs : (b + 1) * bs][rows]],
                                             self.collate_keys)
                     if not put(batch):
                         return

@@ -73,29 +73,35 @@ def _blur(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 def make_train_pipeline(scale: int = 4, use_flip: bool = True, use_rot: bool = True, blur_kernel=None,
                         num_latent_channels: int = 0, z_kind: str = "uniform", downsample_fn=None):
-    """``pipe(hr_batch, gen, codes=None) -> {'HR', 'LR'[, 'Z']}`` (f32 NHWC on
-    the batch's device).
+    """``pipe(hr_batch, gen, codes=None, shard=None) -> {'HR', 'LR'[, 'Z']}``
+    (f32 NHWC on the batch's device).
 
     ``hr_batch``: (N, H, W, C) uint8 or float [0, 1], or a dict ``{'HR',
     'LR'}`` of paired crops: the given LR is used as it is, augmented with
     the same code as its HR, and no LR is synthesised. ``codes``: the
     dihedral code of each sample; drawn from ``gen`` (then Z) when None.
     ``downsample_fn`` replaces the bicubic LR synthesis (``cem.downsample``
-    for a custom kernel); ``blur_kernel`` blurs before the bicubic instead."""
+    for a custom kernel); ``blur_kernel`` blurs before the bicubic instead.
+    ``shard=(i, n)``: ``hr_batch`` is rank i's rows i*N .. (i+1)*N - 1 of a
+    global batch of n*N (data parallelism): the codes and Z are drawn for the
+    global batch and this rank keeps its rows, so the draws are those of one
+    process running the global batch."""
     blur = None if blur_kernel is None else torch.as_tensor(blur_kernel, dtype=torch.float32)
 
-    def pipe(hr_batch, gen: torch.Generator, codes=None) -> dict:
+    def pipe(hr_batch, gen: torch.Generator, codes=None, shard=None) -> dict:
         lr_in = None
         if isinstance(hr_batch, dict):
             lr_in = hr_batch.get("LR")
             hr_batch = hr_batch["HR"]
         hr = _norm(hr_batch)
         n = hr.shape[0]
+        i, n_shards = shard or (0, 1)
+        rows = slice(i * n, (i + 1) * n)
         if use_rot and hr.shape[1] != hr.shape[2]:
             raise ValueError(f"use_rot requires square train crops, got {hr.shape[1]}x{hr.shape[2]} "
                              "— set use_rot: false for non-square crops")
         if codes is None:
-            codes = augment_codes(gen, n, use_flip, use_rot)
+            codes = augment_codes(gen, n * n_shards, use_flip, use_rot)[rows]
         codes = [int(c) for c in codes]
         if any(codes):
             hr = torch.stack([dihedral_transform(hr[i], c) for i, c in enumerate(codes)])
@@ -109,7 +115,8 @@ def make_train_pipeline(scale: int = 4, use_flip: bool = True, use_rot: bool = T
             lr = downsample_fn(src) if downsample_fn is not None else imresize(src, scale=1.0 / scale)
         out = {"HR": hr, "LR": lr}
         if num_latent_channels:
-            out["Z"] = draw_z(gen, tuple(lr.shape[:-1]) + (num_latent_channels,), z_kind).to(lr.device)
+            shape = (n * n_shards,) + tuple(lr.shape[1:-1]) + (num_latent_channels,)
+            out["Z"] = draw_z(gen, shape, z_kind)[rows].to(lr.device)
         return out
 
     return pipe

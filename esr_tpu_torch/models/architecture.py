@@ -117,16 +117,28 @@ class RRDBNet(_Generator):
         convs += [getattr(self, f"upconv{i + 1}") for i in range(len(_up_factors(self.scale)))]
         return convs + [rdb for blk in self.RRDB_trunk for rdb in (blk.RDB1, blk.RDB2, blk.RDB3)]
 
-    def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
-        """lr: (N, H, W, in_nc) in [0, 1]; z: (N, H, W, num_latent_channels) or None."""
+    def run_blocks(self, carry, blocks=None):
+        """Trunk blocks ``blocks`` (all by default) in order on ``carry``: the
+        trunk features, or ``(trunk, z)`` with ``latent_input='all_layers'``
+        (Z re-injected before every RRDB rides the carry unchanged)."""
+        for i in range(len(self.RRDB_trunk)) if blocks is None else blocks:
+            if self.all_layers:
+                trunk, zc = carry
+                carry = (self.RRDB_trunk[i](self.latent_proj[i](torch.cat([trunk, zc], dim=-1))), zc)
+            else:
+                carry = self.RRDB_trunk[i](carry)
+        return carry
+
+    def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None, trunk_fn=None) -> torch.Tensor:
+        """lr: (N, H, W, in_nc) in [0, 1]; z: (N, H, W, num_latent_channels) or
+        None. ``trunk_fn(carry) -> carry`` replaces :meth:`run_blocks` (the
+        pipelined trunk, ``parallel/pipeline.py``)."""
         x = self._input(lr, z)
         fea = self.conv_first(x.to(self.dtype))
-        trunk = fea
-        zc = x[..., -self.num_latent_channels :].to(self.dtype) if self.all_layers else None
-        for i, block in enumerate(self.RRDB_trunk):
-            if zc is not None:  # Z re-injected before every RRDB
-                trunk = self.latent_proj[i](torch.cat([trunk, zc], dim=-1))
-            trunk = block(trunk)
+        carry = (fea, x[..., -self.num_latent_channels :].to(self.dtype)) if self.all_layers else fea
+        trunk = (trunk_fn or self.run_blocks)(carry)
+        if self.all_layers:
+            trunk = trunk[0]
         fea = fea + self.trunk_conv(trunk)
         for i, r in enumerate(_up_factors(self.scale)):
             up = getattr(self, f"upconv{i + 1}")
@@ -177,13 +189,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     statistics over (N, H, W) in f32 with the biased variance E[x^2] -
     E[x]^2, and the running statistics updated with that biased variance
     (``nn.BatchNorm2d`` would use the unbiased one). ``momentum`` 0.1 is
-    flax's 0.9. The state_dict keys are ``nn.BatchNorm2d``'s."""
+    flax's 0.9. The state_dict keys are ``nn.BatchNorm2d``'s. ``stat_mean``:
+    the batch statistics' mean (``torch.mean``; a data-parallel step sets the
+    global one, ``parallel/dp.py::BatchComm.stat_mean``)."""
+
+    stat_mean = staticmethod(torch.mean)
 
     def forward(self, x: torch.Tensor, train: bool = False, update_stats: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            mean = self.stat_mean(xf, dim=(0, 2, 3))
+            var = (self.stat_mean(xf * xf, dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
             if update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)

@@ -25,9 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
+import esr_tpu_torch.parallel as P
+from esr_tpu_torch.data.util import parse_size
 from esr_tpu_torch.models.architecture import RRDBNet
 from esr_tpu_torch.ops.color import tensor2img, to_uint8
 from esr_tpu_torch.ops.ensemble import make_self_ensemble
+from esr_tpu_torch.parallel import comm
+from esr_tpu_torch.parallel.dp import BatchComm, GradSync, StepParallel
 
 __all__ = [
     "Adam",
@@ -38,12 +42,6 @@ __all__ = [
     "step_generator",
     "step_keyed",
 ]
-
-_PARALLEL = ("multi-device eval ({}) is not ported yet (ROADMAP.md Queue 1 item 10, the parallel "
-             "axes); the port evaluates on one device")
-_PARALLEL_TRAIN = ("multi-device training ({}) is not ported yet (ROADMAP.md Queue 1 item 10, the "
-                   "parallel axes); the port trains on one device")
-
 
 def opt_float(cfg: dict | None, key: str, default: float) -> float:
     """Numeric option that honours an explicit 0 (``gan_weight: 0`` is an
@@ -93,17 +91,21 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
-    def clip(self, grads: list) -> list:
+    def clip(self, grads: list, sq_sum=None) -> list:
         """optax: ``g`` if the global norm is below ``grad_clip``, else
-        ``g / norm * grad_clip`` (no epsilon, unlike ``clip_grad_norm_``)."""
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        ``g / norm * grad_clip`` (no epsilon, unlike ``clip_grad_norm_``).
+        ``sq_sum(grads)``: the squared global norm when ``grads`` are one
+        rank's share of it (``GradSync.sq_sum``); by default their own."""
+        sq = sq_sum(grads) if sq_sum is not None else sum(torch.sum(g.float() ** 2) for g in grads)
+        norm = torch.sqrt(sq)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
         return [g * scale.to(g.dtype) for g in grads]
 
     @torch.no_grad()
-    def step(self, grads: list, lr: float) -> None:
+    def step(self, grads: list, lr: float, sq_sum=None) -> None:
+        """One update; ``sq_sum`` as in :meth:`clip`."""
         if self.grad_clip:
-            grads = self.clip(grads)
+            grads = self.clip(grads, sq_sum)
         self.count += 1
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
@@ -126,16 +128,19 @@ class Adam:
                 d.copy_(v)
 
 
-def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False):
+def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None):
     """``fwd(lr, z=None) = cem.project(g(lr, z), lr)`` (raw ``g`` when ``cem``
     is None), without autograd. With ``self_ensemble`` the generator call is
     the x8 dihedral mean (``ops/ensemble.py``: two batched calls), projected
     once. lr: (N, H, W, 3) and z: (N, H, W, nz) on the generator's device;
-    the answer is (N, sH, sW, 3) f32. The kernels' weight layout is built
-    here, once: make a new forward after changing g's weights."""
+    the answer is (N, sH, sW, 3) f32. ``apply_fn(lr, z)``: the generator's
+    forward when it is not ``g`` itself (a sharded one of ``parallel/``). The
+    kernels' weight layout is built here, once: make a new forward after
+    changing g's weights."""
     device = next(g.parameters()).device
     g.prepare_kernels()
-    apply_raw = make_self_ensemble(g) if self_ensemble else g
+    apply_raw = apply_fn or g
+    apply_raw = make_self_ensemble(apply_raw) if self_ensemble else apply_raw
 
     @torch.no_grad()
     def fwd(lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
@@ -146,6 +151,11 @@ def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False):
         return cem.project(raw, lr) if cem is not None else raw
 
     return fwd
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """NHWC ``x`` with its last row repeated ``n`` more times (edge padding of H)."""
+    return torch.cat([x, x[:, -1:].expand(-1, n, -1, -1)], dim=1)
 
 
 class BaseModel:
@@ -160,46 +170,202 @@ class BaseModel:
         self.schedulers: dict = {}  # name -> schedule (logging)
         self.step = 0
 
-    def _refuse_parallel_training(self) -> None:
-        """The JAX package's multi-device trainers raise here (one device)."""
-        for key in ("train_tp", "train_pp", "train_spatial"):
-            if self.opt.get(key) or (self.opt.get("train") or {}).get(key):
-                raise NotImplementedError(_PARALLEL_TRAIN.format(key))
-        if self.opt.get("dist") and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(_PARALLEL_TRAIN.format("dist (data parallel)"))
+    def _parallel_shards(self, key: str) -> int:
+        """A shard-count option (``eval_tp`` / ``eval_pp`` / ``eval_spatial`` /
+        ``train_tp`` / ``train_pp`` / ``train_spatial``, top level or in the
+        ``train`` block): unset, 0 or false -> 0; ``true`` or 1 raise (the
+        count of ranks must be given); else the count."""
+        v = self.opt.get(key)
+        if v is None:
+            v = (self.opt.get("train") or {}).get(key)
+        if not v:
+            return 0
+        if isinstance(v, bool) or int(v) < 2:
+            raise ValueError(f"{key} must be the shard count (an integer >= 2), got {v!r}; e.g. {key}: "
+                             f"{max(2, comm.world()[1])}")
+        return int(v)
 
     def _make_forward(self):
-        """The eval forward of ``make_eval_forward`` with the options'
-        wrappers: ``self_ensemble`` outermost around the generator, then CEM.
-        The JAX package's multi-device forwards (``eval_tp``, ``eval_pp``,
-        ``eval_spatial``, ``dist_eval`` over several devices) raise
-        ``NotImplementedError``. ``network_G.fold`` > 1 runs the unfolded
-        forward: its spatial-fold rewrite is a TPU lane layout computing the
-        same function."""
+        """The eval forward of ``make_eval_forward`` with the options' wrappers:
+        ``self_ensemble`` outermost around the generator, then CEM.
+        ``network_G.fold`` > 1 runs the unfolded forward (its spatial-fold
+        rewrite is a TPU lane layout computing the same function).
+
+        The sharded forwards, over the ranks of the process group (one per
+        device; ``parallel/``): ``eval_tp: T`` channel-shards the trunk over a
+        'model' axis, ``eval_pp: S`` pipelines it over S stages (microbatches
+        from each call's batch, ``eval_pp_micro`` to set them),
+        ``eval_spatial: S`` shards LR height over a 'spatial' axis with the
+        exact-edge windows (``eval_spatial_halo``, 32 by default; heights
+        edge-padded to a multiple of S with at least 2*halo rows a shard,
+        the SR cropped back), and with ``eval_tp`` the composed spatial x TP
+        forward. ``dist_eval`` / ``eval_batch`` add a 'data' axis of the
+        ranks left over to TP or spatial; ``eval_pp`` streams the batch. The
+        mesh is kept (``_eval_mesh``) for the evaluator, which deals images
+        over its 'data' axis. ``eval_tp`` with ``eval_pp``, ``eval_spatial``
+        with ``eval_pp``, and spatial x TP x data raise, as in the JAX
+        package. Every rank of the mesh calls the forward alike."""
         lg = logging.getLogger("base")
-        for key in ("eval_tp", "eval_pp", "eval_spatial"):
-            if self.opt.get(key):
-                raise NotImplementedError(_PARALLEL.format(key))
-        if self.opt.get("dist_eval") and self.eval_devices() > 1:
-            raise NotImplementedError(_PARALLEL.format("dist_eval over several devices"))
+        tp = self._parallel_shards("eval_tp")
+        pp = self._parallel_shards("eval_pp")
+        sp = self._parallel_shards("eval_spatial")
+        if tp > 1 and pp > 1:
+            raise ValueError("eval_tp and eval_pp are mutually exclusive")
+        if sp > 1 and pp > 1:
+            raise ValueError("eval_spatial and eval_pp are mutually exclusive (the GPipe ring owns the whole "
+                             "trunk; shard H with eval_spatial alone or with eval_tp)")
+        batched = bool(self.opt.get("dist_eval")) or int(self.opt.get("eval_batch") or 0) > 1
+        if sp > 1 and tp > 1 and batched:
+            raise ValueError("eval_spatial x eval_tp does not additionally compose with dist_eval/eval_batch "
+                             "— drop one of the three")
         fold = int((self.opt.get("network_G") or {}).get("fold") or 1)
         if fold > 1:
             lg.info("network_G.fold=%d: the port runs the unfolded forward (the same function); "
                     "eval_spatial_fold does not apply", fold)
+        n_world = comm.world()[1]
+        g, apply_raw = self.g_module, None
+        self._eval_mesh = None
+        if sp > 1:
+            hv = self.opt.get("eval_spatial_halo")
+            halo = 32 if hv is None else int(hv)
+            if tp > 1:
+                self._eval_mesh = P.make_spatial_tp_mesh(sp, tp)
+                sharded = P.spatial_tp_apply(g, self._eval_mesh, halo=halo, scale=self.scale)
+            else:
+                data_n = max(1, n_world // sp) if batched else 1
+                self._eval_mesh = P.make_mesh(sp * data_n, data=data_n, spatial=sp)
+                sharded = P.spatial_window_forward(g, self._eval_mesh, scale=self.scale, halo=halo)
+
+            def apply_raw(lr, z, _f=sharded, _s=sp):
+                # any height: edge-pad H to a shard multiple with >= 2*halo rows a shard, crop the SR back
+                h = lr.shape[1]
+                hp = max(-(-h // _s), 2 * halo) * _s
+                if hp != h:
+                    lr = _pad_rows(lr, hp - h)
+                    z = None if z is None else _pad_rows(z, hp - h)
+                return _f(lr, z)[:, : h * self.scale]
+        elif tp > 1:
+            data_n = max(1, n_world // tp) if batched else 1
+            self._eval_mesh = P.make_tp_mesh(tp, data=data_n)
+            apply_raw = P.tp_rrdb_apply(g, self._eval_mesh)
+        elif pp > 1:
+            self._eval_mesh = P.make_stage_mesh(pp)
+            apply_raw = P.pipeline.pipelined_rrdb_apply_auto(g, self._eval_mesh, requested=self.opt.get("eval_pp_micro"))
         se = bool(self.opt.get("self_ensemble"))
         if se:
             lg.info("self_ensemble: x8 dihedral eval forward (two batched calls: 4 flips + "
                     "4 transposed), CEM-projected mean")
-        return make_eval_forward(self.g_module, self.cem, self_ensemble=se)
+        return make_eval_forward(g, self.cem, self_ensemble=se, apply_fn=apply_raw)
 
-    def eval_devices(self) -> int:
-        """Devices a ``dist_eval`` run would use: the CUDA devices (capped by
-        ``gpu_ids``) when the model is on CUDA, else 1."""
-        if self.device.type != "cuda":
-            return 1
-        n = torch.cuda.device_count()
-        ids = self.opt.get("gpu_ids")
-        return min(n, len(ids)) if ids else n
+    def _train_parallel(self) -> StepParallel:
+        """The train step's parallel axes (port of the JAX package's
+        ``maybe_dp_step`` and ``_train_parallel_apply``), over the ranks of
+        the process group:
+
+        - ``dist``: data parallelism over every rank (unset: on when there
+          are several ranks and the train batch divides over them; ``false``
+          off, ``true`` on);
+        - ``train_tp: T``: the trunk channel-sharded in place (each rank
+          keeps 1/T of the trunk's conv kernels and of their Adam moments)
+          with DP over the ranks left (the largest divisor of the batch);
+        - ``train_pp: S``: the trunk pipelined over S stages (microbatches
+          from the batch, ``train_pp_micro`` to set them); the batch is not
+          split;
+        - ``train_spatial: S``: LR crop height sharded over S ranks with the
+          exact-edge windows (``train_spatial_halo``: min(32, local/2) when
+          unset), with DP over the ranks left or with ``train_tp``.
+
+        The divisibility and halo errors come here, before the first step."""
+        tp = self._parallel_shards("train_tp")
+        pp = self._parallel_shards("train_pp")
+        sp = self._parallel_shards("train_spatial")
+        if tp > 1 and pp > 1:
+            raise ValueError("train_tp and train_pp are mutually exclusive")
+        if sp > 1 and pp > 1:
+            raise ValueError("train_spatial and train_pp are mutually exclusive (the GPipe ring owns the whole "
+                             "trunk; shard H with train_spatial alone or with train_tp)")
+        lg = logging.getLogger("base")
+        g = self.g_module
+        n_world = comm.world()[1]
+        batch = int(((self.opt.get("datasets") or {}).get("train") or {}).get("batch_size") or 0)
+
+        def data_count(per: int) -> int:
+            most = max(1, n_world // per)
+            return max(d for d in range(1, most + 1) if batch % d == 0) if batch else most
+
+        def g_ops(group_op, shard_op=None):
+            names = [n for n, _ in g.named_parameters()]
+            sharded = set(P.tensor.sharded_names(g))
+            return lambda i: shard_op if names[i] in sharded else group_op
+
+        if not (tp > 1 or pp > 1 or sp > 1):
+            dist = self.opt.get("dist")
+            use_dp = (n_world > 1 and batch > 0 and batch % n_world == 0) if dist is None else bool(dist)
+            if not (use_dp and n_world > 1):
+                return StepParallel()
+            mesh = P.make_mesh(n_world)
+            data = mesh.group("data")
+            lg.info("dist: data parallelism over %d ranks", n_world)
+            return StepParallel(mesh, None, BatchComm(data), GradSync([(data, "sum")]), GradSync([(data, "sum")]))
+        if sp > 1:
+            scale = self.scale
+            hr_size = parse_size(((self.opt.get("datasets") or {}).get("train") or {}).get("HR_size"))[0]
+            lr_rows = hr_size // scale
+            if lr_rows % sp:
+                raise ValueError(f"train_spatial: LR crop height {lr_rows} (HR_size {hr_size} / scale {scale}) does "
+                                 f"not divide over {sp} spatial shards — pick HR_size so that (HR_size/scale) % {sp} "
+                                 "== 0, or change train_spatial")
+            local = lr_rows // sp
+            if local < 2:
+                raise ValueError(f"train_spatial: {sp} shards leave {local} LR rows per device at HR_size {hr_size} "
+                                 f"(scale {scale}) — shrink the shard count or grow the crop")
+            hv = (self.opt.get("train") or {}).get("train_spatial_halo")
+            if hv is None:
+                hv = self.opt.get("train_spatial_halo")
+            halo = min(32, local // 2) if hv is None else int(hv)
+            if 2 * halo > local:
+                raise ValueError(f"train_spatial_halo {halo} needs 2*halo <= the local LR strip ({local} rows = "
+                                 f"HR_size {hr_size} / scale {scale} / {sp} shards) — shrink the halo/shards or "
+                                 "grow the crop")
+            (lg.warning if halo < 8 else lg.info)(
+                "train_spatial: %d-way H sharding, halo %d LR rows (window %d/%d rows per device)%s", sp, halo,
+                local + 2 * halo, local,
+                " — below the measured halo-decay floor (8); gradients are noticeably approximate at this crop "
+                "size" if halo < 8 else "")
+            if tp > 1:
+                mesh = P.make_spatial_tp_mesh(sp, tp)
+                lg.info("train_spatial x train_tp: %dx%d (spatial x model) mesh — activations 1/S, trunk params "
+                        "1/T", sp, tp)
+                fwd = P.spatial_tp_apply(g, mesh, halo=halo, scale=scale)
+                spa, model = mesh.group("spatial"), mesh.group("model")
+                return StepParallel(mesh, fwd, BatchComm(), GradSync([(spa, "sum"), (model, g_ops("mean"))]),
+                                    GradSync([(spa, "mean"), (model, "mean")]))
+            data_n = data_count(sp)
+            mesh = P.make_mesh(data_n * sp, data=data_n, spatial=sp)
+            lg.info("train_spatial: %dx%d (data x spatial) mesh — batch over 'data', LR height over 'spatial'",
+                    data_n, sp)
+            fwd = P.spatial_window_forward(g, mesh, scale=scale, halo=halo)
+            data, spa = mesh.group("data"), mesh.group("spatial")
+            return StepParallel(mesh, fwd, BatchComm(data), GradSync([(data, "sum"), (spa, "sum")]),
+                                GradSync([(data, "sum"), (spa, "mean")]))
+        if tp > 1:
+            data_n = data_count(tp)
+            mesh = P.make_tp_mesh(tp, data=data_n)
+            lg.info("train_tp: %dx%d (data x model) mesh — batch sharded over 'data', trunk channels over 'model'",
+                    data_n, tp)
+            fwd = P.tp_rrdb_apply(g, mesh)
+            data, model = mesh.group("data"), mesh.group("model")
+            return StepParallel(mesh, fwd, BatchComm(data), GradSync([(data, "sum"), (model, g_ops("mean"))]),
+                                GradSync([(data, "sum"), (model, "mean")]))
+        mesh = P.make_stage_mesh(pp)
+        req = (self.opt.get("train") or {}).get("train_pp_micro") or self.opt.get("train_pp_micro")
+        fwd = P.pipeline.pipelined_rrdb_apply_auto(g, mesh, requested=req)
+        stage = mesh.group("stage")
+        names = [n for n, _ in g.named_parameters()]
+        # the blocks a stage owns get their gradients there alone: summed; the rest alike: averaged
+        owned = [n.startswith(("RRDB_trunk.", "latent_proj.")) for n in names]
+        return StepParallel(mesh, fwd, BatchComm(), GradSync([(stage, lambda i: "sum" if owned[i] else "mean")]),
+                            GradSync([(stage, "mean")]))
 
     def load_network(self, path: str) -> None:
         """Load a torch ``.pth`` state dict with the reference ESRGAN keys
@@ -212,8 +378,7 @@ class BaseModel:
                 f"{path} is a directory (an orbax checkpoint of the JAX package?); the port loads a "
                 "torch .pth state dict — convert it with `python -m esr_tpu.scripts.export_torch_weights "
                 f"--kind rrdb --ckpt {path} --out G.pth`")
-        state = torch.load(path, map_location=self.device, weights_only=True)
-        self.g_module.load_state_dict(state, strict=True)
+        self._load_state(self.g_module, torch.load(path, map_location=self.device, weights_only=True))
         self.g_module.release_kernels()
         if getattr(self, "_forward", None) is not None:
             self._forward = self._make_forward()
@@ -273,9 +438,40 @@ class BaseModel:
         sched = next(iter(self.schedulers.values()), None)
         return float(sched(self.step)) if sched is not None else 0.0
 
+    @staticmethod
+    def _full_state(net: nn.Module) -> dict:
+        """``net``'s state dict with the reference keys and shapes: a
+        channel-sharded trunk's slices are gathered (collective)."""
+        return P.tensor.full_state_dict(net) if getattr(net, "tp_group", None) is not None else net.state_dict()
+
+    @staticmethod
+    def _load_state(net: nn.Module, state: dict) -> None:
+        """Load a reference state dict strictly, cut to the slices of a
+        channel-sharded trunk."""
+        if getattr(net, "tp_group", None) is not None:
+            P.tensor.load_full_state_dict(net, state)
+        else:
+            net.load_state_dict(state, strict=True)
+
+    def _opt_state(self, net: nn.Module, opt: Adam) -> dict:
+        """``opt``'s state with the moments of a sharded trunk's slices gathered."""
+        state = opt.state_dict()
+        for key in ("mu", "nu"):
+            state[key] = P.tensor.full_param_tensors(net, state[key])
+        return state
+
+    def _load_opt_state(self, net: nn.Module, opt: Adam, state: dict) -> None:
+        state = dict(state)
+        for key in ("mu", "nu"):
+            state[key] = P.tensor.local_param_tensors(net, state[key])
+        opt.load_state_dict(state)
+
     def save_network(self, net: nn.Module, network_label: str, iter_label) -> str:
+        """``<models>/<iter>_<label>.pth``, written by rank 0 (every rank calls it)."""
         path = os.path.join(self.opt["path"]["models"], f"{iter_label}_{network_label}.pth")
-        torch.save(net.state_dict(), path)
+        state = self._full_state(net)
+        if comm.world()[0] == 0:
+            torch.save(state, path)
         return path
 
     def _load_module(self, net: nn.Module, path: str) -> None:
@@ -286,8 +482,10 @@ class BaseModel:
 
     def save_training_state(self, epoch: int, iter_step: int, states: dict) -> str:
         """``<training_state>/<iter>.state``: epoch, iter and, per network, its
-        state_dict and its optimiser's state."""
+        state_dict and its optimiser's state; written by rank 0."""
         path = os.path.join(self.opt["path"]["training_state"], f"{iter_step}.state")
+        if comm.world()[0]:
+            return path
         tmp = path + ".tmp"
         torch.save({"epoch": int(epoch), "iter": int(iter_step), **states}, tmp)
         os.replace(tmp, path)

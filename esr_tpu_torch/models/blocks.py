@@ -146,6 +146,9 @@ class ResidualDenseBlock5C(nn.Module):
     """5-conv dense block: conv_k sees concat(x, x1..x_{k-1}); out = x + 0.2*x5."""
 
     kernel_weights = None  # the rdb5c kernel's weight layout, from prepare_kernel
+    # the row-parallel shard when the trunk is channel-sharded
+    # (esr_tpu_torch/parallel/tensor.py): it runs the forward and builds the layouts
+    tp = None
 
     def __init__(self, nf: int = 64, gc: int = 32, generator: torch.Generator | None = None):
         super().__init__()
@@ -156,6 +159,8 @@ class ResidualDenseBlock5C(nn.Module):
 
     def prepare_kernel(self, dtype: torch.dtype) -> None:
         """Build the weights' kernel layout for ``dtype`` once (none on the CPU)."""
+        if self.tp is not None:
+            return self.tp.prepare_kernel(self, dtype)
         device = self.conv1.weight.device
         self.kernel_weights = (
             rdb5c_kernel_weights(rdb5c_params_from_module(self), dtype, device)
@@ -163,6 +168,8 @@ class ResidualDenseBlock5C(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.forward(self, x)
         if not torch.is_grad_enabled():
             if self.kernel_weights is not None:
                 return rdb5c_launch(x, self.kernel_weights)

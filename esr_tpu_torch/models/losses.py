@@ -42,37 +42,41 @@ def jax_abs(x: torch.Tensor) -> torch.Tensor:
     return x * torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
-def _bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
-    return torch.mean(logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs())))
+def _bce_logits(logits: torch.Tensor, target: float, mean=torch.mean) -> torch.Tensor:
+    return mean(logits.clamp(min=0) - logits * target + torch.log1p(torch.exp(-logits.abs())))
 
 
-def gan_loss(logits: torch.Tensor, target_is_real: bool, gan_type: str = "vanilla") -> torch.Tensor:
+def gan_loss(logits: torch.Tensor, target_is_real: bool, gan_type: str = "vanilla", mean=torch.mean) -> torch.Tensor:
+    """``mean``: the batch mean (a data-parallel step passes the global one)."""
     if gan_type == "vanilla":
-        return _bce_logits(logits, 1.0 if target_is_real else 0.0)
+        return _bce_logits(logits, 1.0 if target_is_real else 0.0, mean)
     if gan_type == "lsgan":
-        return torch.mean((logits - (1.0 if target_is_real else 0.0)) ** 2)
+        return mean((logits - (1.0 if target_is_real else 0.0)) ** 2)
     if gan_type in ("wgan-gp", "wgan"):
-        return -torch.mean(logits) if target_is_real else torch.mean(logits)
+        return -mean(logits) if target_is_real else mean(logits)
     raise ValueError(f"unknown gan_type {gan_type}")
 
 
 def ragan_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor, gan_type: str = "vanilla",
-                 relativistic: bool = True) -> torch.Tensor:
-    """Discriminator loss: relativistic average (ESRGAN) or standard (SRGAN)."""
+                 relativistic: bool = True, mean=torch.mean, stat_mean=torch.mean) -> torch.Tensor:
+    """Discriminator loss: relativistic average (ESRGAN) or standard (SRGAN).
+    ``mean`` averages the loss over the batch, ``stat_mean`` the logits each
+    sample is compared with (a data-parallel step passes global means)."""
     if not relativistic:
-        return (gan_loss(d_real, True, gan_type) + gan_loss(d_fake, False, gan_type)) / 2.0
-    lr = gan_loss(d_real - torch.mean(d_fake), True, gan_type)
-    lf = gan_loss(d_fake - torch.mean(d_real), False, gan_type)
+        return (gan_loss(d_real, True, gan_type, mean) + gan_loss(d_fake, False, gan_type, mean)) / 2.0
+    lr = gan_loss(d_real - stat_mean(d_fake), True, gan_type, mean)
+    lf = gan_loss(d_fake - stat_mean(d_real), False, gan_type, mean)
     return (lr + lf) / 2.0
 
 
 def ragan_g_loss(d_real: torch.Tensor, d_fake: torch.Tensor, gan_type: str = "vanilla",
-                 relativistic: bool = True) -> torch.Tensor:
-    """Generator adversarial loss: relativistic average, or standard (d_real unused)."""
+                 relativistic: bool = True, mean=torch.mean, stat_mean=torch.mean) -> torch.Tensor:
+    """Generator adversarial loss: relativistic average, or standard (d_real
+    unused); ``mean`` / ``stat_mean`` as in :func:`ragan_d_loss`."""
     if not relativistic:
-        return gan_loss(d_fake, True, gan_type)
-    lr = gan_loss(d_real - torch.mean(d_fake), False, gan_type)
-    lf = gan_loss(d_fake - torch.mean(d_real), True, gan_type)
+        return gan_loss(d_fake, True, gan_type, mean)
+    lr = gan_loss(d_real - stat_mean(d_fake), False, gan_type, mean)
+    lf = gan_loss(d_fake - stat_mean(d_real), True, gan_type, mean)
     return (lr + lf) / 2.0
 
 

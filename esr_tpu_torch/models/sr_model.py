@@ -30,25 +30,31 @@ from esr_tpu_torch.models import losses as L
 from esr_tpu_torch.models.base_model import Adam, BaseModel, multistep_schedule, opt_float, step_generator, step_keyed
 from esr_tpu_torch.models.networks import define_G
 from esr_tpu_torch.ops.metrics import psnr_torch
+from esr_tpu_torch.parallel.dp import StepParallel
 
 __all__ = ["SRModel", "make_sr_train_step"]
 
 
 def make_sr_train_step(g, pipeline, g_opt: Adam, lr_schedule, pixel_criterion: str = "l1",
-                       pixel_weight: float = 1.0):
+                       pixel_weight: float = 1.0, par: StepParallel | None = None):
     """``train_step(hr_batch, gen) -> metrics``: the pipeline's batch, the
     pixel loss of ``g(LR, Z)`` against HR, one Adam update at learning rate
-    ``lr_schedule(g_opt.count)`` (use ``step_keyed`` for the global step)."""
+    ``lr_schedule(g_opt.count)`` (use ``step_keyed`` for the global step).
+    ``par``: the parallel axes, as in ``make_gan_train_step``."""
     params = g_opt.params
+    par = par or StepParallel()
+    g_fwd = par.g_apply or g
 
     def train_step(hr_batch, gen: torch.Generator) -> dict:
-        batch = pipeline(hr_batch, gen)
+        # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
+        batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
         with torch.enable_grad():
-            sr = g(batch["LR"], batch.get("Z"))
-            loss = pixel_weight * L.pixel_loss(sr, batch["HR"], pixel_criterion)
-            grads = torch.autograd.grad(loss, params)
-        g_opt.step(list(grads), lr_schedule(g_opt.count))
-        return {"l_pix": loss.detach(), "psnr": psnr_torch(sr.detach(), batch["HR"], quantize=False)}
+            sr = g_fwd(batch["LR"], batch.get("Z"))
+            loss = pixel_weight * par.batch.mean(L.pixel_loss(sr, batch["HR"], pixel_criterion))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        g_opt.step(par.sync_g(params, list(grads)), lr_schedule(g_opt.count), par.sync_g.sq_sum)
+        return {"l_pix": loss.detach(),
+                "psnr": psnr_torch(sr.detach(), batch["HR"], quantize=False, mean=par.batch.mean)}
 
     return train_step
 
@@ -90,8 +96,9 @@ class SRModel(BaseModel):
         if pretrained:
             self.load_network(pretrained)
         self._paired_lr = bool(((opt.get("datasets") or {}).get("train") or {}).get("dataroot_LR"))
+        self._par = StepParallel()
         if self.is_train:
-            self._refuse_parallel_training()
+            self._par = self._train_parallel()
             self._init_training(train_opt)
         self._forward = None if self.is_train else self._make_forward()
         self._data: dict = {}
@@ -106,7 +113,7 @@ class SRModel(BaseModel):
         self._train_step = make_sr_train_step(
             self.g_module, _pipeline(self.opt, self.scale, self.nz, self._lr_synth), self.g_opt,
             step_keyed(sched), train_opt.get("pixel_criterion") or "l1",
-            opt_float(train_opt, "pixel_weight", 1.0),
+            opt_float(train_opt, "pixel_weight", 1.0), par=self._par,
         )
         self._rng_seed = self.seed + 1
 
@@ -143,13 +150,17 @@ class SRModel(BaseModel):
     def save(self, iter_label) -> None:
         self.save_network(self.g_module, "G", iter_label)
 
+    def data_shard(self) -> tuple[int, int]:
+        """This rank's (index, count) of the train batch's rows (data parallelism)."""
+        return self._par.shard
+
     def save_training(self, epoch: int, iter_step: int) -> None:
-        self.save_training_state(epoch, iter_step, {"G": {"net": self.g_module.state_dict(),
-                                                          "opt": self.g_opt.state_dict()}})
+        self.save_training_state(epoch, iter_step, {"G": {"net": self._full_state(self.g_module),
+                                                          "opt": self._opt_state(self.g_module, self.g_opt)}})
 
     def resume_training(self, path: str) -> tuple[int, int]:
         state = self.restore_training_state(path)
-        self.g_module.load_state_dict(state["G"]["net"], strict=True)
-        self.g_opt.load_state_dict(state["G"]["opt"])
+        self._load_state(self.g_module, state["G"]["net"])
+        self._load_opt_state(self.g_module, self.g_opt, state["G"]["opt"])
         self.step = int(state["iter"])
         return int(state["epoch"]), int(state["iter"])

@@ -31,21 +31,36 @@ import logging
 import torch
 
 from esr_tpu_torch.models import losses as L
+from esr_tpu_torch.models.architecture import FlaxBatchNorm2d
 from esr_tpu_torch.models.base_model import Adam, multistep_schedule, opt_float, step_generator, step_keyed
 from esr_tpu_torch.models.networks import define_D, define_F
 from esr_tpu_torch.models.sr_model import SRModel, _pipeline
 from esr_tpu_torch.ops.metrics import psnr_torch
+from esr_tpu_torch.parallel.dp import StepParallel
 
 __all__ = ["SRRaGANModel", "make_gan_train_step"]
 
 
 def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: Adam, g_lr_schedule,
-                        d_lr_schedule):
+                        d_lr_schedule, par: StepParallel | None = None):
     """``train_step(hr_batch, gen, step, gp_eps=None) -> metrics`` (see the
     module docstring). G's learning rate is ``g_lr_schedule(step)``; D's
     ``d_lr_schedule(d_opt.count)`` (``step_keyed`` for the global step).
     ``gp_eps``: the WGAN-GP interpolation weights (N, 1, 1, 1); drawn from
-    ``gen`` after the pipeline's draws when None."""
+    ``gen`` after the pipeline's draws when None.
+
+    ``par`` (the parallel axes, ``parallel/dp.py``): ``hr_batch`` is this
+    rank's rows of the global batch, G runs through ``par.g_apply``, every
+    batch mean and batch statistic (D's BatchNorm, RaGAN's mean logits, the
+    logged metrics) is the global batch's, the draws are the global batch's
+    rows, and the gradients are reduced before Adam (and its clip): the step
+    computes what one process computes on the global batch."""
+    par = par or StepParallel()
+    g_fwd = par.g_apply or g
+    mean, stat_mean = par.batch.mean, par.batch.stat_mean
+    for m in d.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.stat_mean = stat_mean
     gan_type = cfg.get("gan_type") or "vanilla"
     relativistic = bool(cfg.get("relativistic", True))
     w_gp = opt_float(cfg, "gp_weight", 10.0 if gan_type == "wgan-gp" else 0.0)
@@ -60,57 +75,60 @@ def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: A
     g_params, d_params = g_opt.params, d_opt.params
 
     def g_loss(lr, hr, z):
-        sr = g(lr, z)
+        sr = g_fwd(lr, z)
         if cem is not None:
             sr = cem.project(sr, lr)
         aux = {}
         if w_pix:
-            aux["l_g_pix"] = w_pix * L.pixel_loss(sr, hr, pix_kind)
+            aux["l_g_pix"] = w_pix * mean(L.pixel_loss(sr, hr, pix_kind))
         if w_feat:
             with torch.no_grad():
                 feat_hr = f(hr)
-            aux["l_g_fea"] = w_feat * L.perceptual_l1(f(sr.clamp(0.0, 1.0)), feat_hr)
+            aux["l_g_fea"] = w_feat * mean(L.perceptual_l1(f(sr.clamp(0.0, 1.0)), feat_hr))
         if w_gan:
             d_real, d_fake = d(torch.cat([hr, sr]), train=True).chunk(2)
-            aux["l_g_gan"] = w_gan * L.ragan_g_loss(d_real, d_fake, gan_type, relativistic)
+            aux["l_g_gan"] = w_gan * L.ragan_g_loss(d_real, d_fake, gan_type, relativistic, mean, stat_mean)
         else:  # the gan_weight: 0 ablation skips D
             aux["l_g_gan"] = sr.new_zeros(())
         if w_range:
-            aux["l_g_range"] = w_range * L.range_loss(sr)
+            aux["l_g_range"] = w_range * mean(L.range_loss(sr))
         if w_map and z is not None:
-            aux["l_g_map"] = w_map * L.map_loss(sr, hr, z)
+            aux["l_g_map"] = w_map * mean(L.map_loss(sr, hr, z))
         loss = sum(aux.values())
-        aux["psnr"] = psnr_torch(sr.detach(), hr, quantize=False)
+        aux["psnr"] = psnr_torch(sr.detach(), hr, quantize=False, mean=mean)
         return loss, aux, sr
 
     def train_step(hr_batch, gen: torch.Generator, step: int, gp_eps=None) -> dict:
-        batch = pipeline(hr_batch, gen)
+        # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
+        batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
         lr, hr, z = batch["LR"], batch["HR"], batch.get("Z")
         if cem is not None:
             hr = cem.enforce_dt_on_image_pair(lr, hr)
         if w_gp and gp_eps is None:
-            gp_eps = torch.rand((hr.shape[0], 1, 1, 1), generator=gen)
+            i, n_shards = par.shard
+            n = hr.shape[0]
+            gp_eps = torch.rand((n * n_shards, 1, 1, 1), generator=gen)[i * n : (i + 1) * n]
         # G first, against the pre-update D (steps are 1-based; strict >)
         do_g = step % d_ratio == 0 and step > d_init
         with torch.set_grad_enabled(do_g):
             l_g, aux, fake = g_loss(lr, hr, z)
             if do_g:
-                grads = torch.autograd.grad(l_g, g_params)
+                grads = torch.autograd.grad(l_g, g_params, allow_unused=True)
         if do_g:
-            g_opt.step(list(grads), g_lr_schedule(step))
+            g_opt.step(par.sync_g(g_params, list(grads)), g_lr_schedule(step), par.sync_g.sq_sum)
         fake = fake.detach()
 
         # D every step; the penalty reads D at its pre-step running statistics
         with torch.enable_grad():
             l_d = 0.0
             if w_gp:
-                l_d = w_gp * L.gradient_penalty(lambda x: d(x, train=False), hr, fake, gp_eps.to(hr.device))
+                l_d = w_gp * mean(L.gradient_penalty(lambda x: d(x, train=False), hr, fake, gp_eps.to(hr.device)))
             d_real, d_fake = d(torch.cat([hr, fake]), train=True, update_stats=True).chunk(2)
-            l_d = L.ragan_d_loss(d_real, d_fake, gan_type, relativistic) + l_d
-            d_grads = torch.autograd.grad(l_d, d_params)
-        d_opt.step(list(d_grads), d_lr_schedule(d_opt.count))
-        metrics = {"l_d": l_d.detach(), "l_g": l_g.detach(), "D_real": d_real.detach().mean(),
-                   "D_fake": d_fake.detach().mean()}
+            l_d = L.ragan_d_loss(d_real, d_fake, gan_type, relativistic, mean, stat_mean) + l_d
+            d_grads = torch.autograd.grad(l_d, d_params, allow_unused=True)
+        d_opt.step(par.sync_d(d_params, list(d_grads)), d_lr_schedule(d_opt.count), par.sync_d.sq_sum)
+        metrics = {"l_d": l_d.detach(), "l_g": l_g.detach(), "D_real": mean(d_real.detach()),
+                   "D_fake": mean(d_fake.detach())}
         metrics.update({k: v.detach() for k, v in aux.items()})
         return metrics
 
@@ -139,7 +157,7 @@ class SRRaGANModel(SRModel):
         self._train_step = make_gan_train_step(
             self.g_module, self.d_module, self.f_module, self.cem,
             _pipeline(opt, self.scale, self.nz, self._lr_synth), train_opt, self.g_opt, self.d_opt,
-            g_lr_schedule=g_sched, d_lr_schedule=step_keyed(d_sched),
+            g_lr_schedule=g_sched, d_lr_schedule=step_keyed(d_sched), par=self._par,
         )
         self._rng_seed = self.seed + 3
         lg = logging.getLogger("base")
@@ -158,14 +176,14 @@ class SRRaGANModel(SRModel):
 
     def save_training(self, epoch: int, iter_step: int) -> None:
         self.save_training_state(epoch, iter_step, {
-            "G": {"net": self.g_module.state_dict(), "opt": self.g_opt.state_dict()},
-            "D": {"net": self.d_module.state_dict(), "opt": self.d_opt.state_dict()},
+            key: {"net": self._full_state(net), "opt": self._opt_state(net, opt_)}
+            for key, net, opt_ in (("G", self.g_module, self.g_opt), ("D", self.d_module, self.d_opt))
         })
 
     def resume_training(self, path: str) -> tuple[int, int]:
         state = self.restore_training_state(path)
         for net, opt_, key in ((self.g_module, self.g_opt, "G"), (self.d_module, self.d_opt, "D")):
-            net.load_state_dict(state[key]["net"], strict=True)
-            opt_.load_state_dict(state[key]["opt"])
+            self._load_state(net, state[key]["net"])
+            self._load_opt_state(net, opt_, state[key]["opt"])
         self.step = int(state["iter"])
         return int(state["epoch"]), int(state["iter"])

@@ -89,16 +89,17 @@ def _to_uint8_domain(x: torch.Tensor, quantize: bool) -> torch.Tensor:
 
 
 def psnr_torch(img1: torch.Tensor, img2: torch.Tensor, border: int = 0,
-               quantize: bool = True) -> torch.Tensor:
+               quantize: bool = True, mean=torch.mean) -> torch.Tensor:
     """PSNR of [0,1] float images on their device, in the uint8 domain (with
     ``quantize``, :func:`calculate_psnr` of the ``tensor2img`` images to f32
-    precision). (..., H, W, C); a 0-d tensor."""
+    precision). (..., H, W, C); a 0-d tensor. ``mean``: the MSE's mean (a
+    data-parallel step passes the global one)."""
     if border:
         img1 = img1[..., border:-border, border:-border, :]
         img2 = img2[..., border:-border, border:-border, :]
     a = _to_uint8_domain(img1, quantize)
     b = _to_uint8_domain(img2, quantize)
-    mse = torch.mean((a - b) ** 2)
+    mse = mean((a - b) ** 2)
     return 20.0 * torch.log10(255.0 / torch.sqrt(torch.clamp(mse, min=1e-12)))
 
 

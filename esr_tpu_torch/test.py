@@ -14,7 +14,10 @@ image repeated to fill a batch); ``eval_pad_bucket: K`` edge-pads LR to a
 multiple of K and crops SR back; ``self_ensemble: true`` runs the x8
 dihedral mean. Metrics of the batched and the serial path are the same
 numbers: Z draws are a pure function of (image index, draw index). Runs on
-CUDA unless ``--device cpu``.
+CUDA unless ``--device cpu``. Under ``torchrun --nproc_per_node N`` every
+rank joins the process group (``dist_backend``): ``dist_eval`` deals the
+images over the ranks, ``eval_tp`` / ``eval_pp`` / ``eval_spatial`` shard
+each forward, and rank 0 alone scores, logs and writes.
 
 Blind eval (``--estimate_kernel [ITERS]``, or ``estimate_kernel: true|ITERS``
 in a dataset block): the downsampling kernel is estimated (KernelGAN-style,
@@ -35,11 +38,12 @@ import torch
 
 from esr_tpu_torch.data import create_dataloader, create_dataset
 from esr_tpu_torch.data.util import save_img
-from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.models import create_model
 from esr_tpu_torch.ops.color import rgb2ycbcr, tensor2img, to_uint8
 from esr_tpu_torch.ops.metrics import calculate_psnr, calculate_ssim, crop_border
 from esr_tpu_torch.options import parse
+from esr_tpu_torch.parallel import comm
+from esr_tpu_torch.parallel.mesh import make_mesh
 from esr_tpu_torch.utils import mkdirs, setup_logger
 from esr_tpu_torch.utils.watchdog import arm_from_opt
 
@@ -57,16 +61,18 @@ def main(argv=None) -> dict:
                         "evaluate with CEM under it")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
-
     opt = parse(args.opt, is_train=False)
+    # under a launcher (torchrun) every rank joins the process group; rank 0 logs and writes
+    device = comm.init_from_env(opt, args.device)
+    main_rank = comm.world()[0] == 0
     if opt.get("eval_precision") == "highest":
         # full f32 in matmuls and cuDNN convs (the f32 plain paths)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    mkdirs([opt["path"]["results_root"], opt["path"]["log"]])
-    setup_logger("base", opt["path"]["log"], "test", screen=True)
     logger = logging.getLogger("base")
+    if main_rank:
+        mkdirs([opt["path"]["results_root"], opt["path"]["log"]])
+        setup_logger("base", opt["path"]["log"], "test", screen=True)
     wd = arm_from_opt(opt.get("watchdog"), opt.get("watchdog_factor"), logger, label="eval")
 
     base_model = None  # built once; a blind dataset gets a model of its own
@@ -85,6 +91,8 @@ def main(argv=None) -> dict:
             logger.info(f"testing [{name}]: {len(test_set)} images")
             save_dir = os.path.join(opt["path"]["results_root"], name) if args.save_images else None
             results = evaluate_dataset(model, test_loader, opt, save_dir=save_dir, wd=wd)
+            if not main_rank:
+                continue
             out[name] = results
             msg = f"[{name}] avg PSNR: {results['psnr']:.4f} dB, avg SSIM: {results['ssim']:.4f}"
             if "cem_residual" in results:
@@ -271,11 +279,13 @@ def _sr_image(sr: np.ndarray, orig_hw, scale: int) -> np.ndarray:
 
 def evaluate_dataset(model, loader, opt, save_dir=None, num_random_z: int | None = None,
                      dist=None, wd=None) -> dict:
-    """Shared eval loop (also used by the tests). Returns averaged metrics.
+    """Shared eval loop (also used by the tests). Returns averaged metrics on
+    rank 0 (``{}`` on the other ranks of a process group, which run their
+    share of the forwards and write nothing).
 
-    ``eval_batch`` > 1, or ``dist_eval`` (``dist``) on a single device, runs
-    the batched evaluator: images grouped by padded shape, ``eval_batch``
-    at a time."""
+    ``eval_batch`` > 1, or ``dist_eval`` (``dist``), runs the batched
+    evaluator: images grouped by padded shape, ``eval_batch`` at a time on
+    each rank of the 'data' axis."""
     scale = int(opt.get("scale") or 4)
     only_y = bool(opt.get("psnr_on_y", True))
     num_z = num_random_z if num_random_z is not None else int(opt.get("num_random_Z") or 0)
@@ -283,14 +293,12 @@ def evaluate_dataset(model, loader, opt, save_dir=None, num_random_z: int | None
     nz = getattr(model, "nz", 0)
     use_dist = bool(opt.get("dist_eval")) if dist is None else bool(dist)
     eval_batch = int(opt.get("eval_batch") or 0)
+    main_rank = comm.world()[0] == 0
     if use_dist or eval_batch > 1:
-        if use_dist and model.eval_devices() > 1:
-            raise NotImplementedError(
-                "dist_eval over several devices is not ported yet (ROADMAP.md Queue 1 item 10)")
-        return _evaluate_dataset_batched(model, loader, scale=scale, only_y=only_y, num_z=num_z,
-                                         bucket=bucket, nz=nz, save_dir=save_dir,
-                                         batch=max(1, eval_batch), wd=wd)
-    scorer = _EvalScorer(only_y, scale, save_dir, n_draws=1 + (num_z if nz else 0))
+        return _evaluate_dataset_dist(model, loader, scale=scale, only_y=only_y, num_z=num_z, bucket=bucket,
+                                      nz=nz, save_dir=save_dir if main_rank else None,
+                                      per_dev_batch=max(1, eval_batch), wd=wd)
+    scorer = _EvalScorer(only_y, scale, save_dir if main_rank else None, n_draws=1 + (num_z if nz else 0))
     cem = getattr(model, "cem", None)
     for idx, batch in enumerate(loader):
         sample = _first(batch)
@@ -302,8 +310,11 @@ def evaluate_dataset(model, loader, opt, save_dir=None, num_random_z: int | None
             # the batched evaluator, which visits images by shape, draws the same
             z_draws += [_eval_z_draw(idx, k, lr_p.shape[:-1], nz) for k in range(num_z)]
         for zi, z in enumerate(z_draws):
+            # every rank runs the forward (a sharded one needs them all); rank 0 scores
             model.feed_data(sample)
             model.test(z=z) if nz else model.test()
+            if not main_rank:
+                continue
             vis = model.get_visuals_device()
             residual = None
             if cem is not None:
@@ -316,17 +327,26 @@ def evaluate_dataset(model, loader, opt, save_dir=None, num_random_z: int | None
                        multi_z=len(z_draws) > 1)
         if wd is not None:
             wd.beat()  # one beat per scored image
-    return scorer.finalize()
+    return scorer.finalize() if main_rank else {}
 
 
-def _evaluate_dataset_batched(model, loader, *, scale, only_y, num_z, bucket, nz, save_dir,
-                              batch: int, wd=None) -> dict:
-    """Batched evaluator (port of the single-device case of the JAX
-    package's ``_evaluate_dataset_dist``): images grouped by padded shape,
-    ``batch`` at a time, the last image repeated to fill a batch (a group
-    smaller than ``batch`` runs at its own size); the same scorer and Z
-    draws as the serial path; one uint8 device-to-host copy per batch and
-    draw."""
+def _evaluate_dataset_dist(model, loader, *, scale, only_y, num_z, bucket, nz, save_dir,
+                           per_dev_batch: int = 1, wd=None) -> dict:
+    """Sharded and batched evaluator (port of the JAX package's
+    ``_evaluate_dataset_dist``): images grouped by padded shape, dealt
+    ``per_dev_batch`` to each rank of the 'data' axis of the forward's mesh
+    (the model's ``_eval_mesh``, else every rank of the process group; a
+    pipeline's stages share one batch), the last image repeated to fill a
+    chunk (a group smaller than a chunk shrinks the per-rank batch). Z draws
+    are a pure function of (image, draw), as in the serial path, so the
+    metrics are the serial path's. Each rank converts its SR to uint8 on its
+    device; rank 0 gathers them and the CEM residuals, scores and writes."""
+    mesh = getattr(model, "_eval_mesh", None)
+    if mesh is None:
+        mesh = make_mesh()
+    data = mesh.group("data") if "data" in mesh.axis_names else comm.SOLO
+    n_dev, di = data.size, data.index
+    main_rank = comm.world()[0] == 0
     items = []  # (idx, lr_padded, orig_hw, hr, lr_path)
     for idx, b in enumerate(loader):
         sample = _first(b)
@@ -339,25 +359,34 @@ def _evaluate_dataset_batched(model, loader, *, scale, only_y, num_z, bucket, nz
     by_shape: dict[tuple, list] = {}
     for it in items:
         by_shape.setdefault(it[1].shape, []).append(it)
-
+    pad_total = fwd_total = 0
     for group in by_shape.values():
-        chunk_n = min(batch, len(group))
+        per_dev = min(max(1, per_dev_batch), -(-len(group) // n_dev))
+        chunk_n = n_dev * per_dev
         for lo in range(0, len(group), chunk_n):
             chunk = group[lo : lo + chunk_n]
-            pad_n = chunk_n - len(chunk)  # repeat the last image to fill the batch
-            lr = torch.from_numpy(np.stack([c[1] for c in chunk] + [chunk[-1][1]] * pad_n)).to(device)
+            pad_n = chunk_n - len(chunk)  # repeat the last image so the chunk deals evenly
+            pad_total += pad_n
+            fwd_total += chunk_n
+            mine = slice(di * per_dev, (di + 1) * per_dev)
+            padded = chunk + [chunk[-1]] * pad_n
+            lr = torch.from_numpy(np.stack([c[1] for c in padded[mine]])).to(device)
             for zi in range(n_draws):
                 z = None
                 if nz:
                     zero = np.zeros(chunk[-1][1].shape[:-1] + (nz,), np.float32)
-                    z = np.stack([_eval_z_draw(c[0], zi - 1, c[1].shape[:-1], nz) if zi > 0 else zero
-                                  for c in chunk] + [zero] * pad_n)
-                    z = torch.from_numpy(z).to(device)
+                    z = [_eval_z_draw(c[0], zi - 1, c[1].shape[:-1], nz) if zi > 0 else zero for c in chunk]
+                    z = torch.from_numpy(np.stack((z + [zero] * pad_n)[mine])).to(device)
                 sr = fwd(lr, z)
-                res = None
-                if cem is not None:
-                    res = (cem.downsample(sr.float()) - lr).abs().amax(dim=(1, 2, 3)).cpu().numpy()
-                sr_host = to_uint8(sr).cpu().numpy()
+                res = None if cem is None else (cem.downsample(sr.float()) - lr).abs().amax(dim=(1, 2, 3))
+                sr_u8 = to_uint8(sr)
+                if data.size > 1:
+                    sr_u8 = torch.cat(comm.gather_list(sr_u8, data))
+                    res = None if res is None else torch.cat(comm.gather_list(res, data))
+                if not main_rank:
+                    continue
+                sr_host = sr_u8.cpu().numpy()
+                res = None if res is None else res.cpu().numpy()
                 for bi, (idx, _, orig_hw, hr, lr_path) in enumerate(chunk):
                     hr_img = None
                     if hr is not None:
@@ -366,8 +395,12 @@ def _evaluate_dataset_batched(model, loader, *, scale, only_y, num_z, bucket, nz
                     scorer.add(idx, zi, _sr_image(sr_host[bi], orig_hw, scale), hr_img,
                                res[bi] if res is not None else None, lr_path, multi_z=n_draws > 1)
             if wd is not None:
-                wd.beat()  # one beat per batch
-    return scorer.finalize()
+                wd.beat()  # one beat per chunk
+    if main_rank and pad_total and pad_total / max(1, fwd_total) > 0.25:
+        logging.getLogger("base").info(
+            f"dist/batched eval padded {pad_total}/{fwd_total} forwards (many unique image shapes?) — set "
+            "eval_pad_bucket so images share shapes, or lower eval_batch")
+    return scorer.finalize() if main_rank else {}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,13 @@ coming. ``train.steps_per_dispatch`` is accepted and ignored: the JAX
 package folds that many steps into one program to save TPU dispatches, the
 port runs every step alone (the same trajectory). Runs on CUDA unless
 ``--device cpu``.
+
+Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` > 1) every rank joins
+the process group (``dist_backend``) and trains the options' parallel axes
+(``dist``, ``train_tp``, ``train_pp``, ``train_spatial``; see
+``models/base_model.py::_train_parallel``): each rank loads its rows of a
+data-parallel batch, every rank runs the validation forwards and the
+checkpoint gathers, and rank 0 alone logs and writes.
 """
 
 from __future__ import annotations
@@ -30,11 +37,11 @@ import numpy as np
 from esr_tpu_torch import data as data_mod
 from esr_tpu_torch import options as options_mod
 from esr_tpu_torch.data.util import save_img
-from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.models import create_model
 from esr_tpu_torch.models.base_model import BaseModel
 from esr_tpu_torch.ops.color import rgb2ycbcr
 from esr_tpu_torch.ops.metrics import calculate_psnr, crop_border
+from esr_tpu_torch.parallel import comm
 from esr_tpu_torch.utils import Logger, mkdir_and_rename, mkdirs, set_random_seed, setup_logger
 from esr_tpu_torch.utils.watchdog import arm_from_opt
 
@@ -47,9 +54,9 @@ def main(argv=None) -> None:
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
-
     opt = options_mod.parse(args.opt, is_train=True)
+    # under a launcher (torchrun, WORLD_SIZE > 1) every rank joins the process group
+    device = comm.init_from_env(opt, args.device)
 
     # SIGTERM (preemption) sets a flag: the loop finishes the step in flight,
     # saves, and returns. Installed before the model is built.
@@ -69,14 +76,16 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
     resume_path = opt["path"].get("resume_state")
     if auto_resume and not resume_path:
         resume_path = BaseModel.latest_state_path(opt["path"]["training_state"])
+    main_rank = comm.world()[0] == 0
     if resume_path:
         options_mod.check_resume(opt)
-    else:
+    elif main_rank:
         mkdir_and_rename(opt["path"]["experiments_root"])
-    mkdirs([opt["path"][k] for k in ("models", "training_state", "log", "val_images")])
-    setup_logger("base", opt["path"]["log"], "train", screen=True)
+    if main_rank:
+        mkdirs([opt["path"][k] for k in ("models", "training_state", "log", "val_images")])
+        setup_logger("base", opt["path"]["log"], "train", screen=True)
+        options_mod.save(opt)
     logger = logging.getLogger("base")
-    options_mod.save(opt)
     set_random_seed(int((opt["train"] or {}).get("manual_seed") or 0))
 
     train_loader = val_loader = None
@@ -98,6 +107,8 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
             f"is {train_loader.batch_size} (drop_last) — shrink batch_size or add data")
 
     model = create_model(opt, device=device)
+    # data parallelism: this rank loads its rows of each global batch
+    train_loader.set_shard(*model.data_shard())
     start_epoch, current_step = 0, 0
     if resume_path:
         start_epoch, current_step = model.resume_training(resume_path)
@@ -117,7 +128,7 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
     print_freq = int(log_opt.get("print_freq") or 100)
     save_freq = int(log_opt.get("save_checkpoint_freq") or 5000)
     total_epochs = max(1, math.ceil(niter / len(train_loader)))
-    tlogger = Logger(opt)
+    tlogger = Logger(opt) if main_rank else None
     logger.info(f"training for {niter} iters (~{total_epochs} epochs) on {device}")
     if int(train_opt.get("steps_per_dispatch") or 1) > 1:
         logger.info("steps_per_dispatch is ignored: the port runs every step alone (the same trajectory)")
@@ -134,11 +145,14 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
                 model.optimize_parameters(current_step)
                 if wd is not None:
                     wd.beat(current_step)
-                if current_step % print_freq == 0:
+                if current_step % print_freq == 0 and tlogger is not None:
                     tlogger.log_scalars(current_step, epoch, model.get_current_learning_rate(),
                                         model.get_current_losses())
                 if val_loader is not None and current_step % val_freq == 0:
-                    tlogger.log_validation(current_step, epoch, validate(model, val_loader, opt, step=current_step))
+                    # every rank runs the forwards (a sharded one needs them all); rank 0 logs and writes
+                    val = validate(model, val_loader, opt, step=current_step)
+                    if tlogger is not None:
+                        tlogger.log_validation(current_step, epoch, val)
                     if wd is not None:
                         wd.beat(count=False)  # validation takes longer than a step
                 if current_step % save_freq == 0:
@@ -164,10 +178,10 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
 
 def validate(model, val_loader, opt, step=None) -> dict:
     """Mean PSNR over the val set (uint8 domain, border = scale; Y channel with
-    ``val_on_y``); with ``step``, the SR images go to ``val_images``."""
+    ``val_on_y``); with ``step``, rank 0 writes the SR images to ``val_images``."""
     scale = int(opt.get("scale") or 4)
     on_y = bool(opt.get("val_on_y"))
-    val_dir = opt["path"].get("val_images") if step is not None else None
+    val_dir = opt["path"].get("val_images") if step is not None and comm.world()[0] == 0 else None
     psnrs = []
     for i, batch in enumerate(val_loader):
         sample = {k: (v[0] if isinstance(v, (np.ndarray, list)) else v) for k, v in batch.items()}

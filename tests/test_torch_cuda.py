@@ -687,3 +687,56 @@ def test_cuda_kernelgan_effective_kernel_is_exact(cuda):
         want = F.conv2d(x.permute(0, 3, 1, 2), k[None, None]).permute(0, 2, 3, 1)
     assert tuple(k.shape) == (21, 21) and (flat - want).abs().max().item() <= 1e-5
     assert torch.equal(strided, flat[:, ::4, ::4])
+
+
+@pytest.fixture(scope="module")
+def parallel_axes(tmp_path_factory):
+    """2 ranks of a gloo group on the one card (tests/torch_parallel_workers.py):
+    the sharded eval forwards of a bf16 net at the flagship widths, nb 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import torch_parallel_workers as W
+
+    from esr_tpu_torch.models.architecture import RRDBNet
+    from esr_tpu_torch.parallel import comm
+
+    cfg = dict(nf=64, nb=2, gc=32, scale=4, num_latent_channels=1)
+    state = {k: v.numpy() for k, v in RRDBNet(**cfg, seed=1).state_dict().items()}
+    rng = np.random.default_rng(3)
+    p = {"cfg": cfg, "state": state, "halo": 4, "lr": rng.random((2, 32, 24, 3), dtype=np.float32),
+         "z": rng.uniform(-1, 1, (2, 32, 24, 1)).astype(np.float32)}
+    g = RRDBNet(**cfg, dtype=torch.bfloat16, seed=1).cuda()
+    g.prepare_kernels()
+    with torch.no_grad():
+        whole = g(torch.from_numpy(p["lr"]).cuda(), torch.from_numpy(p["z"]).cuda()).float().cpu().numpy()
+    ranks = comm.spawn(W.cuda_axes_2, 2, tmp_path_factory.mktemp("cuda_ranks"), args=(p,), timeout=300)
+    return ranks, whole
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["spatial", "tp", "pp"])
+def test_cuda_parallel_axes_on_the_kernels(parallel_axes, axis):
+    """eval_spatial (halo 4 on LR 32: each rank's G runs on a window of 24
+    of the 32 rows; the rows at least a halo from the seam equal the
+    whole-image kernel forward's bit for bit, every row within bf16 rounding
+    of it), eval_tp (within bf16 rounding of it: each partial conv rounds its
+    output) and eval_pp (bit for bit: the kernels' per-pixel sums do not
+    depend on the batch) over 2 ranks on the one card, each rank launching
+    its kernels: 6 / 4 / 2, 0 / 4 + 30 / 2 and 3 a microbatch / 4 / 2
+    (rdb5c / conv3x3 / upsample)."""
+    ranks, whole = parallel_axes
+    want = {"spatial": {"rdb5c": 6, "conv3x3": 4, "upsample2x_conv3x3": 2},
+            "tp": {"rdb5c": 0, "conv3x3": 34, "upsample2x_conv3x3": 2},
+            "pp": {"rdb5c": 6, "conv3x3": 4, "upsample2x_conv3x3": 2}}[axis]
+    seam, halo = 16 * 4, 4 * 4  # HR rows
+    for r in ranks:
+        out = r[axis]["out"]
+        assert r[axis]["counts"] == want, r[axis]["counts"]
+        if axis == "spatial":
+            assert r[axis]["rows"] == [24], r[axis]["rows"]
+            far = np.r_[0 : seam - halo, seam + halo : out.shape[1]]
+            np.testing.assert_array_equal(out[:, far], whole[:, far])
+        if axis == "pp":
+            np.testing.assert_array_equal(out, whole)
+        else:
+            assert np.abs(out - whole).max() <= 2.0**-6 * np.abs(whole).max(), np.abs(out - whole).max()

@@ -271,18 +271,21 @@ def test_fold_runs_the_unfolded_forward(setup):
 @pytest.mark.parametrize("what", ["eval_tp", "eval_pp", "eval_spatial", "is_train", "estimate_kernel",
                                   "dataset_estimate_kernel", "train_phase", "packed", "non_separable"])
 def test_not_ported_options_raise(setup, tmp_path, monkeypatch, what):
-    """What the slice leaves out raises, naming where it waits. The options
-    a later slice ported (blind eval, a non-separable kernel) run instead:
+    """What cannot run raises. The parallel axes are ported: in a process
+    without a 2-rank group, 2 shards raise ``ValueError`` naming the ranks
+    they need, and ``true`` or 1 raise as in the JAX package
+    (tests/test_torch_parallel*.py run them over 2 ranks). The options a
+    later slice ported (blind eval, a non-separable kernel) run instead:
     tests/test_torch_blind.py and tests/test_torch_cem_modes.py hold them
     against the JAX package."""
     opt = _port_opt(setup)
-    if what in ("eval_tp", "eval_pp", "eval_spatial"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            create_model(parse(dict(opt, **{what: 2}), is_train=False), device="cpu")
-    elif what == "is_train":
-        # training is ported (Queue 1 item 6); training over several devices is not
-        with pytest.raises(NotImplementedError, match="item 10"):
-            create_model(parse(dict(opt, train_tp=2), is_train=True), device="cpu")
+    if what in ("eval_tp", "eval_pp", "eval_spatial", "is_train"):
+        key, is_train = ("train_tp", True) if what == "is_train" else (what, False)
+        with pytest.raises(ValueError, match="only 1 ranks are available|only 1 are in the process group"):
+            create_model(parse(dict(opt, **{key: 2}), is_train=is_train), device="cpu")
+        for bad in (True, 1):
+            with pytest.raises(ValueError, match=f"{key} must be the shard count"):
+                create_model(parse(dict(opt, **{key: bad}), is_train=is_train), device="cpu")
     elif what == "non_separable":
         model = create_model(parse(dict(opt, kernel=np.ones((5, 4)).tolist()), is_train=False), device="cpu")
         assert model.cem._mode == "fft"

@@ -120,9 +120,9 @@ class RecordingAdam(Adam):
         super().__init__(base.params, base.b1, base.b2, base.eps, base.grad_clip)
         self.grads: list[list[torch.Tensor]] = []
 
-    def step(self, grads: list, lr: float) -> None:
+    def step(self, grads: list, lr: float, sq_sum=None) -> None:
         self.grads.append([g.detach().clone() for g in grads])
-        super().step(grads, lr)
+        super().step(grads, lr, sq_sum)
 
 
 def rel_l2(a, b) -> float:
