@@ -123,6 +123,21 @@ Phases (any failure exits non-zero and prints no result):
    esr_tpu_torch.parallel.multihost``, 2 processes against 1. Every rank
    reports its launches; the ms of each path is printed as that of 2 ranks
    on one card, not a scaling number.
+12. the scripts, the profiler, the probes and the port's entry point:
+   ``graft_entry.entry()``'s forward (B2 x LR 64: 69 / 4 / 2 launches, CEM
+   residual); ``utils/profiler``'s ``StepTimer`` and a ``trace`` of two
+   forwards in regions (138 ``rdb5c_tc_kernel`` events in their device
+   spans of its Chrome trace, after a forward outside them; device ms
+   by kernel, the host's split between CUDA launch calls, waits and aten
+   ops' CPU time, also for one Z-search click); ``scripts.explore_bench``
+   (one region, 2 repeat clicks, 32 steps, no adaptive imprint);
+   ``scripts.ensemble_bench --n 2``; ``scripts.precision_ladder`` (bf16
+   kernels' PSNR against the f32 plain oracle within 1 dB of the bf16 plain
+   path's); ``scripts.parity_eval`` (f32, TF32 off) on the seed-0 ``.pth``
+   in the reference's old key layout over two 1/f PNGs, the PSNR of the
+   new layout's; ``scripts.quickstart --niter 4``; the int8 / FP8 probe at
+   one conv shape and the 8192^3 matmul; the RDB kernel under tile hints at
+   the DIV2K eval shape (``ops/cuda/tiled_probe``).
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after; phase 11 in each rank). The last line is
@@ -2864,6 +2879,300 @@ def phase_parallel(tmp: Path, pth: str, card: str, bands: dict) -> dict[str, dic
 
 
 
+# -- phase 12 ------------------------------------------------------------------
+
+BF16_NAMES = ("rdb5c", "conv3x3", "upsample2x_conv3x3")
+SCRIPTS_EXPLORE = ["--regions", "10", "--iters", "2", "--n_steps", "32", "--no-adaptive"]
+PARITY_HR = ((128, 96), (96, 128))  # two 1/f HR images: LR 32 x 24 and 24 x 32
+
+
+def split_counts(counts: dict) -> tuple[dict, dict]:
+    """ALL_COUNTERS' counts as (the bf16 kernels', the f32 route's)."""
+    return {k: counts[k] for k in BF16_NAMES}, {k: counts[k] for k in F32_PER_FORWARD}
+
+
+def old_layout(state: dict) -> dict:
+    """A state dict with the port's keys in the reference's old RRDBNet layout
+    (``model.0`` / ``model.1.sub.{i}.RDB{j}.conv{k}.0`` / ``model.1.sub.{nb}``
+    / ``model.3`` / ``model.6`` / ``model.8`` / ``model.10``)."""
+    import re
+
+    nb = len({k.split(".")[1] for k in state if k.startswith("RRDB_trunk.")})
+    names = {"conv_first": "model.0", "trunk_conv": f"model.1.sub.{nb}", "upconv1": "model.3",
+             "upconv2": "model.6", "HRconv": "model.8", "conv_last": "model.10"}
+    out = {}
+    for k, v in state.items():
+        base, leaf = k.rsplit(".", 1)
+        m = re.match(r"RRDB_trunk\.(\d+)\.(.+)$", base)
+        out[(f"model.1.sub.{m[1]}.{m[2]}.0" if m else names[base]) + "." + leaf] = v
+    return out
+
+
+def host_split(prof, regions=()) -> dict:
+    """Host milliseconds of a profile: CUDA runtime launch calls, the
+    runtime's synchronising calls (waits), and aten ops' own CPU time; the
+    device's busy time and its kernel count (``regions``: annotate ranges,
+    which the profiler also lists on the device, left out)."""
+    ev = prof.key_averages()
+    host = [e for e in ev if e.device_type != torch.autograd.DeviceType.CUDA]
+    dev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in regions]
+    ms = lambda es: sum(e.self_cpu_time_total for e in es) / 1e3  # noqa: E731
+    return {"launch_api_ms": ms(e for e in host if "LaunchKernel" in e.key),
+            "launches": sum(e.count for e in host if "LaunchKernel" in e.key),
+            "sync_api_ms": ms(e for e in host if e.key.startswith("cu") and ("Synchronize" in e.key or "Memcpy" in e.key)),
+            "aten_cpu_ms": ms(e for e in host if e.key.startswith("aten::")),
+            "device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "kernels": sum(e.count for e in dev)}
+
+
+def scripts_trace(tmp: Path, fn, lr, z, card: str) -> dict:
+    """The profiler (``utils/profiler``): ``StepTimer`` over flagship
+    forwards, then a ``trace`` of a forward and two more, each of those an
+    ``annotate`` region: its Chrome trace holds 2 x 69 ``rdb5c_tc_kernel``
+    events in the regions' device spans; device ms by kernel and the host
+    split are printed. Returns the traced launches."""
+    from esr_tpu_torch.utils.profiler import StepTimer, annotate, trace
+
+    timer = StepTimer(warmup=1, device=lr.device)
+    for _ in range(6):
+        with timer.step():
+            fn(lr, z)
+    print(f"phase 12 StepTimer: flagship forward B2 x LR 64 {1e3 * timer.mean:.3f} ms/forward over "
+          f"{len(timer.times)} timed steps (CUDA events, warmup discarded), {timer.rate(2 * 256 * 256 / 1e6):.3f} "
+          f"HR MP/s on {card}", flush=True)
+    log_dir = tmp / "trace_forward"
+    names = ("flagship_forward_0", "flagship_forward_1")
+
+    def traced():
+        # a first forward inside the trace, outside the regions: the first
+        # ~40 kernels of a session went missing from its trace on the H100
+        with trace(str(log_dir)) as prof:
+            fn(lr, z)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for name in names:
+                with annotate(name):
+                    fn(lr, z)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return prof, wall
+
+    (prof, wall_ms), counts, _ = counted(traced)
+    check_launches("phase 12 profiler trace, 3 flagship forwards (2 in regions)", counts, 3)
+    events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "gpu_user_annotation"
+             and e.get("name") in names]
+    rdb_all = [e for e in events if e.get("cat") == "kernel" and "rdb5c_tc_kernel" in e.get("name", "")]
+    rdb_events = [e for e in rdb_all if any(a <= e["ts"] <= b for a, b in spans)]
+    check(len(rdb_events) == 2 * 3 * NB and len(spans) == 2,
+          f"phase 12 trace.json: {len(rdb_events)} rdb5c_tc_kernel events in the 2 regions' device spans == "
+          f"{2 * 3 * NB} ({len(spans)} spans; {len(rdb_all)} in the trace, 3 forwards; event categories "
+          f"{sorted({str(e.get('cat')) for e in events})})")
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in names]
+    split = host_split(prof, names)
+    print(f"phase 12 trace, 3 flagship forwards B2 x LR 64: the 2 in regions {wall_ms:.2f} ms of wall under the "
+          f"profiler, device busy {split['device_busy_ms']:.3f} ms for the 3; device ms by kernel (3 forwards):",
+          flush=True)
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}", flush=True)
+    print(f"phase 12 host split, 3 forwards: {split}", flush=True)
+    return counts
+
+
+def span_split(events: list, name: str) -> dict:
+    """The host split of one ``annotate`` region of a Chrome trace, from the
+    events inside it: CUDA launch calls, the runtime's synchronising calls
+    (waits) and aten ops' own CPU time (each host event less the host events
+    directly inside it, per thread); the device work (kernels, copies, sets)
+    that the region's runtime calls started, matched by correlation id; and
+    ``dropped``, the region's launch calls whose kernel the trace lacks."""
+    (region,) = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == name]
+    t0, t1 = region["ts"], region["ts"] + region["dur"]
+    host = [dict(e, self=e["dur"]) for e in events if e.get("ph") == "X" and t0 <= e["ts"]
+            and e["ts"] + e["dur"] <= t1 and e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver")]
+    for tid in {e["tid"] for e in host}:
+        stack = []
+        for e in sorted((e for e in host if e["tid"] == tid), key=lambda e: (e["ts"], -e["dur"])):
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+                stack.pop()
+            if stack:
+                stack[-1]["self"] -= e["dur"]
+            stack.append(e)
+    api = [e for e in host if e["cat"] != "cpu_op"]
+    launch = {e["args"]["correlation"] for e in api if "LaunchKernel" in e["name"]}
+    corr = {e["args"]["correlation"] for e in api}
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and e.get("args", {}).get("correlation") in corr]
+    kernels = {e["args"]["correlation"] for e in dev if e["cat"] == "kernel"}
+    ms = lambda es: sum(e["self"] for e in es) / 1e3  # noqa: E731
+    return {"launch_api_ms": ms(e for e in api if "LaunchKernel" in e["name"]), "launches": len(launch),
+            "sync_api_ms": ms(e for e in api if "Synchronize" in e["name"] or "Memcpy" in e["name"]),
+            "aten_cpu_ms": ms(e for e in host if e["cat"] == "cpu_op" and e["name"].startswith("aten::")),
+            "device_busy_ms": sum(e["dur"] for e in dev) / 1e3, "kernels": len(kernels),
+            "dropped": len(launch - kernels)}
+
+
+def scripts_click_split(card: str) -> None:
+    """The profiler's reading of where a host-bound path's time goes: one
+    variance click (8 Z steps) of the flagship editor at LR 64, in an
+    ``annotate`` region of a ``trace`` that a click outside the region opens
+    (the first kernels of a trace can go missing from it): CUDA launch calls,
+    waits and aten ops' CPU time against the wall and the device's busy time,
+    read from the region's events, once every launch call in it has its
+    kernel in the trace."""
+    from esr_tpu_torch.explore.session import ExplorationSession
+    from esr_tpu_torch.utils.profiler import annotate, trace
+
+    opt = {"network_G": {"nf": NF, "nb": NB, "gc": GC, "num_latent_channels": NZ}, "scale": SCALE, "bf16": True}
+    g = define_G(opt, device="cuda", seed=0)
+    lr = np.random.default_rng(0).random((64, 64, 3)).astype(np.float32)
+    sess = ExplorationSession(g, make_cem(CEMConf(scale=SCALE), device="cuda"), lr, n_steps=8)
+    sess.select_rect(0, 0, 40, 40)
+    sess.increase_variance()  # the first click at this bucket
+    t0 = time.perf_counter()
+    sess.increase_variance()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="trace_click_") as log_dir:
+        with trace(log_dir):
+            sess.increase_variance()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with annotate("variance_click"):
+                sess.increase_variance()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = json.loads((Path(log_dir) / "trace.json").read_text())["traceEvents"]
+    split = span_split(events, "variance_click")
+    check(split["launches"] > 0 and split["dropped"] == 0 and split["kernels"] == split["launches"],
+          f"phase 12 click trace: every launch call of the annotated click has its kernel in the trace "
+          f"({split['kernels']} kernels, {split['launches']} launch calls, {split['dropped']} dropped)")
+    print(f"phase 12 host split, one variance click (8 Z steps, LR 64, region 10 LR) on {card}: {plain_ms:.2f} ms "
+          f"without the profiler, {wall_ms:.2f} ms under it: {split}; device idle "
+          f"{100 - 100 * split['device_busy_ms'] / plain_ms:.1f}% of the unprofiled click", flush=True)
+
+
+def scripts_ladder() -> tuple[dict, dict]:
+    """The precision ladder in one process on the seeded flagship: bf16
+    kernels' PSNR against the f32 oracle at most PSNR_MARGIN_DB below the
+    bf16 plain path's, the f32 kernels within F32_TOL of the oracle."""
+    from esr_tpu_torch.scripts import precision_ladder
+
+    t0 = time.perf_counter()
+    out, counts, _ = counted(lambda: precision_ladder.run_variants(None, device="cuda"), ALL_COUNTERS)
+    m = {v: precision_ladder.metrics(out[v], out["f32_plain"]) for v in ("bf16_kernels", "bf16_plain", "f32_kernels")}
+    check(m["bf16_kernels"]["psnr_db"] >= m["bf16_plain"]["psnr_db"] - PSNR_MARGIN_DB,
+          f"phase 12 precision_ladder (seeded flagship, LR 64 x 48): bf16 kernels {m['bf16_kernels']['psnr_db']:.3f} dB "
+          f"against f32_plain, bf16 plain {m['bf16_plain']['psnr_db']:.3f} dB (margin {PSNR_MARGIN_DB} dB)")
+    check(m["f32_kernels"]["max"] <= F32_TOL,
+          f"phase 12 precision_ladder: f32 kernels max err {m['f32_kernels']['max']:.3g} <= {F32_TOL} from f32_plain")
+    print(f"phase 12 precision_ladder: 4 variants in {time.perf_counter() - t0:.2f} s; {m}", flush=True)
+    return split_counts(counts)
+
+
+def scripts_parity(tmp: Path, pth: str) -> dict:
+    """``parity_eval`` (f32, TF32 off) on two 1/f PNGs: the seed-0 flagship
+    ``.pth`` in the reference's old key layout gives the new layout's PSNR."""
+    from esr_tpu_torch.scripts import parity_eval, precision_ladder
+
+    hr_dir = tmp / "parity_hr"
+    for i, (h, w) in enumerate(PARITY_HR):
+        save_img((precision_ladder.one_over_f_image(h, w, seed=20 + i) * 255).round().astype(np.uint8),
+                 str(hr_dir / f"img{i}.png"))
+    old = tmp / "G_old_layout.pth"
+    torch.save({"state_dict": old_layout(torch.load(pth, map_location="cpu", weights_only=True))}, old)
+    reports, f32 = {}, {}
+    for name, path in (("new", pth), ("old", str(old))):
+        t0 = time.perf_counter()
+        reports[name], counts, _ = counted(lambda p=path, n=name: parity_eval.run_parity_eval(
+            p, str(hr_dir), out=str(tmp / f"parity_{n}.json"), device="cuda"), ALL_COUNTERS)
+        bf16, f32 = split_counts(counts)
+        check(not any(bf16.values()) and f32["rdb5c_simt_f32"] == 2 * 3 * NB and f32["conv_f32_kernel"] > 0,
+              f"phase 12 parity_eval ({name} layout): the f32 route, {f32}; no bf16 launch {bf16}")
+        print(f"phase 12 parity_eval ({name} layout): {time.perf_counter() - t0:.2f} s, {reports[name]}", flush=True)
+    d = abs(reports["old"]["psnr"] - reports["new"]["psnr"])
+    check(d <= 1e-3 and np.isfinite(reports["new"]["psnr"]) and reports["old"]["num_latent_channels"] == NZ,
+          f"phase 12 parity_eval: old-layout PSNR {reports['old']['psnr']} == new-layout {reports['new']['psnr']} "
+          f"(|d| {d:.3g} <= 1e-3 dB), Z channels read from conv_first: {reports['old']['num_latent_channels']}")
+    return f32
+
+
+@torch.no_grad()
+def scripts_probes(card: str) -> None:
+    """The int8 / FP8 probe at one conv shape (and the 8192^3 matmul), and the
+    RDB kernel under tile hints at the DIV2K eval shape."""
+    from esr_tpu_torch.ops import int8_probe
+    from esr_tpu_torch.ops.cuda import tiled_probe
+
+    t0 = time.perf_counter()
+    res = int8_probe.run_probes(shapes=((64, 320),), device="cuda")
+    print(f"phase 12 int8_probe on {card} ({time.perf_counter() - t0:.2f} s): {json.dumps(res)}", flush=True)
+    errs = {k: v for k, v in res.items() if k.endswith("_max_rel_err")}
+    check(all(v > 0 for k, v in res.items() if k.endswith("_tfs")) and errs["bf16_conv_64x320_max_rel_err"] <= 2.0**-6
+          and all(np.isfinite(v) and v <= 0.25 for v in errs.values()),
+          f"phase 12 int8_probe: every rate positive, bf16 im2col GEMM within 2^-6 of the f32 conv, int8 / FP8 "
+          f"errors finite and below 0.25 of its largest value: {errs}")
+    t0 = time.perf_counter()
+    res = tiled_probe.run_tiled_probe(device="cuda")
+    print(f"phase 12 tiled_probe on {card} ({time.perf_counter() - t0:.2f} s): {json.dumps(res)}", flush=True)
+    errs = list(res["max_abs_err"].values())
+    check(res["same_output"] and max(errs) <= 0.125,
+          f"phase 12 tiled_probe: the tensor-core RDB kernel gives one answer under every tile hint, max err "
+          f"{max(errs):.4g} <= 0.125 from the bf16 plain block")
+
+
+def phase_scripts(tmp: Path, pth: str, card: str) -> tuple[dict, dict]:
+    """Phase 12: the scripts, the profiler, the probes and the port's entry
+    point. Returns the launches of the bf16 kernels by path and of the f32
+    route by path."""
+    from esr_tpu_torch.graft_entry import entry
+    from esr_tpu_torch.scripts import ensemble_bench, explore_bench, quickstart
+
+    t_phase = time.perf_counter()
+    paths, f32_paths = {}, {}
+    fn, (lr, z) = entry(device="cuda")
+    out, paths["entry"], secs = counted(lambda: fn(lr, z))
+    check_launches("phase 12 graft_entry.entry() forward, B2 x LR 64", paths["entry"], 1)
+    res = max_err(make_cem(CEMConf(scale=SCALE), device=lr.device).downsample(out), lr)
+    check(tuple(out.shape) == (2, 256, 256, 3) and bool(torch.isfinite(out).all()) and res <= CEM_TOL,
+          f"phase 12 entry(): SR {tuple(out.shape)} finite, CEM residual {res:.3g} <= {CEM_TOL} ({secs:.3f} s "
+          "with the first call)")
+    paths["trace"] = scripts_trace(tmp, fn, lr, z, card)
+    del fn, out
+    scripts_click_split(card)
+
+    line, paths["explore_bench"], secs = counted(lambda: explore_bench.main(SCRIPTS_EXPLORE + ["--device", "cuda"]))
+    check(line["platform"] == torch.cuda.get_device_name(0),
+          f"phase 12 explore_bench: platform {line['platform']!r} is the device's name")
+    click = line["clicks"][0]
+    check(all(paths["explore_bench"].values()) and click["click_s"] > 0 and line["render_s"]["repeat"] > 0,
+          f"phase 12 explore_bench ({' '.join(SCRIPTS_EXPLORE)}): {secs:.2f} s, launches {paths['explore_bench']}, "
+          f"first click {click['first_s']:.3f} s, repeat {click['click_s']:.3f} s, {click['steps_per_s']:.1f} Z "
+          f"steps/s, render {line['render_s']['repeat']:.4f} s on {card}")
+
+    line, paths["ensemble_bench"], secs = counted(lambda: ensemble_bench.main(["--n", "2", "--device", "cuda"]))
+    check(all(paths["ensemble_bench"].values()) and line["cost_factor"] > 1
+          and max(line["plain"]["cem_residual"], line["ensemble"]["cem_residual"]) <= CEM_TOL
+          and np.isfinite(line["psnr_delta_db"]),
+          f"phase 12 ensemble_bench --n 2: {secs:.2f} s, launches {paths['ensemble_bench']}, x8 PSNR "
+          f"{line['psnr_delta_db']:+.4f} dB, SSIM {line['ssim_delta']:+.5f}, plain {line['plain']['mp_per_s']:.3f} "
+          f"/ x8 {line['ensemble']['mp_per_s']:.3f} HR MP/s (cost x{line['cost_factor']:.3f}) on {card}")
+
+    paths["ladder"], f32_paths["ladder"] = scripts_ladder()
+    f32_paths["parity_eval"] = scripts_parity(tmp, pth)
+
+    qs_root = tmp / "quickstart"
+    edited, counts, secs = counted(lambda: quickstart.main(["--root", str(qs_root), "--niter", "4",
+                                                            "--device", "cuda"]), ALL_COUNTERS)
+    bf16, f32_paths["quickstart"] = split_counts(counts)
+    check(Path(edited).exists() and (qs_root / "experiments" / "quickstart" / "models" / "latest_G.pth").exists()
+          and f32_paths["quickstart"]["conv_f32_kernel"] > 0,
+          f"phase 12 quickstart --niter 4 (toy net nf 8, f32): trained, evaluated, edited in {secs:.2f} s; "
+          f"f32 route {f32_paths['quickstart']}, bf16 {bf16}")
+    scripts_probes(card)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths, f32_paths
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
@@ -2883,15 +3192,19 @@ def main() -> int:
         by_path["explore"] = phase_explore(tmp, pth)
         by_path.update(phase_blind(tmp, pth, rows))
         by_path.update(phase_parallel(tmp, pth, env["card"], bands))
+        script_paths, f32_paths = phase_scripts(tmp, pth, env["card"])
+        by_path.update(script_paths)
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:
         if r["name"] == "conv_f32":  # the f32 route's main path is the f32 forward (phase 5)
             counts = {k: v for k, v in f32_forward["launches"].items() if k in F32_PER_FORWARD}
-            r.update(launches=counts["conv_f32_kernel"], launches_by_path={"f32_forward": counts},
+            r.update(launches=counts["conv_f32_kernel"], launches_by_path={"f32_forward": counts, **f32_paths},
                      **{k: f32_forward[k] for k in ("ms", "plain_ms", "kernel_device_ms", "tf32_control_err")})
             r["max_abs_err"] = max(r["max_abs_err"], f32_forward["max_abs_err"])
             check(all(counts.values()), f"conv_f32 launched on the f32 forward's every counter: {counts}")
+            check(all(c["conv_f32_kernel"] for c in f32_paths.values()),
+                  f"conv_f32_kernel launched on every f32 path of phase 12: {f32_paths}")
             continue
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

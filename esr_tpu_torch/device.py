@@ -12,13 +12,18 @@ __all__ = ["full_f32", "resolve_device"]
 
 @contextlib.contextmanager
 def full_f32(deterministic: bool = False):
-    """cuDNN convs in full f32 inside (TF32 off, whatever the caller's global
-    setting), and only cuDNN's deterministic algorithms where
-    ``deterministic``; the caller's cuDNN flags are restored after."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=deterministic or cudnn.deterministic, allow_tf32=False):
-        yield
+    """Full f32 inside: TF32 off in cuDNN convs and in matmuls, whatever the
+    caller's global settings, and only cuDNN's deterministic algorithms where
+    ``deterministic``; the caller's flags are restored after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=deterministic or cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

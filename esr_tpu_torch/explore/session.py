@@ -27,6 +27,7 @@ import torch
 
 from esr_tpu_torch.explore import objectives as obj
 from esr_tpu_torch.explore.z_optimizer import ZOptimizer, bucket_crop
+from esr_tpu_torch.models.networks import normalize_rrdb_keys
 
 __all__ = ["ExplorationSession"]
 
@@ -72,9 +73,10 @@ class ExplorationSession:
         return self.cem.project(raw, lr) if self.cem is not None else raw
 
     def set_generator_weights(self, state_dict: dict) -> None:
-        """Load new generator weights (strictly) and rebuild the kernels'
-        layouts from them; the cached SR is dropped."""
-        self.g.load_state_dict(state_dict, strict=True)
+        """Load new generator weights (strictly; either reference key layout,
+        ``normalize_rrdb_keys``) and rebuild the kernels' layouts from them;
+        the cached SR is dropped."""
+        self.g.load_state_dict(normalize_rrdb_keys(state_dict), strict=True)
         self.g.requires_grad_(False)
         self.g.release_kernels()
         self.g.prepare_kernels()

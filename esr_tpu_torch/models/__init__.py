@@ -6,6 +6,8 @@ from esr_tpu_torch.models.networks import (
     define_G,
     discriminator_state_dict_from_jax,
     kernelgan_state_dict_from_jax,
+    normalize_rrdb_keys,
+    rrdb_options_from_state,
     srresnet_state_dict_from_jax,
     state_dict_from_jax,
     vgg_state_dict_from_jax,

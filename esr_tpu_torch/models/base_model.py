@@ -28,6 +28,7 @@ from torch import nn
 import esr_tpu_torch.parallel as P
 from esr_tpu_torch.data.util import parse_size
 from esr_tpu_torch.models.architecture import RRDBNet
+from esr_tpu_torch.models.networks import normalize_rrdb_keys
 from esr_tpu_torch.ops.color import tensor2img, to_uint8
 from esr_tpu_torch.ops.ensemble import make_self_ensemble
 from esr_tpu_torch.parallel import comm
@@ -369,16 +370,19 @@ class BaseModel:
 
     def load_network(self, path: str) -> None:
         """Load a torch ``.pth`` state dict with the reference ESRGAN keys
-        into the generator, strictly: the file
-        ``esr_tpu/scripts/export_torch_weights.py`` writes from a JAX
-        checkpoint. The kernels' weight layouts built from the old weights
-        are dropped, and an eval forward is rebuilt on the new ones."""
+        into the generator, strictly: the file this port's ``save_network``
+        or ``esr_tpu/scripts/export_torch_weights.py`` writes, or a released
+        reference ``*_G.pth`` in either of its key layouts
+        (``networks.normalize_rrdb_keys``). The kernels' weight layouts built
+        from the old weights are dropped, and an eval forward is rebuilt on
+        the new ones."""
         if os.path.isdir(path):
             raise ValueError(
                 f"{path} is a directory (an orbax checkpoint of the JAX package?); the port loads a "
                 "torch .pth state dict — convert it with `python -m esr_tpu.scripts.export_torch_weights "
                 f"--kind rrdb --ckpt {path} --out G.pth`")
-        self._load_state(self.g_module, torch.load(path, map_location=self.device, weights_only=True))
+        state = normalize_rrdb_keys(torch.load(path, map_location=self.device, weights_only=True))
+        self._load_state(self.g_module, state)
         self.g_module.release_kernels()
         if getattr(self, "_forward", None) is not None:
             self._forward = self._make_forward()

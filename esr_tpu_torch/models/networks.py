@@ -5,7 +5,8 @@ feature extractor from the reference options dict; ``state_dict_from_jax``,
 ``srresnet_state_dict_from_jax``, ``discriminator_state_dict_from_jax``,
 ``vgg_state_dict_from_jax`` and ``kernelgan_state_dict_from_jax`` turn the
 JAX package's param trees into the port's state_dicts (the reference torch
-keys where there are any)."""
+keys where there are any); ``normalize_rrdb_keys`` reads the reference's
+released generator files (both of its key layouts)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ __all__ = [
     "define_G",
     "discriminator_state_dict_from_jax",
     "kernelgan_state_dict_from_jax",
+    "normalize_rrdb_keys",
+    "rrdb_options_from_state",
     "srresnet_state_dict_from_jax",
     "state_dict_from_jax",
     "vgg_state_dict_from_jax",
@@ -99,6 +102,57 @@ def define_F(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> V
     (``path.pretrain_model_F``, loaded by the trainer)."""
     layer = int((opt.get("train") or {}).get("feature_layer") or 34)
     return VGG19FeatureExtractor(feature_layer=layer, dtype=_dtype(opt), seed=seed).to(resolve_device(device))
+
+
+# the reference's old RRDBNet layout: model.0 conv_first, model.1.sub.{i} the
+# RRDBs (and trunk_conv, the last sub), model.3 / 6 / 8 / 10 the convs after it
+_OLD_RRDB_NAMES = {"0": "conv_first", "3": "upconv1", "6": "upconv2", "8": "HRconv", "10": "conv_last"}
+# a conv inside Sequential(conv, LeakyReLU) carries a '.0' (the reference's RDB convs)
+_SEQ_CONV = re.compile(r"^(conv_first|trunk_conv|upconv\d+|HRconv|conv_last|RRDB_trunk\.\d+\.RDB\d\.conv\d)"
+                       r"\.0\.(weight|bias)$")
+
+
+def normalize_rrdb_keys(state: dict) -> dict:
+    """A torch ESRGAN generator state dict in the keys this port's RRDBNet
+    loads: a ``{"state_dict": ...}`` wrapper unwrapped; the reference's old
+    layout (``model.0`` / ``model.1.sub.{i}.RDB{j}.conv{k}`` / the last
+    ``model.1.sub.{nb}`` / ``model.3`` / ``model.6`` / ``model.8`` /
+    ``model.10``) renamed to ``conv_first`` / ``RRDB_trunk.{i}.RDB{j}.conv{k}``
+    / ``trunk_conv`` / ``upconv1`` / ``upconv2`` / ``HRconv`` / ``conv_last``
+    (the JAX package's ``_normalize_rrdb_keys``); the ``.0`` of a conv inside
+    ``Sequential(conv, LeakyReLU)`` (``conv{k}.0.weight``) dropped. Other keys
+    pass as they are, so a strict load still refuses an unknown or missing
+    one; two keys that name the same parameter raise ``ValueError``."""
+    if isinstance(state.get("state_dict"), dict):
+        state = state["state_dict"]
+    out = {}
+    for key, v in state.items():
+        new = key
+        m = re.match(r"model\.1\.sub\.(\d+)\.(.+)$", key)
+        if m:
+            new = (f"RRDB_trunk.{m[1]}." if m[2].startswith("RDB") else "trunk_conv.") + m[2]
+        else:
+            m = re.match(r"model\.(\d+)\.(.+)$", key)
+            if m and m[1] in _OLD_RRDB_NAMES:
+                new = f"{_OLD_RRDB_NAMES[m[1]]}.{m[2]}"
+        new = _SEQ_CONV.sub(r"\1.\2", new)
+        if new in out:
+            raise ValueError(f"{key} and another key both name {new}")
+        out[new] = v
+    return out
+
+
+def rrdb_options_from_state(state: dict) -> dict:
+    """The ``network_G`` block of the RRDBNet whose state dict (this port's
+    keys, :func:`normalize_rrdb_keys`) is ``state``: widths, depth and the Z
+    channels (``conv_first``'s input beyond RGB). The scale is not in the
+    weights (x2 and x3 have the same convs), so it is the caller's."""
+    first = state["conv_first.weight"]
+    blocks = {int(m[1]) for k in state if (m := re.match(r"RRDB_trunk\.(\d+)\.", k))}
+    proj = any(k.startswith("latent_proj.") for k in state)
+    return {"which_model_G": "RRDB_net", "in_nc": 3, "out_nc": int(state["conv_last.weight"].shape[0]),
+            "nf": int(first.shape[0]), "nb": len(blocks), "gc": int(state["RRDB_trunk.0.RDB1.conv1.weight"].shape[0]),
+            "num_latent_channels": int(first.shape[1]) - 3, "latent_input": "all_layers" if proj else "first_layer"}
 
 
 def _conv_entries(name: str, conv: dict) -> dict:

@@ -44,6 +44,7 @@ from esr_tpu_torch.device import resolve_device
 
 __all__ = [
     "Group",
+    "any_rank",
     "broadcast_from",
     "fan_out",
     "gather",
@@ -129,12 +130,12 @@ def _check(x: torch.Tensor, g: Group, what: str) -> None:
         raise RuntimeError(f"{what}: the nccl backend cannot run a collective on a {x.device} tensor")
 
 
-def _all_reduce(x: torch.Tensor, g: Group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, g: Group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     if g.size == 1:
         return x
     _check(x, g, "all_reduce")
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=g.pg)
+    dist.all_reduce(y, op=op, group=g.pg)
     return y
 
 
@@ -216,6 +217,32 @@ def broadcast_from(x: torch.Tensor, src: int, g: Group) -> torch.Tensor:
         return x
     x = x.detach()
     return _all_reduce(x if g.index == src else torch.zeros_like(x), g)
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` is set on any rank of the world, the same answer on
+    every rank; the flag itself without a process group. Collective. An
+    ``all_reduce`` MAX of a CPU tensor over gloo (the world's group, or a gloo
+    group of the world made at the first call under NCCL): it waits for the
+    peers' flags, not for the device work that the rank has queued."""
+    rank, size = world()
+    if size == 1:
+        return bool(flag)
+    x = torch.tensor([float(bool(flag))])
+    return bool(_all_reduce(x, Group(size, rank, _host_group()), op=dist.ReduceOp.MAX).item())
+
+
+_HOST_GROUP: list = [None, None]  # [the default group it serves, a gloo group of the world]
+
+
+def _host_group():
+    """A process group of the world that runs CPU tensors: None (the default
+    group) under gloo, else a gloo group made once per default group."""
+    if dist.get_backend() == "gloo":
+        return None
+    if _HOST_GROUP[0] is not dist.group.WORLD:
+        _HOST_GROUP[:] = [dist.group.WORLD, dist.new_group(backend="gloo")]
+    return _HOST_GROUP[1]
 
 
 def _child(rank: int, world_size: int, store: str, backend: str, threads: int, fn, args, out: str) -> None:

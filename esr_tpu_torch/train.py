@@ -9,9 +9,10 @@ Parse the options, seed, build the loaders and the model, then per step
 ``<iter>_D.pth``, ``<iter>.state``). ``--auto_resume`` continues from the
 newest training state and replays the data stream from there
 (``set_position``); SIGTERM (a preemption notice) finishes the step in
-flight, saves the networks and the training state, and exits cleanly. The
-watchdog (on unless ``train.watchdog: false``) exits 86 when steps stop
-coming. ``train.steps_per_dispatch`` is accepted and ignored: the JAX
+flight, saves the networks and the training state, and exits cleanly (under
+a process group, every rank stops after the first step at which any rank
+has seen it). The watchdog (on unless ``train.watchdog: false``) exits 86
+when steps stop coming. ``train.steps_per_dispatch`` is accepted and ignored: the JAX
 package folds that many steps into one program to save TPU dispatches, the
 port runs every step alone (the same trajectory). Runs on CUDA unless
 ``--device cpu``.
@@ -59,7 +60,8 @@ def main(argv=None) -> None:
     device = comm.init_from_env(opt, args.device)
 
     # SIGTERM (preemption) sets a flag: the loop finishes the step in flight,
-    # saves, and returns. Installed before the model is built.
+    # saves, and returns. Installed before the model is built. The loop keeps
+    # the ranks' agreed decision apart, in "stop": nothing writes over the flag.
     preempted = {"flag": False}
 
     def _on_sigterm(signum, frame):  # noqa: ARG001
@@ -73,6 +75,7 @@ def main(argv=None) -> None:
 
 
 def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
+    preempted["stop"] = False
     resume_path = opt["path"].get("resume_state")
     if auto_resume and not resume_path:
         resume_path = BaseModel.latest_state_path(opt["path"]["training_state"])
@@ -138,7 +141,7 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
     try:
         for epoch in range(start_epoch, total_epochs + 1):
             for batch in train_loader:
-                if current_step >= niter or preempted["flag"]:
+                if current_step >= niter or _stop_requested(preempted):
                     break
                 model.feed_data(batch)
                 current_step += 1
@@ -161,10 +164,10 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
                     logger.info(f"checkpoint saved @ iter {current_step}")
                     if wd is not None:
                         wd.beat(count=False)
-            if current_step >= niter or preempted["flag"]:
+            if current_step >= niter or _stop_requested(preempted):
                 break
         model.save("latest")
-        if preempted["flag"]:
+        if preempted["stop"]:
             model.save_training(epoch, current_step)
             logger.info(f"preempted (SIGTERM) — state saved @ iter {current_step}; "
                         "rerun with --auto_resume to continue")
@@ -174,6 +177,16 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
     finally:
         if wd is not None:
             wd.stop()
+
+
+def _stop_requested(preempted: dict) -> bool:
+    """Whether any rank's preemption flag is up (``comm.any_rank``), so that
+    every rank stops after the same step and saves with the others: a
+    launcher's SIGTERM reaches the ranks at different times. The decision goes
+    to ``preempted["stop"]``; a flag raised while the ranks agree is seen at
+    the next check. Collective."""
+    preempted["stop"] = comm.any_rank(preempted["flag"])
+    return preempted["stop"]
 
 
 def validate(model, val_loader, opt, step=None) -> dict:

@@ -1,5 +1,5 @@
-"""Logging setup, directory helpers and seeding (port of the parts of
-esr_tpu/utils/util.py the CLIs use)."""
+"""Logging setup, directory helpers, seeding and a console progress bar
+(port of esr_tpu/utils/util.py)."""
 
 from __future__ import annotations
 
@@ -8,12 +8,13 @@ import os
 import random
 import shutil
 import sys
+import time
 from datetime import datetime
 
 import numpy as np
 import torch
 
-__all__ = ["get_timestamp", "mkdir_and_rename", "mkdirs", "set_random_seed", "setup_logger"]
+__all__ = ["ProgressBar", "get_timestamp", "mkdir_and_rename", "mkdirs", "set_random_seed", "setup_logger"]
 
 
 def get_timestamp() -> str:
@@ -70,3 +71,26 @@ def setup_logger(
         sh.setFormatter(formatter)
         lg.addHandler(sh)
     return lg
+
+
+class ProgressBar:
+    """Minimal console progress bar with a throughput estimate."""
+
+    def __init__(self, task_num: int = 0, bar_width: int = 40):
+        self.task_num = task_num
+        self.bar_width = bar_width
+        self.completed = 0
+        self.start_time = time.time()
+
+    def update(self, msg: str = "") -> None:
+        self.completed += 1
+        fps = self.completed / max(time.time() - self.start_time, 1e-9)
+        if self.task_num:
+            marks = int(self.bar_width * self.completed / self.task_num)
+            bar = ">" * marks + "-" * (self.bar_width - marks)
+            sys.stdout.write(f"\r[{bar}] {self.completed}/{self.task_num}, {fps:.1f} it/s {msg}")
+        else:
+            sys.stdout.write(f"\rcompleted: {self.completed}, {fps:.1f} it/s {msg}")
+        sys.stdout.flush()
+        if self.task_num and self.completed == self.task_num:
+            sys.stdout.write("\n")

@@ -740,3 +740,56 @@ def test_cuda_parallel_axes_on_the_kernels(parallel_axes, axis):
             np.testing.assert_array_equal(out, whole)
         else:
             assert np.abs(out - whole).max() <= 2.0**-6 * np.abs(whole).max(), np.abs(out - whole).max()
+
+
+@pytest.mark.cuda
+def test_cuda_old_layout_checkpoint_loads_on_the_card(cuda, tmp_path):
+    """A generator file in the reference's old key layout (``model.N``, the
+    RDB convs' ``.0``) loads strictly through ``load_network`` onto the card
+    and gives, through the bf16 kernels, the same SR bit for bit as the file
+    with the port's keys."""
+    import re
+
+    from esr_tpu_torch.models import create_model, define_G
+    from esr_tpu_torch.options import parse
+
+    net = {"which_model_G": "RRDB_net", "nf": 64, "nb": 2, "gc": 32, "num_latent_channels": 1}
+    state = define_G({"network_G": net, "scale": 4}, device="cpu", seed=4).state_dict()
+    names = {"conv_first": "model.0", "trunk_conv": "model.1.sub.2", "upconv1": "model.3", "upconv2": "model.6",
+             "HRconv": "model.8", "conv_last": "model.10"}
+    old = {}
+    for k, v in state.items():
+        base, leaf = k.rsplit(".", 1)
+        m = re.match(r"RRDB_trunk\.(\d+)\.(.+)$", base)
+        old[(f"model.1.sub.{m[1]}.{m[2]}.0" if m else names[base]) + "." + leaf] = v
+    srs = []
+    for name, st in (("new", state), ("old", old)):
+        pth = str(tmp_path / f"{name}.pth")
+        torch.save(st, pth)
+        opt = parse({"model": "sr", "scale": 4, "use_cem": True, "bf16": True, "network_G": net,
+                     "path": {"pretrain_model_G": pth}}, is_train=False)
+        model = create_model(opt, device=cuda)
+        model.feed_data({"LR": np.random.default_rng(0).random((24, 20, 3), dtype=np.float32)})
+        before = rdb_conv.LAUNCHES.count
+        model.test()
+        srs.append(model.get_current_visuals()["SR"])
+        assert rdb_conv.LAUNCHES.count - before == 6
+    np.testing.assert_array_equal(srs[0], srs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_graft_entry_runs_the_flagship_on_the_kernels(cuda):
+    """``graft_entry.entry()``'s forward on its example arguments: 69 / 4 / 2
+    launches (rdb5c / conv3x3 / upsample), a CEM residual of at most 1e-5,
+    finite SR of B2 x 256 x 256."""
+    from esr_tpu_torch.cem import CEMConf, make_cem
+    from esr_tpu_torch.graft_entry import entry
+
+    fn, (lr, z) = entry()
+    counters = (rdb_conv.LAUNCHES, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP)
+    before = [c.count for c in counters]
+    out = fn(lr, z)
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [69, 4, 2]
+    assert tuple(out.shape) == (2, 256, 256, 3) and bool(torch.isfinite(out).all())
+    assert (make_cem(CEMConf(scale=4), device=cuda).downsample(out) - lr).abs().max().item() <= 1e-5

@@ -51,7 +51,8 @@ def test_eval_forward_matches_jax():
 
 def test_port_imports_no_jax_and_no_esr_tpu():
     """Importing every module of esr_tpu_torch pulls in neither jax nor esr_tpu
-    (a subprocess: this test process has imported both already)."""
+    (a subprocess: this test process has imported both already); all 78 of its
+    modules are walked, so one dropped from the walk is noticed."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import esr_tpu_torch\n"
@@ -61,7 +62,7 @@ def test_port_imports_no_jax_and_no_esr_tpu():
         "m.startswith(('jax.', 'flax.', 'esr_tpu.')))\n"
         "n = sum(1 for m in sys.modules if m.startswith('esr_tpu_torch'))\n"
         "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 15 else 0)\n"
+        "sys.exit(1 if bad or n < 78 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)

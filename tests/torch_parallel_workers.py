@@ -1,11 +1,15 @@
 """The rank side of the parallel-axes tests (tests/test_torch_parallel*.py,
 tests/test_torch_multihost.py): functions that ``comm.spawn`` runs on each
-rank of a gloo process group on the CPU. They import torch and the port
-only; the test modules compute the JAX side and pass weights and inputs in
+rank of a gloo process group on the CPU (with the package's own rank side,
+``esr_tpu_torch/parallel/ranks.py``: building G and the GAN trainer's
+steps). They import torch and the port only; the test modules compute the JAX side and pass weights and inputs in
 as numpy arrays (state dicts bridged from JAX), and get numpy results back.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -13,16 +17,7 @@ import torch
 from esr_tpu_torch.models.architecture import RRDBNet
 from esr_tpu_torch.parallel import comm
 from esr_tpu_torch.parallel import tensor as ptensor
-
-
-def build(cfg: dict, state: dict) -> RRDBNet:
-    g = RRDBNet(**cfg)
-    g.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
-    return g
-
-
-def t(x):
-    return None if x is None else torch.from_numpy(np.asarray(x))
+from esr_tpu_torch.parallel.ranks import _rows, build, gan_steps, t  # noqa: F401
 
 
 def full_grads(g, grads: dict) -> dict:
@@ -186,62 +181,6 @@ def functions_4(p: dict) -> dict:
     return res
 
 
-def _rows(x, shard):
-    i, n = shard
-    k = x.shape[0] // n
-    return x[i * k : (i + 1) * k]
-
-
-def _recording(opt_):
-    """Keep the gradients ``opt_.step`` is given (after the ranks' reduction)
-    and the global norm its clip reads from them."""
-    seen, norms = [], []
-    step = opt_.step
-
-    def record(grads, lr, sq_sum=None):
-        seen.append([g.detach().clone() for g in grads])
-        sq = sq_sum(grads) if sq_sum is not None else sum(torch.sum(g.float() ** 2) for g in grads)
-        norms.append(float(torch.sqrt(sq)))
-        step(grads, lr, sq_sum)
-
-    opt_.step = record
-    return seen, norms
-
-
-def gan_steps(opt: dict, states: dict, batch: dict, eps: list, steps: int) -> dict:
-    """``steps`` GAN steps of the trainer that ``opt``'s parallel options
-    build, from the given weights, each rank on its rows of the fixed batch
-    (the draws of the WGAN-GP weights handed in, as the global batch's)."""
-    from esr_tpu_torch.models import create_model
-    from esr_tpu_torch.models.base_model import step_keyed
-    from esr_tpu_torch.models.srragan_model import make_gan_train_step
-    from esr_tpu_torch.options import parse
-
-    model = create_model(parse(opt, is_train=True), device="cpu")
-    model._load_state(model.g_module, {k: t(v) for k, v in states["G"].items()})
-    model.d_module.load_state_dict({k: t(v) for k, v in states["D"].items()}, strict=True)
-    model.f_module.load_torchvision({k: t(v) for k, v in states["F"].items()})
-    par = model._par
-    tb = {k: t(v) for k, v in batch.items()}
-    seen, norms = _recording(model.g_opt)
-    step = make_gan_train_step(model.g_module, model.d_module, model.f_module, model.cem,
-                               lambda h, gen, shard=(0, 1): {k: _rows(v, shard) for k, v in tb.items()},
-                               opt["train"], model.g_opt, model.d_opt, model.schedulers["G"],
-                               step_keyed(model.schedulers["D"]), par=par)
-    metrics = []
-    for s in range(1, steps + 1):
-        m = step(None, torch.Generator(), s, gp_eps=_rows(t(eps[s - 1]), par.shard))
-        metrics.append({k: float(v) for k, v in m.items()})
-    g_state = {k: v.numpy() for k, v in model._full_state(model.g_module).items()}
-    names = [n for n, _ in model.g_module.named_parameters()]
-    grads = dict(zip(names, (g.numpy() for g in ptensor.full_param_tensors(model.g_module, seen[0]))))
-    local_trunk = sum(p.numel() for n, p in model.g_module.named_parameters() if n.startswith("RRDB"))
-    moments = sum(m.numel() for n, m in zip(names, model.g_opt.mu) if n.startswith("RRDB"))
-    return {"metrics": metrics, "G": g_state, "D": {k: v.numpy() for k, v in model.d_module.state_dict().items()},
-            "grads": grads, "g_norms": norms, "shard": par.shard, "trunk_numel": local_trunk,
-            "trunk_moments": moments}
-
-
 def sr_steps(opt: dict, state: dict, hr: np.ndarray, steps: int) -> dict:
     """``steps`` SR-trainer steps of the trainer ``opt`` builds, through its
     own pipeline (the draws are the global batch's), each rank fed its rows
@@ -336,3 +275,74 @@ def cuda_axes_2(p: dict) -> dict:
         res[name] = {"out": out.float().cpu().numpy(), "counts": {c.name: c.count for c in counters},
                      "rows": sorted(rows)}
     return res
+
+
+def preempt_runs(runs: list) -> list[list[int]]:
+    """``esr_tpu_torch.train._train`` on this rank for each ``(opt,
+    auto_resume, raise_at)`` of ``runs`` in turn, on the CPU. ``raise_at[rank]``
+    says when this rank's preemption flag goes up, as SIGTERM's handler raises
+    it: ``("step", n)`` when step ``n`` ends; ``("check", n)`` from a thread
+    while the ``n``-th stop check waits in its all-reduce (the flag already
+    read; the other ranks enter that check late, so the wait is real); None,
+    never. Returns the steps each run ran."""
+    from esr_tpu_torch import train as train_cli
+    from esr_tpu_torch.models.sr_model import SRModel
+    from esr_tpu_torch.options import parse
+
+    rank = comm.world()[0]
+    optimize, any_rank = SRModel.optimize_parameters, getattr(comm, "any_rank", None)
+    out = []
+    for opt, auto_resume, raise_at in runs:
+        ran, preempted, checks = [], {"flag": False}, []
+        when, n = (raise_at[rank] if raise_at else None) or (None, None)
+        at = next((r[1] for r in raise_at or () if r and r[0] == "check"), None)
+
+        def step(self, s, ran=ran, preempted=preempted, when=when, n=n):
+            optimize(self, s)
+            ran.append(s)
+            if when == "step" and s == n:
+                preempted["flag"] = True
+
+        def check(flag, checks=checks, preempted=preempted, when=when, at=at):
+            checks.append(flag)
+            if len(checks) != at:
+                return any_rank(flag)
+            if when != "check":
+                time.sleep(0.5)  # the raising rank waits in the all-reduce meanwhile
+                return any_rank(flag)
+            raiser = threading.Timer(0.2, preempted.__setitem__, args=("flag", True))
+            raiser.start()
+            try:
+                return any_rank(flag)
+            finally:
+                raiser.join()
+
+        SRModel.optimize_parameters = step
+        if at is not None:
+            comm.any_rank = check
+        try:
+            train_cli._train(parse(opt, is_train=True), auto_resume, torch.device("cpu"), preempted)
+        finally:
+            SRModel.optimize_parameters = optimize
+            if at is not None:
+                comm.any_rank = any_rank
+        torch.distributed.barrier()  # rank 0 writes the checkpoints the next run reads
+        out.append(ran)
+    return out
+
+
+
+def any_rank_host_group() -> list:
+    """``comm.any_rank`` as under an NCCL world (the default group's backend
+    reported as ``nccl``): rank 1's flag, then no flag, over the gloo group
+    it makes at its first call and keeps. Returns the two answers and whether
+    the second call reused the first call's group."""
+    real = comm.dist.get_backend
+    comm.dist.get_backend = lambda group=None: "nccl" if group is None else real(group)
+    try:
+        first = comm.any_rank(comm.world()[0] == 1)
+        pg = comm._HOST_GROUP[1]
+        second = comm.any_rank(False)
+        return [first, second, pg is not None and comm._HOST_GROUP[1] is pg]
+    finally:
+        comm.dist.get_backend = real
