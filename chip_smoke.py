@@ -138,6 +138,25 @@ Phases (any failure exits non-zero and prints no result):
    new layout's; ``scripts.quickstart --niter 4``; the int8 / FP8 probe at
    one conv shape and the 8192^3 matmul; the RDB kernel under tile hints at
    the DIV2K eval shape (``ops/cuda/tiled_probe``).
+13. many steps in one dispatch: the train steps and the Z step as CUDA
+   graphs (``utils/graphs.py``) against the same steps eagerly, cuDNN
+   deterministic, at full width (B16 x HR 128): (a) the GAN step
+   (train_explorable_SR.json): a chunk of 4 (``optimize_parameters_chunk``,
+   ``steps_per_dispatch`` 4) across an ``lr_steps`` milestone against 4
+   eager steps (G, D, Adam moments and metrics bit for bit, or within phase
+   8's bands), 69 / 4 / 2 launches a replay, a replay's trace holding the
+   kernel events of an eager step, ms per step of the graph, the eager
+   kernel path and the bf16 plain path in turns, the graph's idle share,
+   pool, peak memory and capture seconds; a chunk with ``D_update_ratio`` 2
+   (two graphs); a planted fault (the learning rate a Python float frozen at
+   capture) that the comparison fails; (b) the SR step
+   (train_RRDB_PSNR.json) in short; (c) a 64-step Z search on the 40 x 40
+   selection's crop, graph against eager (trace, Z and best Z), ms per Z
+   step of the three paths, a click with its capture and a repeat click;
+   (d) the train CLI with ``steps_per_dispatch`` 3 against the per-step run
+   (log rows and checkpoints). At most 90 s. With one process, every train
+   step and Z step of the earlier phases is a graph replay too (the first of
+   each shape captures it); phase 11's ranks run eagerly.
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after; phase 11 in each rank). The last line is
@@ -175,11 +194,11 @@ from esr_tpu_torch.device import full_f32
 from esr_tpu_torch.explore import cli as explore_cli
 from esr_tpu_torch.explore import objectives as explore_obj
 from esr_tpu_torch.explore import viewmodel as explore_vm
-from esr_tpu_torch.explore.z_optimizer import bucket_crop, optimize_z
+from esr_tpu_torch.explore.z_optimizer import ZSearch, ZSearchCache, bucket_crop, optimize_z
 from esr_tpu_torch.export import export_servable
 from esr_tpu_torch.models import create_model, define_D, define_G, make_eval_forward
 from esr_tpu_torch.models.architecture import _up_factors
-from esr_tpu_torch.models.base_model import step_keyed
+from esr_tpu_torch.models.base_model import Adam, step_keyed
 from esr_tpu_torch.models.blocks import pixel_shuffle, upsample_nearest
 from esr_tpu_torch.models.srragan_model import make_gan_train_step
 from esr_tpu_torch.ops import tensor2img
@@ -1326,13 +1345,15 @@ def train_csv(tmp: Path, name: str) -> list[dict]:
         return list(csv.DictReader(f))
 
 
-class GradCapture:
-    """Stands in for a trainer's Adam: keeps the gradients, changes nothing."""
+class GradCapture(Adam):
+    """Stands in for a trainer's Adam: keeps the gradients, changes nothing
+    (it counts and stages step scalars as Adam does)."""
 
     def __init__(self, params):
-        self.params, self.count, self.grads = list(params), 0, None
+        super().__init__(params)
+        self.grads = None
 
-    def step(self, grads, lr, sq_sum=None) -> None:  # noqa: ARG002
+    def step(self, grads, lr=None, sq_sum=None) -> None:  # noqa: ARG002
         self.grads = [g.float() for g in grads]
 
 
@@ -1707,18 +1728,33 @@ LAYOUT_COUNTERS = (rdb_conv.LAYOUTS, kpack_conv.LAYOUTS)
 
 class SearchLog:
     """Stands in front of a session's Z optimizer: keeps every search's loss
-    trace (each tool click runs one or more searches)."""
+    trace (each tool click runs one or more searches). ``searching`` is set
+    while a search runs: G's calls there are its Z steps, one each (a graph
+    replay runs no Python, and the capture's call is none), so a forward hook
+    counts only the calls outside (:meth:`hook`)."""
 
     def __init__(self, inner):
-        self.inner, self.traces = inner, []
+        self.inner, self.traces, self.searching = inner, [], False
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
     def __call__(self, *a, **kw):
-        z, losses = self.inner(*a, **kw)
+        self.searching = True
+        try:
+            z, losses = self.inner(*a, **kw)
+        finally:
+            self.searching = False
         self.traces.append(np.asarray(losses))
         return z, losses
+
+    def hook(self, g, forwards: list):
+        """Count ``g``'s calls outside the searches in ``forwards[0]``."""
+        def count(*_):
+            if not self.searching:
+                forwards[0] += 1
+
+        return g.register_forward_hook(count)
 
 
 def explore_session(tmp: Path, pth: str):
@@ -1784,7 +1820,7 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
     log = SearchLog(sess._optimizer)
     sess._optimizer = log
     forwards = [0]
-    hook = g.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    hook = log.hook(g, forwards)
     clicks, text_target = explore_clicks(sess)
     y0, x0, y1, x1 = (v * SCALE for v in EXPLORE_BOX)
     sess.select_rect(y0, x0, y1, x1)
@@ -1837,9 +1873,9 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
         timings.append((what, secs, steps))
     torch.cuda.synchronize()
     counts = {c.name: c.count for c in COUNTERS}
-    n_fwd = forwards[0]
-    hook.remove()
     total_steps = sum(s for _, _, s in timings)
+    n_fwd = forwards[0] + total_steps
+    hook.remove()
     want = {k: v * n_fwd for k, v in EXPECTED_PER_FORWARD.items()}
     check(counts == want and [c.count for c in LAYOUT_COUNTERS] == layouts0,
           f"explore, {len(clicks)} clicks ({total_steps} Z steps, {n_fwd} G calls with the SR renders): launches "
@@ -1923,18 +1959,19 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
     # ms per Z step: the kernel path against the bf16 plain autograd path, in
     # turns, the same search (imprint, 8 steps, the crop)
     paths = {"kernels": sess.forward, "bf16 plain": plain_path(torch.bfloat16)}
+    caches = {k: ZSearchCache() for k in paths}  # each path's search captured once, by its warm-up call
     n_steps = 8
     ms = {k: [] for k in paths}
     for name in ("bf16 plain", "kernels", "kernels", "bf16 plain"):
-        optimize_z(paths[name], lr_c, z_fixed, mask, objective, n_steps=2)
+        optimize_z(paths[name], lr_c, z_fixed, mask, objective, n_steps=2, cache=caches[name])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        optimize_z(paths[name], lr_c, z_fixed, mask, objective, n_steps=n_steps)
+        optimize_z(paths[name], lr_c, z_fixed, mask, objective, n_steps=n_steps, cache=caches[name])
         torch.cuda.synchronize()
         ms[name].append((time.perf_counter() - t0) * 1e3 / n_steps)
     ms_step = {k: statistics.mean(v) for k, v in ms.items()}
     for name, m in ms_step.items():
-        print(f"explore Z step, 64x64 LR crop (HR 256), imprint ({name}): {m:.2f} ms per step "
+        print(f"explore Z step, 64x64 LR crop (HR 256), imprint ({name}, CUDA graph replays): {m:.2f} ms per step "
               f"({', '.join(f'{v:.2f}' for v in ms[name])})", flush=True)
     print(f"explore: kernel path / bf16 plain path: {ms_step['kernels'] / ms_step['bf16 plain']:.3f} of the time per "
           "Z step", flush=True)
@@ -1947,7 +1984,7 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
 
     for name, fwd_fn in paths.items():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            optimize_z(fwd_fn, lr_c, z_fixed, mask, objective, n_steps=4)
+            optimize_z(fwd_fn, lr_c, z_fixed, mask, objective, n_steps=4, cache=caches[name])
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
@@ -2212,7 +2249,7 @@ def blind_explore_checks(tmp: Path, pth: str, lr_png: str) -> dict:
     log = SearchLog(sess._optimizer)
     sess._optimizer = log
     forwards = [0]
-    hook = sess.g.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    hook = log.hook(sess.g, forwards)
     sess.select_rect(28 * SCALE, 28 * SCALE, 68 * SCALE, 68 * SCALE)
     lr = torch.from_numpy(sess.lr_img).to(BLIND_DEVICE)
     sr_before = sess.current_sr().copy()
@@ -2225,6 +2262,7 @@ def blind_explore_checks(tmp: Path, pth: str, lr_png: str) -> dict:
     res = max_err(sess.cem.downsample(torch.from_numpy(sess.current_sr()).to(BLIND_DEVICE)), lr)
     sess.undo()
     restored = np.array_equal(sess.current_sr(), sr_before)
+    forwards[0] += len(trace)  # the search's Z steps
     want = {k: v * forwards[0] for k, v in EXPECTED_PER_FORWARD.items()}
     tol = cem_tol(sess.cem.conf.kernel)
     check(sess.cem._mode == "fft" and trace[-1] < trace[0] and res <= tol and restored and builds == [0, 0]
@@ -2982,7 +3020,8 @@ def scripts_trace(tmp: Path, fn, lr, z, card: str) -> dict:
 
 def span_split(events: list, name: str) -> dict:
     """The host split of one ``annotate`` region of a Chrome trace, from the
-    events inside it: CUDA launch calls, the runtime's synchronising calls
+    events inside it: CUDA launch calls (of kernels and of CUDA graphs, whose
+    kernels carry the graph launch's correlation id), the runtime's synchronising calls
     (waits) and aten ops' own CPU time (each host event less the host events
     directly inside it, per thread); the device work (kernels, copies, sets)
     that the region's runtime calls started, matched by correlation id; and
@@ -3000,13 +3039,14 @@ def span_split(events: list, name: str) -> dict:
                 stack[-1]["self"] -= e["dur"]
             stack.append(e)
     api = [e for e in host if e["cat"] != "cpu_op"]
-    launch = {e["args"]["correlation"] for e in api if "LaunchKernel" in e["name"]}
+    launch = {e["args"]["correlation"] for e in api if "LaunchKernel" in e["name"] or "GraphLaunch" in e["name"]}
     corr = {e["args"]["correlation"] for e in api}
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
            and e.get("args", {}).get("correlation") in corr]
     kernels = {e["args"]["correlation"] for e in dev if e["cat"] == "kernel"}
     ms = lambda es: sum(e["self"] for e in es) / 1e3  # noqa: E731
-    return {"launch_api_ms": ms(e for e in api if "LaunchKernel" in e["name"]), "launches": len(launch),
+    return {"launch_api_ms": ms(e for e in api if "LaunchKernel" in e["name"] or "GraphLaunch" in e["name"]),
+            "launches": len(launch), "graph_launches": sum("GraphLaunch" in e["name"] for e in api),
             "sync_api_ms": ms(e for e in api if "Synchronize" in e["name"] or "Memcpy" in e["name"]),
             "aten_cpu_ms": ms(e for e in host if e["cat"] == "cpu_op" and e["name"].startswith("aten::")),
             "device_busy_ms": sum(e["dur"] for e in dev) / 1e3, "kernels": len(kernels),
@@ -3173,6 +3213,422 @@ def phase_scripts(tmp: Path, pth: str, card: str) -> tuple[dict, dict]:
     return paths, f32_paths
 
 
+# -- phase 13: many steps in one dispatch (CUDA graphs) -------------------------
+
+DISPATCH_CHUNK = 4  # the GAN chunk (steps_per_dispatch 4); lr_steps [3]: it spans a milestone
+DISPATCH_TIMED = 3  # steps a turn in the timing
+Z_STEPS = 64  # the session's steps a search round
+GRAPH_KERNELS = ("rdb5c_tc_kernel", "conv_tc_kernel")
+
+
+def dispatch_models(tmp: Path, json_name: str, n: int = 2, **train) -> list:
+    """``n`` models from the same seeds on the port's copy of ``json_name``
+    (full width, B16 x HR 128); the second and later run eagerly."""
+    opt = train_options(tmp, "dispatch", json_name, None, niter=8, **train)
+    models = [create_model(parse(json.loads(json.dumps(opt)), is_train=True)) for _ in range(n)]
+    for m in models[1:]:
+        m._step_graphs.enabled = False
+    return models
+
+
+def release_memory() -> None:
+    """Free a dropped model's graph pool and cached blocks before the next one."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dispatch_batches(k: int) -> list[dict]:
+    ds = SyntheticDataset({"phase": "train", "n_images": B * k, "image_size": 160, "HR_size": TRAIN_HR})
+    return [{"HR": np.stack([ds[j]["HR"] for j in range(i * B, (i + 1) * B)])} for i in range(k)]
+
+
+def train_tensors(model) -> list[tuple[str, torch.Tensor]]:
+    """A trainer's weights, buffers and Adam moments, by name."""
+    nets = [("G", model.g_module, model.g_opt)]
+    if hasattr(model, "d_module"):
+        nets.append(("D", model.d_module, model.d_opt))
+    out = []
+    for tag, net, opt in nets:
+        out += [(f"{tag}.{k}", v) for k, v in net.state_dict().items()]
+        for key in ("mu", "nu"):
+            out += [(f"{tag}.{key}.{i}", t) for i, t in enumerate(getattr(opt, key))]
+    return out
+
+
+def same_training(a, b, start: dict, bands: dict) -> tuple[bool, str]:
+    """Two trainers after the same steps: (held, what): bit for bit, or else
+    every G weight's update within phase 8's gradient band of the other's
+    (relative L2; D's and the moments within the widest), and the last step's
+    metrics within its loss bands."""
+    ta, tb = train_tensors(a), train_tensors(b)
+    la, lb = a.get_current_losses(), b.get_current_losses()
+    if la == lb and all(torch.equal(x, y) for (_, x), (_, y) in zip(ta, tb)):
+        return True, "bit for bit"
+    if bands is None:  # phase 13 alone: no phase 8 bands to fall back on
+        return False, "not bit for bit (no phase 8 bands in this run)"
+    widest = max(bands["grads"].values())
+    worst = 0.0
+    for (name, x), (_, y) in zip(ta, tb):
+        if not x.is_floating_point() or torch.equal(x, y):
+            continue
+        x0 = start.get(name)
+        ux, uy = (x - x0, y - x0) if x0 is not None else (x, y)
+        worst = max(worst, rel_l2(ux, uy) / bands["grads"].get(name[2:], widest))
+    for k, v in lb.items():
+        scale = 1.0 if k in ("D_real", "D_fake") else max(abs(v), 1e-12)
+        worst = max(worst, abs(la[k] - v) / scale / bands["losses"].get(k, widest))
+    return worst <= 1.0, f"not bit for bit; worst ratio to phase 8's bands {worst:.3f}"
+
+
+def region_kernels(events: list, name: str) -> dict:
+    """Kernel events of an ``annotate`` region of a Chrome trace by name
+    (matched to the region's launch and graph-launch calls by correlation id)."""
+    (region,) = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == name]
+    t0, t1 = region["ts"], region["ts"] + region["dur"]
+    corr = {e["args"]["correlation"] for e in events if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+            and t0 <= e["ts"] <= t1 and "correlation" in e.get("args", {})}
+    ks = [e for e in events if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in corr]
+    return {k: sum(k in e["name"] for e in ks) for k in GRAPH_KERNELS}
+
+
+def traced(tmp: Path, name: str, warm, fn) -> tuple[dict, dict]:
+    """``fn()`` in an ``annotate`` region of a trace that ``warm()`` opens:
+    its kernel events by name and its host split (``span_split``)."""
+    from esr_tpu_torch.utils.profiler import annotate, trace
+
+    log_dir = tmp / f"trace_{name}"
+    with trace(str(log_dir)):
+        warm()
+        torch.cuda.synchronize()
+        with annotate(name):
+            fn()
+            torch.cuda.synchronize()
+    events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+    return region_kernels(events, name), span_split(events, name)
+
+
+def step_turns(paths: dict, steps, n: int = DISPATCH_TIMED) -> tuple[dict, dict]:
+    """ms per step of each path in turns (a, b, c, c, b, a), ``n`` steps a
+    turn after one untimed; returns (ms by path, each turn's ms)."""
+    names = list(paths)
+    ms = {k: [] for k in names}
+    for name in names + names[::-1]:
+        fn = paths[name]
+        fn(next(steps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(next(steps))
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / n)
+    return {k: statistics.mean(v) for k, v in ms.items()}, ms
+
+
+def frozen_lr_adam():
+    """The planted fault: Adam's update reads the learning rate as the Python
+    float the host computed last, which a CUDA graph freezes at capture."""
+    step, rows = Adam.step, Adam.next_scalars
+
+    def next_scalars(self, lr):
+        self.host_lr = float(lr)
+        return rows(self, lr)
+
+    def frozen_step(self, grads, lr=None, sq_sum=None):
+        if lr is not None:
+            self.stage(lr)
+        keep = [p.clone() for p in self.params]
+        step(self, grads, None, sq_sum)  # the update at the staged scalars, then rescaled to host_lr
+        with torch.no_grad():
+            upd = torch._foreach_sub(keep, self.params)
+            torch._foreach_div_(upd, self.scalars[0])
+            torch._foreach_add_(keep, upd, alpha=-self.host_lr)
+            for p, k in zip(self.params, keep):
+                p.copy_(k)
+
+    return {"step": frozen_step, "next_scalars": next_scalars}
+
+
+def dispatch_gan(tmp: Path, card: str, bands: dict) -> dict:
+    """(a) the GAN step: a chunk of 4 across an lr_steps milestone against 4
+    eager steps, launches, the kernels inside a replay, timing; (b)
+    D_update_ratio 2; (c) the planted frozen-lr fault."""
+    per_forward = EXPECTED_PER_FORWARD
+    batches = dispatch_batches(DISPATCH_CHUNK + 1)
+    graph_m, eager_m = dispatch_models(tmp / "gan", "train_explorable_SR.json", lr_steps=[3])
+    start = {n: t.clone() for n, t in train_tensors(eager_m)}
+    per_step = []
+    for i in range(DISPATCH_CHUNK):
+        eager_m.feed_data(batches[i])
+        _, c, _ = counted(lambda: eager_m.optimize_parameters(i + 1))
+        per_step.append(c)
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    _, chunk_counts, chunk_s = counted(
+        lambda: graph_m.optimize_parameters_chunk(1, train_cli.stack_chunk(batches[:DISPATCH_CHUNK])))
+    pool_gib = (torch.cuda.memory_reserved() - r0) / 2**30
+    held, how = same_training(graph_m, eager_m, start, bands)
+    (graph,) = graph_m._step_graphs.steps
+    check(held and graph_m.step == eager_m.step == DISPATCH_CHUNK,
+          f"phase 13 GAN step B{B} x HR{TRAIN_HR}, full width: a chunk of {DISPATCH_CHUNK} (steps_per_dispatch "
+          f"{DISPATCH_CHUNK}, across the lr_steps milestone at 3) replayed as the step's CUDA graph == "
+          f"{DISPATCH_CHUNK} eager steps from the same state: G, D, Adam moments and the last metrics {how} "
+          f"(l_g {graph_m.get_current_losses()['l_g']:.6f}); chunk {chunk_s:.2f} s with capture "
+          f"{graph.capture_seconds:.2f} s")
+    want = {k: v * DISPATCH_CHUNK for k, v in per_forward.items()}
+    check(chunk_counts == want and all(c == per_forward for c in per_step),
+          f"phase 13 GAN launches: the chunk {chunk_counts} == {want}, each eager step {per_step[0]} == "
+          f"{per_forward} (the graph's replays add what its capture counted)")
+    graph_m.feed_data(batches[DISPATCH_CHUNK])
+    _, replay_counts, _ = counted(lambda: graph_m.optimize_parameters(DISPATCH_CHUNK + 1))
+    check(replay_counts == per_forward, f"phase 13 GAN launches of one replay {replay_counts} == {per_forward}")
+    eager_m.feed_data(batches[DISPATCH_CHUNK])
+    steps = iter(range(DISPATCH_CHUNK + 2, 10**6))
+    k_replay, split = traced(tmp, "gan_replay", lambda: graph_m.optimize_parameters(next(steps)),
+                             lambda: graph_m.optimize_parameters(next(steps)))
+    k_eager, _ = traced(tmp, "gan_eager", lambda: eager_m.optimize_parameters(next(steps)),
+                        lambda: eager_m.optimize_parameters(next(steps)))
+    want_k = {"rdb5c_tc_kernel": per_forward["rdb5c"],
+              "conv_tc_kernel": per_forward["conv3x3"] + per_forward["upsample2x_conv3x3"]}
+    check(k_replay == k_eager == want_k and split["graph_launches"] >= 1,
+          f"phase 13 profiler trace of one GAN replay: kernel events {k_replay} == one eager step's {k_eager} == "
+          f"{want_k}; {split['graph_launches']} graph launch(es), {split['launches']} launch calls in all")
+
+    # timing in turns: the graph, the eager kernel path, the bf16 plain path (eager), pipeline included
+    from esr_tpu_torch.models.sr_model import _pipeline
+
+    g = eager_m.g_module
+    plain = make_gan_train_step(lambda x, zz: plain_forward(g, x, zz, torch.bfloat16), eager_m.d_module,
+                                eager_m.f_module, eager_m.cem, _pipeline(eager_m.opt, SCALE, NZ, None),
+                                eager_m.opt["train"], eager_m.g_opt, eager_m.d_opt, eager_m.schedulers["G"],
+                                step_keyed(eager_m.schedulers["D"]))
+    hr_dev = torch.from_numpy(batches[DISPATCH_CHUNK]["HR"]).cuda()
+    seed = eager_m._rng_seed
+    from esr_tpu_torch.models.base_model import step_generator
+
+    paths = {"graph": graph_m.optimize_parameters, "eager kernels": eager_m.optimize_parameters,
+             "bf16 plain": lambda s: plain(hr_dev, step_generator(seed, s), s)}
+    peak = {}
+    for name, fn in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        fn(next(steps))
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - a0) / 2**30
+    ms, turns = step_turns(paths, steps)
+    busy = split["device_busy_ms"]
+    for name, m in ms.items():
+        print(f"phase 13 GAN step B{B} x HR{TRAIN_HR} ({name}): {m:.2f} ms/step "
+              f"({', '.join(f'{v:.2f}' for v in turns[name])}), {1e3 / m:.2f} steps/s on {card}", flush=True)
+    print(f"phase 13 GAN graph: device busy {busy:.2f} ms in one replay (trace), idle "
+          f"{100 - 100 * busy / ms['graph']:.1f}% of the unprofiled step; memory: the graph's pool holds "
+          f"{pool_gib:.2f} GiB reserved (capture and chunk); one step's peak allocated above its start: graph "
+          f"{peak['graph']:.2f} GiB, eager {peak['eager kernels']:.2f} GiB, bf16 plain {peak['bf16 plain']:.2f} GiB; capture "
+          f"{graph.capture_seconds:.2f} s; graph / eager {ms['graph'] / ms['eager kernels']:.3f}, graph / bf16 plain "
+          f"{ms['graph'] / ms['bf16 plain']:.3f} of the time per step", flush=True)
+    del graph_m, eager_m, plain, paths
+    release_memory()
+
+    # D_update_ratio 2, D_init_iters 1: G updates at steps 2 and 4 only, two graphs (do_g False / True)
+    graph_m, eager_m = dispatch_models(tmp / "gan_ratio", "train_explorable_SR.json", D_update_ratio=2,
+                                       D_init_iters=1)
+    start = {n: t.clone() for n, t in train_tensors(eager_m)}
+    for i in range(DISPATCH_CHUNK):
+        eager_m.feed_data(batches[i])
+        eager_m.optimize_parameters(i + 1)
+    graph_m.optimize_parameters_chunk(1, train_cli.stack_chunk(batches[:DISPATCH_CHUNK]))
+    held, how = same_training(graph_m, eager_m, start, bands)
+    check(held and len(graph_m._step_graphs.steps) == 2 and graph_m.g_opt.count == 2 and graph_m.d_opt.count == 4,
+          f"phase 13 GAN chunk of {DISPATCH_CHUNK} with D_update_ratio 2, D_init_iters 1 (two graphs: G's update "
+          f"skipped / made) == eager: {how}; Adam counts G {graph_m.g_opt.count}, D {graph_m.d_opt.count}")
+    del graph_m, eager_m
+    release_memory()
+
+    # the planted fault: the learning rate frozen as a Python float at capture
+    fault = frozen_lr_adam()
+    saved = {k: getattr(Adam, k) for k in fault}
+    graph_m, eager_m = dispatch_models(tmp / "gan_fault", "train_explorable_SR.json", lr_steps=[3])
+    start = {n: t.clone() for n, t in train_tensors(eager_m)}
+    for i in range(DISPATCH_CHUNK):
+        eager_m.feed_data(batches[i])
+        eager_m.optimize_parameters(i + 1)
+    try:
+        for k, fn in fault.items():
+            setattr(Adam, k, fn)
+        graph_m.optimize_parameters_chunk(1, train_cli.stack_chunk(batches[:DISPATCH_CHUNK]))
+    finally:
+        for k, fn in saved.items():
+            setattr(Adam, k, fn)
+    held, how = same_training(graph_m, eager_m, start, bands)
+    check(not held, f"phase 13 planted fault, Adam's learning rate a Python float frozen at capture, across the "
+          f"milestone: graph vs eager {how}: the check fails it")
+    del graph_m, eager_m
+    release_memory()
+    return chunk_counts
+
+
+def dispatch_sr(tmp: Path, card: str, bands: dict) -> dict:
+    """The SR (PSNR) step in short: a chunk of 3 against 3 eager steps,
+    launches of a replay, timing against the eager and bf16 plain paths."""
+    from esr_tpu_torch.models.base_model import step_generator
+    from esr_tpu_torch.models.sr_model import _pipeline, make_sr_train_step
+
+    per_forward = EXPECTED_PER_FORWARD
+    batches = dispatch_batches(4)
+    graph_m, eager_m = dispatch_models(tmp / "sr", "train_RRDB_PSNR.json")
+    start = {n: t.clone() for n, t in train_tensors(eager_m)}
+    for i in range(3):
+        eager_m.feed_data(batches[i])
+        eager_m.optimize_parameters(i + 1)
+    _, counts, secs = counted(lambda: graph_m.optimize_parameters_chunk(1, train_cli.stack_chunk(batches[:3])))
+    held, how = same_training(graph_m, eager_m, start, bands)
+    graph_m.feed_data(batches[3])
+    _, replay, _ = counted(lambda: graph_m.optimize_parameters(4))
+    (graph,) = graph_m._step_graphs.steps
+    check(held and counts == {k: 3 * v for k, v in per_forward.items()} and replay == per_forward,
+          f"phase 13 SR step B{B} x HR{TRAIN_HR}: a chunk of 3 as graph replays == 3 eager steps, {how}; launches "
+          f"{counts}, one replay {replay}; chunk {secs:.2f} s, capture {graph.capture_seconds:.2f} s")
+    eager_m.feed_data(batches[3])
+    g = eager_m.g_module
+    no_z = lambda x: x.new_zeros(x.shape[:-1] + (0,))  # noqa: E731 — the SR generator takes no Z channel
+    plain = make_sr_train_step(lambda x, zz: plain_forward(g, x, no_z(x), torch.bfloat16),
+                               _pipeline(eager_m.opt, SCALE, 0, None), eager_m.g_opt,
+                               step_keyed(eager_m.schedulers["G"]))
+    hr_dev = torch.from_numpy(batches[3]["HR"]).cuda()
+    seed = eager_m._rng_seed
+    steps = iter(range(5, 10**6))
+    paths = {"graph": graph_m.optimize_parameters, "eager kernels": eager_m.optimize_parameters,
+             "bf16 plain": lambda s: plain(hr_dev, step_generator(seed, s))}
+    ms, turns = step_turns(paths, steps)
+    _, split = traced(tmp, "sr_replay", lambda: graph_m.optimize_parameters(next(steps)),
+                      lambda: graph_m.optimize_parameters(next(steps)))
+    for name, m in ms.items():
+        print(f"phase 13 SR step B{B} x HR{TRAIN_HR} ({name}): {m:.2f} ms/step "
+              f"({', '.join(f'{v:.2f}' for v in turns[name])}) on {card}", flush=True)
+    print(f"phase 13 SR graph: device busy {split['device_busy_ms']:.2f} ms in one replay, idle "
+          f"{100 - 100 * split['device_busy_ms'] / ms['graph']:.1f}% of the unprofiled step", flush=True)
+    del graph_m, eager_m, plain, paths
+    release_memory()
+    return counts
+
+
+def dispatch_z(tmp: Path, pth: str, card: str) -> dict:
+    """The Z search at the explorer's 40 x 40 LR selection (bucket 64): a
+    64-step search as graph replays against the same search eagerly (trace,
+    Z and best Z), ms per Z step of the graph, the eager kernel path and the
+    bf16 plain path, a click's wall with its capture and a repeat click's."""
+    sess = explore_session(tmp, pth)
+    g, cem = sess.g, sess.cem
+    lr = torch.from_numpy(sess.lr_img).to(sess.device)
+    y, x, size = bucket_crop(EXPLORE_BOX, EXPLORE_LR, EXPLORE_LR, SCALE)
+    lr_c = lr[:, y : y + size, x : x + size].contiguous()
+    mask = torch.zeros(size * SCALE, size * SCALE, device=lr.device)
+    mask[(EXPLORE_BOX[0] - y) * SCALE : (EXPLORE_BOX[2] - y) * SCALE,
+         (EXPLORE_BOX[1] - x) * SCALE : (EXPLORE_BOX[3] - x) * SCALE] = 1.0
+    z0 = torch.from_numpy(np.random.default_rng(15).uniform(-0.5, 0.5, (1, size, size, NZ))
+                          .astype(np.float32)).to(lr.device)
+    obj = explore_obj.variance_objective(1.0)
+
+    def search(forward, graphed: bool, n: int):
+        s = ZSearch(forward, lr_c, z0, mask, obj.fn, obj.aux)
+        s.step.enabled = graphed
+        s.set_round(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = s.run(n, lambda count: 0.1)
+        torch.cuda.synchronize()
+        return s, losses, (time.perf_counter() - t0) * 1e3 / n
+
+    se, le, ms_eager = search(sess.forward, False, Z_STEPS)
+    (sg, lg, ms_first), counts, _ = counted(lambda: search(sess.forward, True, Z_STEPS))
+    equal = torch.equal(lg, le) and torch.equal(sg.z, se.z) and torch.equal(sg.best_z, se.best_z)
+    want = {k: v * Z_STEPS for k, v in EXPECTED_PER_FORWARD.items()}
+    check(equal and counts == want,
+          f"phase 13 Z search, {Z_STEPS} steps on the 64x64 LR crop of the 40x40 selection (variance +): graph "
+          f"replays == eager, loss trace, Z and best Z bit for bit {equal} (loss {float(lg[0]):.6f} -> "
+          f"{float(lg[-1]):.6f}); launches {counts} == {want}")
+    sg.load(lr_c, z0, mask, obj.aux)
+    sg.set_round(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = sg.run(Z_STEPS, lambda count: 0.1)
+    torch.cuda.synchronize()
+    ms_graph = (time.perf_counter() - t0) * 1e3 / Z_STEPS
+    check(torch.equal(again, lg), "phase 13 Z search on the same buffers again (reset, no capture): the same trace")
+    _, _, ms_plain = search(lambda l_, z_: cem.project(plain_forward(g, l_, z_, torch.bfloat16), l_), False, 8)
+    sg.load(lr_c, z0, mask, obj.aux)
+    _, split = traced(tmp, "z_replays", lambda: sg.run(2, lambda c: 0.1), lambda: sg.run(8, lambda c: 0.1))
+    # clicks through the session: the first at this bucket captures, the repeat replays
+    sess.set_search_strength(n_steps=Z_STEPS)
+    sess.select_rect(*(v * SCALE for v in EXPLORE_BOX))
+    clicks = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.increase_variance()
+        torch.cuda.synchronize()
+        clicks.append(time.perf_counter() - t0)
+    res = max_err(cem.downsample(torch.from_numpy(sess.current_sr()).to(lr.device)), lr)
+    check(res <= CEM_TOL, f"phase 13 variance clicks through the graphed search: CEM residual {res:.3g} <= {CEM_TOL}")
+    busy = split["device_busy_ms"] / 8
+    print(f"phase 13 Z step, 64x64 LR crop (HR 256), on {card}: graph {ms_graph:.2f} ms/step (the first search, "
+          f"capture included: {ms_first:.2f}), eager kernels {ms_eager:.2f}, bf16 plain (eager, 8 steps) "
+          f"{ms_plain:.2f}; graph device busy {busy:.2f} ms a step, idle {100 - 100 * busy / ms_graph:.1f}%; "
+          f"capture {sg.step.capture_seconds:.2f} s; a {Z_STEPS}-step variance click {clicks[0] * 1e3:.1f} ms with "
+          f"its capture, a repeat click {clicks[1] * 1e3:.1f} ms", flush=True)
+    return counts
+
+
+def dispatch_cli(tmp: Path) -> dict:
+    """The train CLI with steps_per_dispatch 3, print_freq 4, save_freq 5 (5
+    steps: chunks [1-3], [4], [5]) against the per-step run: the same log
+    rows and checkpoints."""
+    runs = {}
+    for k in (1, 3):
+        opt = train_options(tmp / f"cli_{k}", "dispatch_cli", "train_explorable_SR.json", None, niter=5,
+                            steps_per_dispatch=k)
+        opt["logger"] = {"print_freq": 4, "save_checkpoint_freq": 5}
+        _, counts, secs = run_train(tmp / f"cli_{k}", opt)
+        exp = tmp / f"cli_{k}" / "experiments" / "dispatch_cli"
+        runs[k] = (train_csv(tmp / f"cli_{k}", "dispatch_cli"), sorted(p.name for p in (exp / "models").iterdir()),
+                   train_state(tmp / f"cli_{k}", "dispatch_cli", 5), counts, secs)
+    (rows1, models1, st1, c1, s1), (rows3, models3, st3, c3, s3) = runs[1], runs[3]
+    same = all(torch.equal(v, st3[n]["net"][key]) for n in ("G", "D") for key, v in st1[n]["net"].items())
+    want = {k: v * 5 for k, v in EXPECTED_PER_FORWARD.items()}
+    check(rows1 == rows3 and [int(r["step"]) for r in rows3] == [4] and models1 == models3 and same
+          and c1 == c3 == want,
+          f"phase 13 train CLI, steps_per_dispatch 3 (print 4, save 5, 5 steps: chunks 1-3, 4, 5) == the per-step "
+          f"run: log rows at {[int(r['step']) for r in rows3]}, checkpoints {models3}, the states at 5 bit for bit "
+          f"{same}; launches {c3} == {want}; {s3:.1f} s against {s1:.1f} s")
+    return c3
+
+
+def phase_dispatch(tmp: Path, pth: str, card: str, bands: dict) -> dict[str, dict]:
+    """Phase 13: the train steps and the Z step as CUDA graphs, against
+    eager, at full width; returns the launches by path."""
+    t0 = time.perf_counter()
+    (tmp / "dispatch").mkdir(parents=True, exist_ok=True)
+    torch.backends.cudnn.deterministic = True  # graph against eager, bit for bit
+    try:
+        # each path's launches: its graphed run, counters set to 0 just before and read just after
+        paths, secs = {}, {}
+        for name, fn in (("dispatch_gan", lambda: dispatch_gan(tmp / "dispatch", card, bands)),
+                         ("dispatch_sr", lambda: dispatch_sr(tmp / "dispatch", card, bands)),
+                         ("dispatch_z", lambda: dispatch_z(tmp / "dispatch", pth, card)),
+                         ("dispatch_cli", lambda: dispatch_cli(tmp / "dispatch"))):
+            t1 = time.perf_counter()
+            paths[name] = fn()
+            secs[name] = time.perf_counter() - t1
+    finally:
+        torch.backends.cudnn.deterministic = False
+    total = time.perf_counter() - t0
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+    check(total <= 90.0, f"phase 13 ran in {total:.1f} s <= 90 s ({parts})")
+    return paths
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
@@ -3194,6 +3650,7 @@ def main() -> int:
         by_path.update(phase_parallel(tmp, pth, env["card"], bands))
         script_paths, f32_paths = phase_scripts(tmp, pth, env["card"])
         by_path.update(script_paths)
+        by_path.update(phase_dispatch(tmp, pth, env["card"], bands))
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:

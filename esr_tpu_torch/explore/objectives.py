@@ -294,8 +294,9 @@ def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
-    return torch.from_numpy(_triangle_weights(n_in, n_out).astype(np.float32))
+def _resize_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Made once per device: a Z step captured in a CUDA graph copies nothing from the host."""
+    return torch.from_numpy(_triangle_weights(n_in, n_out).astype(np.float32)).to(device, dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -303,9 +304,9 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     on) of an NHWC tensor: one weight matrix per axis, H then W."""
     _, h, w, _ = x.shape
     if h != out_h:
-        x = torch.einsum("oh,nhwc->nowc", _resize_matrix(h, out_h).to(x.device, x.dtype), x)
+        x = torch.einsum("oh,nhwc->nowc", _resize_matrix(h, out_h, x.device, x.dtype), x)
     if w != out_w:
-        x = torch.einsum("pw,nowc->nopc", _resize_matrix(w, out_w).to(x.device, x.dtype), x)
+        x = torch.einsum("pw,nowc->nopc", _resize_matrix(w, out_w, x.device, x.dtype), x)
     return x
 
 

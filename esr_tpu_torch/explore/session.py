@@ -75,11 +75,12 @@ class ExplorationSession:
     def set_generator_weights(self, state_dict: dict) -> None:
         """Load new generator weights (strictly; either reference key layout,
         ``normalize_rrdb_keys``) and rebuild the kernels' layouts from them;
-        the cached SR is dropped."""
+        the cached SR and the captured Z searches are dropped."""
         self.g.load_state_dict(normalize_rrdb_keys(state_dict), strict=True)
         self.g.requires_grad_(False)
         self.g.release_kernels()
         self.g.prepare_kernels()
+        self._optimizer.clear_searches()
         self._sr_cache = None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:

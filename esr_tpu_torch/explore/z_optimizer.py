@@ -5,10 +5,16 @@ objective over a region, search the latent Z map that minimizes it: Adam on
 Z (optax's ``adam``: b1 0.9, b2 0.999, eps 1e-8, ``m_hat / (sqrt(v_hat) +
 eps)``; ``models.base_model.Adam`` on the one tensor), Z clipped to
 ``[-z_range, z_range]`` after each update. The JAX package runs the whole
-search as one ``lax.scan`` program; here it is a Python loop whose Z, Adam
-moments and best-so-far Z stay on the device, and whose loss trace is
-fetched once per chunk (a chunk is the whole search unless progress is
-reported), not once per step.
+search (each round of the adaptive one) as one ``lax.scan`` program; here a
+Z step (forward through the frozen generator, CEM, the objective, dloss/dZ,
+Adam on Z, the clip, the best-Z update) runs on fixed buffers, and on CUDA it
+is a CUDA graph replayed once per step (``utils/graphs.py``): Z, the Adam
+moments, the best-so-far Z and the loss trace stay on the device, the step
+scalars of a run of steps are uploaded at once, and the trace is fetched
+once per chunk (a chunk is the whole search unless progress is reported).
+:class:`ZOptimizer` keeps the searches it captured by crop shape and
+objective, so a new click of the same tool and bucket copies its images into
+the buffers and replays without capturing again.
 
 Region handling: the LR-space bounding box of the selection is rounded up to
 a bucketed square crop (:func:`bucket_crop`), and the search runs on that
@@ -30,8 +36,9 @@ import torch
 
 from esr_tpu_torch.explore.objectives import Objective
 from esr_tpu_torch.models.base_model import Adam
+from esr_tpu_torch.utils.graphs import GraphedStep
 
-__all__ = ["ZOptimizer", "bucket_crop", "optimize_z", "optimize_z_adaptive"]
+__all__ = ["ZOptimizer", "ZSearch", "ZSearchCache", "bucket_crop", "optimize_z", "optimize_z_adaptive"]
 
 _BUCKETS = (16, 32, 64, 128, 256)
 
@@ -71,27 +78,88 @@ def _loss_and_grad(forward, lr_img, z, mask, fn, aux):
     return loss.detach(), g
 
 
-def _run_steps(forward, lr_img, z, opt: Adam, mask, fn, aux, n_steps: int, lr_at, z_range, best=None):
-    """``n_steps`` Adam steps on the buffer ``z`` (updated in place, as
-    ``opt`` holds it). Returns the step losses as a device tensor; with
-    ``best`` = [best_z, best_loss] (device tensors), the best Z evaluated and
-    its loss are tracked there."""
-    losses = []
-    for _ in range(n_steps):
-        loss, g = _loss_and_grad(forward, lr_img, z, mask, fn, aux)
-        if best is not None:
-            better = loss < best[1]
-            best[0] = torch.where(better, z, best[0])
-            best[1] = torch.minimum(loss, best[1])
-        opt.step([g], lr_at(opt.count))
-        if z_range:
-            z.clamp_(-z_range, z_range)
-        losses.append(loss)
-    return torch.stack(losses)
+class ZSearch:
+    """One Z search on fixed buffers: LR, the mask, the objective's tensors,
+    Z and its Adam state, the clip bound, the best Z evaluated and its loss.
+    A step is :class:`~esr_tpu_torch.utils.graphs.GraphedStep` (a CUDA graph
+    on CUDA, eager on the CPU). :meth:`load` starts a new search on the same
+    buffers."""
+
+    def __init__(self, forward, lr_img, z, mask, fn, aux: dict, pool=None):
+        self.forward, self.fn = forward, fn
+        self.lr_img, self.mask, self.z = lr_img.detach().clone(), mask.detach().clone(), z.detach().clone()
+        self.aux = {k: v.detach().clone() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        self.opt = Adam([self.z])
+        self.z_range = torch.full((), math.inf, device=self.z.device)
+        self.best_z = self.z.clone()
+        self.best_loss = torch.full((), math.inf, device=self.z.device)
+        self.step = GraphedStep(self._step, self.z.device, "Z step", pool=pool)
+
+    def load(self, lr_img, z, mask, aux: dict) -> None:
+        """A new search from ``z``: the images copied in, Adam's state zeroed."""
+        self.lr_img.copy_(lr_img)
+        self.mask.copy_(mask)
+        self.z.copy_(z)
+        for k, v in aux.items():
+            if isinstance(v, torch.Tensor):
+                self.aux[k].copy_(v)
+        torch._foreach_zero_(self.opt.mu + self.opt.nu)
+        self.opt.count = 0
+
+    def set_round(self, z_range) -> None:
+        """The clip bound (None / 0: unbounded) and a fresh best-so-far."""
+        self.z_range.fill_(float(z_range) if z_range else math.inf)
+        self.best_z.copy_(self.z)
+        self.best_loss.fill_(math.inf)
+
+    def _step(self) -> torch.Tensor:
+        loss, g = _loss_and_grad(self.forward, self.lr_img, self.z, self.mask, self.fn, self.aux)
+        self.best_z.copy_(torch.where(loss < self.best_loss, self.z, self.best_z))
+        self.best_loss.copy_(torch.minimum(loss, self.best_loss))
+        self.opt.step([g])
+        self.z.clamp_(-self.z_range, self.z_range)
+        return loss
+
+    def run(self, n_steps: int, lr_at) -> torch.Tensor:
+        """``n_steps`` Adam steps, each at ``lr_at(count of updates so far)``
+        (computed on the host, uploaded at once); the step losses as a device
+        tensor."""
+        table = self.opt.scalar_rows([self.opt.next_scalars(lr_at(self.opt.count)) for _ in range(n_steps)])
+        losses = self.z.new_empty((n_steps,))
+        for i in range(n_steps):
+            self.opt.scalars.copy_(table[i])
+            losses[i].copy_(self.step())
+        return losses
+
+
+class ZSearchCache:
+    """The searches of one forward by LR / Z / mask shape and objective
+    (``fn``, the names and shapes of its tensors, its other parameters), with
+    one memory pool for their graphs. :meth:`clear` drops them (new generator
+    weights: the graphs hold the old layouts' addresses)."""
+
+    def __init__(self):
+        self._searches: dict = {}
+
+    def get(self, forward, lr_img, z, mask, fn, aux: dict) -> ZSearch:
+        key = (id(forward), tuple(lr_img.shape), tuple(z.shape), tuple(mask.shape), fn,
+               *((k, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (k, v)
+                 for k, v in sorted(aux.items())))
+        search = self._searches.get(key)
+        if search is None:
+            pool = next((s.step.pool for s in self._searches.values() if s.step.pool is not None), None)
+            search = self._searches[key] = ZSearch(forward, lr_img, z, mask, fn, aux, pool)
+        else:
+            search.load(lr_img, z, mask, aux)
+        return search
+
+    def clear(self) -> None:
+        self._searches.clear()
 
 
 def optimize_z(forward, lr_img, z0, mask_hr, objective, n_steps: int = 100, lr: float = 0.1,
-               z_range: float = 1.0, lr_decay: float = 1.0, progress_cb=None, n_chunks: int = 1):
+               z_range: float = 1.0, lr_decay: float = 1.0, progress_cb=None, n_chunks: int = 1,
+               cache: ZSearchCache | None = None):
     """Search Z from ``z0`` for ``objective`` (an :class:`Objective` or a plain
     ``f(sr, mask)``) over ``n_steps`` Adam steps; ``lr_decay`` < 1 decays the
     LR exponentially to ``lr * lr_decay`` by the end. Returns (z, loss trace
@@ -100,10 +168,11 @@ def optimize_z(forward, lr_img, z0, mask_hr, objective, n_steps: int = 100, lr: 
     ``progress_cb(done_steps, total_steps, losses_so_far)``: when given (or
     ``n_chunks`` > 1), the steps run in ``n_chunks`` chunks with Z and the
     Adam state carried across (the same steps), and the callback fires at
-    each chunk's end."""
+    each chunk's end. ``cache``: where the captured search is kept for the
+    next call (a new one each call when None)."""
     fn, aux = _as_fn_aux(objective)
-    z = z0.detach().clone()
-    opt = Adam([z])
+    search = (cache or ZSearchCache()).get(forward, lr_img, z0, mask_hr, fn, aux)
+    search.set_round(z_range)
     lr_at = _decayed(lr, lr_decay, n_steps)
     n_chunks = 1 if progress_cb is None and n_chunks <= 1 else max(1, min(int(n_chunks), n_steps))
     bounds = np.linspace(0, n_steps, n_chunks + 1).astype(int)
@@ -111,11 +180,10 @@ def optimize_z(forward, lr_img, z0, mask_hr, objective, n_steps: int = 100, lr: 
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         if hi == lo:
             continue
-        chunk = _run_steps(forward, lr_img, z, opt, mask_hr, fn, aux, int(hi - lo), lr_at, z_range)
-        losses.append(chunk.cpu().numpy())
+        losses.append(search.run(int(hi - lo), lr_at).cpu().numpy())
         if progress_cb is not None:
             progress_cb(int(hi), int(n_steps), np.concatenate(losses))
-    return z, np.concatenate(losses) if losses else np.zeros((0,), np.float32)
+    return search.z.clone(), np.concatenate(losses) if losses else np.zeros((0,), np.float32)
 
 
 def _ladder_rounds(cur: float, top: float, boost: float) -> int:
@@ -129,7 +197,7 @@ def _ladder_rounds(cur: float, top: float, boost: float) -> int:
 def optimize_z_adaptive(forward, lr_img, z0, mask_hr, objective, n_steps: int = 64, lr: float = 0.1,
                         z_range: float = 1.0, max_rounds: int | None = None, plateau_rel: float = 0.02,
                         lr_boost: float = 3.0, lr_max: float = 2.7, z_range_boost: float = 1.75,
-                        z_range_max: float | None = None, progress_cb=None):
+                        z_range_max: float | None = None, progress_cb=None, cache: ZSearchCache | None = None):
     """Plateau-escalating Z search: rounds of ``n_steps`` with Z and the Adam
     state carried. After a round whose relative improvement ``(first - last)
     / |first|`` is below ``plateau_rel``, the Adam LR is boosted ``x
@@ -138,10 +206,9 @@ def optimize_z_adaptive(forward, lr_img, z0, mask_hr, objective, n_steps: int = 
     escalation stops the search. Returns ``(z_best, losses, rounds)``: the
     best Z evaluated anywhere in the search, the loss trace, and per round
     ``{"lr", "z_range", "first", "last", "rel_improvement", "best"}`` (the last
-    with ``"stop"``: why the search ended)."""
+    with ``"stop"``: why the search ended). ``cache`` as in :func:`optimize_z`."""
     fn, aux = _as_fn_aux(objective)
-    z = z0.detach().clone()
-    opt = Adam([z])
+    search = (cache or ZSearchCache()).get(forward, lr_img, z0, mask_hr, fn, aux)
     # z_range 0 / None: unbounded (the round still clips, against inf)
     cur_lr = float(lr)
     cur_zr = float(z_range) if z_range else float("inf")
@@ -149,20 +216,18 @@ def optimize_z_adaptive(forward, lr_img, z0, mask_hr, objective, n_steps: int = 
     if max_rounds is None:
         # the initial round, the two ladders and one settle round at full escalation
         max_rounds = 1 + _ladder_rounds(cur_lr, lr_max, lr_boost) + _ladder_rounds(cur_zr, zr_max, z_range_boost) + 1
-    best_z, best_loss = z.clone(), float("inf")
+    best_z, best_loss = search.z.clone(), float("inf")
     all_losses, rounds = [], []
     total = max_rounds * n_steps
     stop_reason = None
     for r in range(max_rounds):
-        best = [z.clone(), torch.tensor(float("inf"), device=z.device)]
+        search.set_round(cur_zr if math.isfinite(cur_zr) else None)
         round_lr = float(np.float32(cur_lr))
-        losses = _run_steps(forward, lr_img, z, opt, mask_hr, fn, aux, int(n_steps), lambda count: round_lr,
-                            cur_zr if math.isfinite(cur_zr) else None, best)
-        losses = losses.cpu().numpy()
+        losses = search.run(int(n_steps), lambda count: round_lr).cpu().numpy()
         all_losses.append(losses)
-        rb_loss = float(best[1])
+        rb_loss = float(search.best_loss)
         if rb_loss < best_loss:
-            best_z, best_loss = best[0], rb_loss
+            best_z, best_loss = search.best_z.clone(), rb_loss
         first, last = float(losses[0]), float(losses[-1])
         rel = (first - last) / (abs(first) + 1e-12)
         rounds.append({"lr": cur_lr, "z_range": cur_zr, "first": first, "last": last,
@@ -201,6 +266,11 @@ class ZOptimizer:
         self.lr_decay = lr_decay
         self.device = torch.device(device)
         self.last_rounds = None  # the adaptive search's escalation report
+        self.searches = ZSearchCache()  # captured by crop shape and objective
+
+    def clear_searches(self) -> None:
+        """Drop the captured searches (call after the forward's weights change)."""
+        self.searches.clear()
 
     def __call__(self, lr_img, z, objective, mask_hr=None, box_lr=None, progress_cb=None, n_chunks: int = 1,
                  adaptive: bool = False, z_range_max: float | None = None):
@@ -226,12 +296,12 @@ class ZOptimizer:
             if adaptive:
                 z_o, losses, rounds = optimize_z_adaptive(
                     self.forward, lr_i, z_i, m_i, objective_i, n_steps=self.n_steps, lr=self.lr,
-                    z_range=self.z_range, z_range_max=z_range_max, progress_cb=progress_cb)
+                    z_range=self.z_range, z_range_max=z_range_max, progress_cb=progress_cb, cache=self.searches)
                 self.last_rounds = rounds
                 return z_o, losses
             return optimize_z(self.forward, lr_i, z_i, m_i, objective_i, n_steps=self.n_steps, lr=self.lr,
                               z_range=self.z_range, lr_decay=self.lr_decay, progress_cb=progress_cb,
-                              n_chunks=n_chunks)
+                              n_chunks=n_chunks, cache=self.searches)
 
         if self.crop_to_region and box_lr is not None:
             y, x, size = bucket_crop(box_lr, h, w, s)

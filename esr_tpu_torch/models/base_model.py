@@ -33,10 +33,12 @@ from esr_tpu_torch.ops.color import tensor2img, to_uint8
 from esr_tpu_torch.ops.ensemble import make_self_ensemble
 from esr_tpu_torch.parallel import comm
 from esr_tpu_torch.parallel.dp import BatchComm, GradSync, StepParallel
+from esr_tpu_torch.utils.graphs import StepGraphs
 
 __all__ = [
     "Adam",
     "BaseModel",
+    "TrainStep",
     "make_eval_forward",
     "multistep_schedule",
     "opt_float",
@@ -82,7 +84,16 @@ class Adam:
     ``grad_clip`` is set, over a list of parameters. ``step(grads, lr)``
     applies one update with learning rate ``lr``; ``count`` is the number of
     updates applied. Skipping ``step`` leaves the moments and the count as
-    they are (a gated update)."""
+    they are (a gated update).
+
+    The update reads its step scalars (the learning rate and the bias
+    corrections ``1 - b1^t``, ``1 - b2^t``) from ``scalars``, a tensor on
+    the parameters' device, never from Python floats: a CUDA graph of a step
+    replays with the values written there before each replay. The host
+    computes them (:meth:`next_scalars`: float64, then the parameters'
+    dtype) and counts the update; ``step(grads, lr)`` does both and updates,
+    ``step(grads)`` updates at the scalars staged before (:meth:`stage`, or
+    a slot copy of a chunk's rows: ``scalar_rows``)."""
 
     def __init__(self, params, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  grad_clip: float | None = None):
@@ -91,6 +102,26 @@ class Adam:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        p0 = self.params[0]
+        self.scalars = torch.zeros(3, dtype=p0.dtype, device=p0.device)  # lr, 1 - b1^t, 1 - b2^t
+
+    def next_scalars(self, lr: float) -> tuple[float, float, float]:
+        """Count one update and return its step scalars, on the host."""
+        self.count += 1
+        return float(lr), 1 - self.b1**self.count, 1 - self.b2**self.count
+
+    def scalar_rows(self, rows) -> torch.Tensor:
+        """Rows of :meth:`next_scalars` as one (k, 3) tensor on the device (one upload)."""
+        table = torch.tensor(rows, dtype=torch.float64).to(self.scalars.dtype)
+        return table.to(self.scalars.device, non_blocking=True)
+
+    def set_scalars(self, row) -> None:
+        """Write one row of :meth:`next_scalars` for the next :meth:`step`."""
+        self.scalars.copy_(self.scalar_rows([row])[0])
+
+    def stage(self, lr: float) -> None:
+        """Count one update at ``lr`` and write its scalars for the next :meth:`step`."""
+        self.set_scalars(self.next_scalars(lr))
 
     def clip(self, grads: list, sq_sum=None) -> list:
         """optax: ``g`` if the global norm is below ``grad_clip``, else
@@ -103,21 +134,27 @@ class Adam:
         return [g * scale.to(g.dtype) for g in grads]
 
     @torch.no_grad()
-    def step(self, grads: list, lr: float, sq_sum=None) -> None:
-        """One update; ``sq_sum`` as in :meth:`clip`."""
+    def step(self, grads: list, lr: float | None = None, sq_sum=None) -> None:
+        """One update: at ``lr`` (staged here), or with ``lr`` None at the
+        scalars staged before; ``sq_sum`` as in :meth:`clip`. Device work
+        only when ``lr`` is None (what a CUDA graph captures)."""
+        if lr is not None:
+            self.stage(lr)
         if self.grad_clip:
             grads = self.clip(grads, sq_sum)
-        self.count += 1
+        lr_t, bc1, bc2 = self.scalars.unbind()
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
-        denom = torch._foreach_div(self.nu, 1 - self.b2**self.count)
+        denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(self.mu, 1 - self.b1**self.count)
+        upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+        # lr * upd rounded, then subtracted: the host-scalar form's alpha=-lr fused the two
+        torch._foreach_mul_(upd, lr_t)
+        torch._foreach_sub_(self.params, upd)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
@@ -127,6 +164,30 @@ class Adam:
         for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
             for d, v in zip(dst, state[key], strict=True):
                 d.copy_(v)
+
+
+class TrainStep:
+    """A train step in two parts, so that its device part can be a CUDA
+    graph (``utils/graphs.py``):
+
+    - ``prepare(*args) -> (key, inputs, rows)``, eager: the data pipeline and
+      the host's draws (``inputs``: the tensors the device part reads), the
+      host decision that selects the graph (``key``), and each optimiser's
+      step scalars (``rows``: ``[(opt, opt.next_scalars(lr)), ...]``, which
+      counts its update);
+    - ``core(key, **inputs) -> metrics``: forward, backward and the updates
+      (``opt.step(grads)`` at the staged scalars), device work only.
+
+    Calling it runs one step eagerly: prepare, stage the rows, core."""
+
+    def __init__(self, prepare, core):
+        self.prepare, self.core = prepare, core
+
+    def __call__(self, *args, **kwargs) -> dict:
+        key, inputs, rows = self.prepare(*args, **kwargs)
+        for opt, row in rows:
+            opt.set_scalars(row)
+        return self.core(key, **inputs)
 
 
 def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None):
@@ -375,13 +436,14 @@ class BaseModel:
         reference ``*_G.pth`` in either of its key layouts
         (``networks.normalize_rrdb_keys``). The kernels' weight layouts built
         from the old weights are dropped, and an eval forward is rebuilt on
-        the new ones."""
+        the new ones, and so are the train step's CUDA graphs."""
         if os.path.isdir(path):
             raise ValueError(
                 f"{path} is a directory (an orbax checkpoint of the JAX package?); the port loads a "
                 "torch .pth state dict — convert it with `python -m esr_tpu.scripts.export_torch_weights "
                 f"--kind rrdb --ckpt {path} --out G.pth`")
         state = normalize_rrdb_keys(torch.load(path, map_location=self.device, weights_only=True))
+        self._drop_step_graphs()
         self._load_state(self.g_module, state)
         self.g_module.release_kernels()
         if getattr(self, "_forward", None) is not None:
@@ -416,6 +478,48 @@ class BaseModel:
         return out
 
     # -- training surface ----------------------------------------------------
+
+    def _make_step_graphs(self, name: str) -> StepGraphs:
+        """The train step's device part (``TrainStep.core``) as CUDA graphs,
+        one per key, on CUDA in one process. Eager on the CPU, and with
+        several ranks (logged): gloo's collectives cannot be captured, and a
+        capture of NCCL's has not been checked."""
+        n_world = comm.world()[1]
+        if self.device.type == "cuda" and n_world > 1:
+            logging.getLogger("base").info(
+                "%s: %d ranks run each step eagerly, not as a CUDA graph (gloo collectives cannot be captured; "
+                "a capture under NCCL is unverified)", name, n_world)
+        return StepGraphs(self._train_step.core, self.device, name, enabled=self.device.type == "cuda" and n_world == 1)
+
+    def _drop_step_graphs(self) -> None:
+        """Drop the train step's graphs before weights or optimiser states are
+        loaded again: they are written in place, and a graph holds addresses."""
+        if getattr(self, "_step_graphs", None) is not None:
+            self._step_graphs.clear()
+
+    def _run_steps(self, prepared: list) -> dict:
+        """Run prepared train steps in order (``TrainStep.prepare``'s ``(key,
+        inputs, rows)``): each optimiser's step scalars for all of them, and
+        their host-drawn inputs, uploaded at once; then for each step the slot
+        copies of its scalars and its device part (a graph replay on CUDA).
+        Returns the last step's metrics."""
+        rows_of: dict = {}
+        for _, _, rows in prepared:
+            for opt, row in rows:
+                rows_of.setdefault(opt, []).append(row)
+        slots = {opt: iter(opt.scalar_rows(rows)) for opt, rows in rows_of.items()}
+        if self.device.type == "cuda":
+            for name, v in prepared[0][1].items():
+                if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+                    up = torch.stack([inputs[name] for _, inputs, _ in prepared]).to(self.device, non_blocking=True)
+                    for (_, inputs, _), t in zip(prepared, up):
+                        inputs[name] = t
+        metrics: dict = {}
+        for key, inputs, rows in prepared:
+            for opt, _ in rows:
+                opt.scalars.copy_(next(slots[opt]))
+            metrics = self._step_graphs.run(key, inputs)
+        return metrics
 
     def _prep_batch(self, data: dict):
         """The loader batch as the train step takes it, on the device: the HR

@@ -27,7 +27,15 @@ from esr_tpu_torch.cem.kernels import resolve_kernel
 from esr_tpu_torch.data.pipeline import make_train_pipeline
 from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.models import losses as L
-from esr_tpu_torch.models.base_model import Adam, BaseModel, multistep_schedule, opt_float, step_generator, step_keyed
+from esr_tpu_torch.models.base_model import (
+    Adam,
+    BaseModel,
+    TrainStep,
+    multistep_schedule,
+    opt_float,
+    step_generator,
+    step_keyed,
+)
 from esr_tpu_torch.models.networks import define_G
 from esr_tpu_torch.ops.metrics import psnr_torch
 from esr_tpu_torch.parallel.dp import StepParallel
@@ -36,27 +44,32 @@ __all__ = ["SRModel", "make_sr_train_step"]
 
 
 def make_sr_train_step(g, pipeline, g_opt: Adam, lr_schedule, pixel_criterion: str = "l1",
-                       pixel_weight: float = 1.0, par: StepParallel | None = None):
+                       pixel_weight: float = 1.0, par: StepParallel | None = None) -> TrainStep:
     """``train_step(hr_batch, gen) -> metrics``: the pipeline's batch, the
     pixel loss of ``g(LR, Z)`` against HR, one Adam update at learning rate
     ``lr_schedule(g_opt.count)`` (use ``step_keyed`` for the global step).
-    ``par``: the parallel axes, as in ``make_gan_train_step``."""
+    ``par``: the parallel axes, as in ``make_gan_train_step``. A
+    :class:`~esr_tpu_torch.models.base_model.TrainStep`: the pipeline and
+    the learning rate on the host, the rest on the device."""
     params = g_opt.params
     par = par or StepParallel()
     g_fwd = par.g_apply or g
 
-    def train_step(hr_batch, gen: torch.Generator) -> dict:
+    def prepare(hr_batch, gen: torch.Generator):
         # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
         batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
-        with torch.enable_grad():
-            sr = g_fwd(batch["LR"], batch.get("Z"))
-            loss = pixel_weight * par.batch.mean(L.pixel_loss(sr, batch["HR"], pixel_criterion))
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        g_opt.step(par.sync_g(params, list(grads)), lr_schedule(g_opt.count), par.sync_g.sq_sum)
-        return {"l_pix": loss.detach(),
-                "psnr": psnr_torch(sr.detach(), batch["HR"], quantize=False, mean=par.batch.mean)}
+        return None, {"lr": batch["LR"], "hr": batch["HR"], "z": batch.get("Z")}, [
+            (g_opt, g_opt.next_scalars(lr_schedule(g_opt.count)))]
 
-    return train_step
+    def core(key, lr, hr, z) -> dict:  # noqa: ARG001
+        with torch.enable_grad():
+            sr = g_fwd(lr, z)
+            loss = pixel_weight * par.batch.mean(L.pixel_loss(sr, hr, pixel_criterion))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        g_opt.step(par.sync_g(params, list(grads)), None, par.sync_g.sq_sum)
+        return {"l_pix": loss.detach(), "psnr": psnr_torch(sr.detach(), hr, quantize=False, mean=par.batch.mean)}
+
+    return TrainStep(prepare, core)
 
 
 def _pipeline(opt: dict, scale: int, nz: int, lr_synth):
@@ -116,10 +129,30 @@ class SRModel(BaseModel):
             opt_float(train_opt, "pixel_weight", 1.0), par=self._par,
         )
         self._rng_seed = self.seed + 1
+        self._step_graphs = self._make_step_graphs("SR train step")
+
+    def _prepare_step(self, batch, step: int):
+        return self._train_step.prepare(batch, step_generator(self._rng_seed, step))
 
     def optimize_parameters(self, step: int) -> None:
+        """Train step ``step`` on the fed batch (on CUDA in one process, a
+        CUDA graph's replay: ``BaseModel._run_steps``)."""
         self.step = step
-        self._losses = self._train_step(self._prep_batch(self._data), step_generator(self._rng_seed, step))
+        self._losses = self._run_steps([self._prepare_step(self._prep_batch(self._data), step)])
+
+    def optimize_parameters_chunk(self, first_step: int, chunk: dict) -> None:
+        """Train steps ``first_step`` .. ``first_step + k - 1`` on the k
+        loader batches of ``chunk`` (``train.stack_chunk``: arrays stacked on
+        a leading step axis): every step's pipeline and draws first, then the
+        k device parts back to back (on CUDA, k replays of the step's graph
+        with the step scalars uploaded once). The trajectory of k
+        ``optimize_parameters`` calls; ``get_current_losses`` then reports the
+        last step's metrics."""
+        batches = self._prep_batch(chunk)
+        k = int(np.asarray(chunk["HR"]).shape[0])
+        pick = (lambda i: {n: v[i] for n, v in batches.items()}) if isinstance(batches, dict) else batches.__getitem__
+        self._losses = self._run_steps([self._prepare_step(pick(i), first_step + i) for i in range(k)])
+        self.step = first_step + k - 1
 
     def test(self, z: np.ndarray | torch.Tensor | None = None) -> None:
         """Forward the fed LR (HWC or NHWC) with Z (zeros when None); SR and
@@ -160,6 +193,7 @@ class SRModel(BaseModel):
 
     def resume_training(self, path: str) -> tuple[int, int]:
         state = self.restore_training_state(path)
+        self._drop_step_graphs()
         self._load_state(self.g_module, state["G"]["net"])
         self._load_opt_state(self.g_module, self.g_opt, state["G"]["opt"])
         self.step = int(state["iter"])

@@ -32,7 +32,14 @@ import torch
 
 from esr_tpu_torch.models import losses as L
 from esr_tpu_torch.models.architecture import FlaxBatchNorm2d
-from esr_tpu_torch.models.base_model import Adam, multistep_schedule, opt_float, step_generator, step_keyed
+from esr_tpu_torch.models.base_model import (
+    Adam,
+    TrainStep,
+    multistep_schedule,
+    opt_float,
+    step_generator,
+    step_keyed,
+)
 from esr_tpu_torch.models.networks import define_D, define_F
 from esr_tpu_torch.models.sr_model import SRModel, _pipeline
 from esr_tpu_torch.ops.metrics import psnr_torch
@@ -42,7 +49,7 @@ __all__ = ["SRRaGANModel", "make_gan_train_step"]
 
 
 def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: Adam, g_lr_schedule,
-                        d_lr_schedule, par: StepParallel | None = None):
+                        d_lr_schedule, par: StepParallel | None = None) -> TrainStep:
     """``train_step(hr_batch, gen, step, gp_eps=None) -> metrics`` (see the
     module docstring). G's learning rate is ``g_lr_schedule(step)``; D's
     ``d_lr_schedule(d_opt.count)`` (``step_keyed`` for the global step).
@@ -54,7 +61,12 @@ def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: A
     batch mean and batch statistic (D's BatchNorm, RaGAN's mean logits, the
     logged metrics) is the global batch's, the draws are the global batch's
     rows, and the gradients are reduced before Adam (and its clip): the step
-    computes what one process computes on the global batch."""
+    computes what one process computes on the global batch.
+
+    A :class:`~esr_tpu_torch.models.base_model.TrainStep`: the pipeline, the
+    WGAN-GP draw, ``do_g`` (the key: one graph for each value) and the
+    learning rates on the host; the CEM projection of HR, both losses, their
+    gradients and both updates on the device."""
     par = par or StepParallel()
     g_fwd = par.g_apply or g
     mean, stat_mean = par.batch.mean, par.batch.stat_mean
@@ -98,24 +110,29 @@ def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: A
         aux["psnr"] = psnr_torch(sr.detach(), hr, quantize=False, mean=mean)
         return loss, aux, sr
 
-    def train_step(hr_batch, gen: torch.Generator, step: int, gp_eps=None) -> dict:
+    def prepare(hr_batch, gen: torch.Generator, step: int, gp_eps=None):
         # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
         batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
-        lr, hr, z = batch["LR"], batch["HR"], batch.get("Z")
-        if cem is not None:
-            hr = cem.enforce_dt_on_image_pair(lr, hr)
         if w_gp and gp_eps is None:
             i, n_shards = par.shard
-            n = hr.shape[0]
+            n = batch["HR"].shape[0]
             gp_eps = torch.rand((n * n_shards, 1, 1, 1), generator=gen)[i * n : (i + 1) * n]
         # G first, against the pre-update D (steps are 1-based; strict >)
         do_g = step % d_ratio == 0 and step > d_init
+        rows = [(g_opt, g_opt.next_scalars(g_lr_schedule(step)))] if do_g else []
+        rows.append((d_opt, d_opt.next_scalars(d_lr_schedule(d_opt.count))))
+        inputs = {"lr": batch["LR"], "hr": batch["HR"], "z": batch.get("Z"), "gp_eps": gp_eps if w_gp else None}
+        return do_g, inputs, rows
+
+    def core(do_g: bool, lr, hr, z, gp_eps) -> dict:
+        if cem is not None:
+            hr = cem.enforce_dt_on_image_pair(lr, hr)
         with torch.set_grad_enabled(do_g):
             l_g, aux, fake = g_loss(lr, hr, z)
             if do_g:
                 grads = torch.autograd.grad(l_g, g_params, allow_unused=True)
         if do_g:
-            g_opt.step(par.sync_g(g_params, list(grads)), g_lr_schedule(step), par.sync_g.sq_sum)
+            g_opt.step(par.sync_g(g_params, list(grads)), None, par.sync_g.sq_sum)
         fake = fake.detach()
 
         # D every step; the penalty reads D at its pre-step running statistics
@@ -126,13 +143,13 @@ def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: A
             d_real, d_fake = d(torch.cat([hr, fake]), train=True, update_stats=True).chunk(2)
             l_d = L.ragan_d_loss(d_real, d_fake, gan_type, relativistic, mean, stat_mean) + l_d
             d_grads = torch.autograd.grad(l_d, d_params, allow_unused=True)
-        d_opt.step(par.sync_d(d_params, list(d_grads)), d_lr_schedule(d_opt.count), par.sync_d.sq_sum)
+        d_opt.step(par.sync_d(d_params, list(d_grads)), None, par.sync_d.sq_sum)
         metrics = {"l_d": l_d.detach(), "l_g": l_g.detach(), "D_real": mean(d_real.detach()),
                    "D_fake": mean(d_fake.detach())}
         metrics.update({k: v.detach() for k, v in aux.items()})
         return metrics
 
-    return train_step
+    return TrainStep(prepare, core)
 
 
 class SRRaGANModel(SRModel):
@@ -160,14 +177,14 @@ class SRRaGANModel(SRModel):
             g_lr_schedule=g_sched, d_lr_schedule=step_keyed(d_sched), par=self._par,
         )
         self._rng_seed = self.seed + 3
+        self._step_graphs = self._make_step_graphs("GAN train step")
         lg = logging.getLogger("base")
         for name, net in (("G", self.g_module), ("D", self.d_module), ("F", self.f_module)):
             n = sum(p.numel() for p in net.parameters())
             lg.info(f"Network {name}: {type(net).__name__} with {n:,d} parameters")
 
-    def optimize_parameters(self, step: int) -> None:
-        self.step = step
-        self._losses = self._train_step(self._prep_batch(self._data), step_generator(self._rng_seed, step), step)
+    def _prepare_step(self, batch, step: int):
+        return self._train_step.prepare(batch, step_generator(self._rng_seed, step), step)
 
     def save(self, iter_label) -> None:
         self.save_network(self.g_module, "G", iter_label)
@@ -182,6 +199,7 @@ class SRRaGANModel(SRModel):
 
     def resume_training(self, path: str) -> tuple[int, int]:
         state = self.restore_training_state(path)
+        self._drop_step_graphs()
         for net, opt_, key in ((self.g_module, self.g_opt, "G"), (self.d_module, self.d_opt, "D")):
             self._load_state(net, state[key]["net"])
             self._load_opt_state(net, opt_, state[key]["opt"])

@@ -52,11 +52,16 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 class LaunchCounter:
     """Counts the launches of one kernel route (the wrapper adds one per
-    launch), or the weight layouts built for a kernel."""
+    launch), or the weight layouts built for a kernel. Every counter made is
+    listed in :data:`LaunchCounter.all` (a CUDA graph's replay adds what its
+    capture counted: ``utils/graphs.py``)."""
+
+    all: list["LaunchCounter"] = []
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        LaunchCounter.all.append(self)
 
     def reset(self) -> None:
         self.count = 0

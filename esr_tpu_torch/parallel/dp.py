@@ -18,8 +18,11 @@ the same with one process per rank:
   whole gradient (:meth:`GradSync.sq_sum`), a channel-sharded trunk's
   slices included.
 
-JAX's chunked form (``batch_dim=1``, ``steps_per_dispatch``) has no
-counterpart: every step runs alone.
+JAX's chunked form (``batch_dim=1``, ``steps_per_dispatch``): the train
+loop groups the same chunks, and with several ranks each step of a chunk
+runs alone and eagerly. One process replays a CUDA graph of the step
+(``utils/graphs.py``); several do not, because gloo's collectives cannot be
+captured and a capture under NCCL has not been checked.
 """
 
 from __future__ import annotations

@@ -52,10 +52,12 @@ def host_shard(items: list, process_index: int | None = None, process_count: int
     return items[pi::pc]
 
 
-def global_device_array(local_batch, mesh, device: str | torch.device = "cpu"):
-    """This process's rows of a global batch, on ``device``: the local shard
-    that JAX's ``make_array_from_process_local_data`` places over the 'data'
-    axis, here as tensors (a dict of arrays or one array)."""
+def global_device_array(local_batch, mesh, device: str | torch.device | None = None):
+    """This process's rows of a global batch, on ``device`` (this rank's GPU,
+    ``comm.rank_device("cuda")``, unless given): the local shard that JAX's
+    ``make_array_from_process_local_data`` places over the 'data' axis, here
+    as tensors (a dict of arrays or one array)."""
+    device = comm.rank_device("cuda") if device is None else torch.device(device)
     g = mesh.group("data")
 
     def put(x):

@@ -12,10 +12,17 @@ newest training state and replays the data stream from there
 flight, saves the networks and the training state, and exits cleanly (under
 a process group, every rank stops after the first step at which any rank
 has seen it). The watchdog (on unless ``train.watchdog: false``) exits 86
-when steps stop coming. ``train.steps_per_dispatch`` is accepted and ignored: the JAX
-package folds that many steps into one program to save TPU dispatches, the
-port runs every step alone (the same trajectory). Runs on CUDA unless
-``--device cpu``.
+when steps stop coming. Runs on CUDA unless ``--device cpu``.
+
+``train.steps_per_dispatch`` k > 1 groups k loader batches into a chunk
+(``optimize_parameters_chunk``), as the JAX package does: a chunk never
+crosses a print, validation or save step (:func:`chunk_limit`), so the log,
+validation and checkpoint cadence is the per-step loop's, and a pending
+chunk is trained before the final or preemption save, so a resumed run
+replays the same batches. On CUDA in one process each train step is a CUDA
+graph's replay, and a chunk replays it k times with nothing on the host in
+between but the copies of each step's inputs; on the CPU (or with several
+ranks) a chunk runs k eager steps. The trajectory is the per-step loop's.
 
 Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` > 1) every rank joins
 the process group (``dist_backend``) and trains the options' parallel axes
@@ -46,7 +53,27 @@ from esr_tpu_torch.parallel import comm
 from esr_tpu_torch.utils import Logger, mkdir_and_rename, mkdirs, set_random_seed, setup_logger
 from esr_tpu_torch.utils.watchdog import arm_from_opt
 
-__all__ = ["main", "validate"]
+__all__ = ["chunk_limit", "main", "stack_chunk", "validate"]
+
+
+def chunk_limit(step: int, k: int, freqs, niter: int) -> int:
+    """The longest chunk after ``step`` that crosses no event step (a multiple
+    of a nonzero freq in ``freqs``) and not ``niter``: at most ``k``, at least 1."""
+    limit = niter - step
+    for f in freqs:
+        if f:
+            limit = min(limit, f - step % f)
+    return max(1, min(k, limit))
+
+
+def stack_chunk(batches: list) -> dict:
+    """Loader batches (dicts) stacked on a new leading step axis; values that
+    are not arrays (path lists) collected into lists."""
+    out = {}
+    for key in batches[0]:
+        vals = [b.get(key) for b in batches]
+        out[key] = np.stack(vals) if all(isinstance(v, np.ndarray) for v in vals) else vals
+    return out
 
 
 def main(argv=None) -> None:
@@ -133,19 +160,30 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
     total_epochs = max(1, math.ceil(niter / len(train_loader)))
     tlogger = Logger(opt) if main_rank else None
     logger.info(f"training for {niter} iters (~{total_epochs} epochs) on {device}")
-    if int(train_opt.get("steps_per_dispatch") or 1) > 1:
-        logger.info("steps_per_dispatch is ignored: the port runs every step alone (the same trajectory)")
+    k_dispatch = int(train_opt.get("steps_per_dispatch") or 1)
+    event_freqs = (print_freq, val_freq if val_loader is not None else 0, save_freq)
     wd = arm_from_opt(train_opt.get("watchdog"), train_opt.get("watchdog_factor"), logger)
 
+    def run(chunk: list, step: int) -> int:
+        """Train the pending batches (a chunk of one is a plain step); the new step count."""
+        if len(chunk) == 1:
+            model.feed_data(chunk[0])
+            model.optimize_parameters(step + 1)
+        else:
+            model.optimize_parameters_chunk(step + 1, stack_chunk(chunk))
+        return step + len(chunk)
+
     epoch = start_epoch
+    chunk = []  # batches drawn and not yet trained; kept across epochs
     try:
         for epoch in range(start_epoch, total_epochs + 1):
             for batch in train_loader:
                 if current_step >= niter or _stop_requested(preempted):
                     break
-                model.feed_data(batch)
-                current_step += 1
-                model.optimize_parameters(current_step)
+                chunk.append(batch)
+                if len(chunk) < chunk_limit(current_step, k_dispatch, event_freqs, niter):
+                    continue
+                current_step, chunk = run(chunk, current_step), []
                 if wd is not None:
                     wd.beat(current_step)
                 if current_step % print_freq == 0 and tlogger is not None:
@@ -166,6 +204,10 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
                         wd.beat(count=False)
             if current_step >= niter or _stop_requested(preempted):
                 break
+        if chunk:
+            # its batches are drawn from the data stream: train them before the save, or a resumed
+            # run (set_position) would hand other batches to those steps
+            current_step = run(chunk, current_step)
         model.save("latest")
         if preempted["stop"]:
             model.save_training(epoch, current_step)

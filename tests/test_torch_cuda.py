@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-eval and serving entry points through them, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, the eval
+and serving entry points through them, and the train and Z steps as CUDA
+graphs against the same steps eagerly, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor esr_tpu, so that they run where
@@ -793,3 +794,122 @@ def test_cuda_graft_entry_runs_the_flagship_on_the_kernels(cuda):
     assert [c.count - b for c, b in zip(counters, before)] == [69, 4, 2]
     assert tuple(out.shape) == (2, 256, 256, 3) and bool(torch.isfinite(out).all())
     assert (make_cem(CEMConf(scale=4), device=cuda).downsample(out) - lr).abs().max().item() <= 1e-5
+
+
+def _graph_train_options(root):
+    opt = _nb2_options(root, name="cuda_graph_train")
+    opt["network_G"]["nb"] = 1
+    opt["datasets"] = {"train": {"name": "syn", "mode": "SYNTHETIC", "batch_size": 2, "HR_size": 64}}
+    opt["network_D"] = {"nf": 16}
+    opt["train"] = {"pixel_weight": 0.01, "feature_weight": 1.0, "gan_weight": 0.005, "range_weight": 1.0,
+                    "map_weight": 1.0, "lr_steps": [2]}
+    return opt
+
+
+@pytest.mark.cuda
+def test_cuda_gan_step_graph_equals_eager(cuda, tmp_path):
+    """Three GAN steps (across an lr_steps milestone) replayed as the step's
+    CUDA graph against the same steps eagerly, from the same seeds, with
+    cuDNN's deterministic algorithms: weights, Adam moments and metrics bit
+    for bit, and each step's launches (3 / 4 / 2) counted on replays too."""
+    from esr_tpu_torch.models import create_model
+    from esr_tpu_torch.options import parse
+
+    rng = np.random.default_rng(0)
+    batches = [{"HR": (rng.random((2, 64, 64, 3)) * 255).astype(np.uint8)} for _ in range(3)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graphed in (True, False):
+            model = create_model(parse(_graph_train_options(tmp_path), is_train=True))
+            model._step_graphs.enabled = graphed
+            losses, counts = [], []
+            for i, b in enumerate(batches):
+                before = [c.count for c in _COUNTERS]
+                model.feed_data(b)
+                model.optimize_parameters(i + 1)
+                losses.append(model.get_current_losses())
+                counts.append([c.count - n for c, n in zip(_COUNTERS, before)])
+            torch.cuda.synchronize()
+            runs.append((model, losses, counts))
+        (mg, lg, cg), (me, le, ce) = runs
+        assert len(mg._step_graphs.steps) == 1 and mg._step_graphs.steps[0].graph is not None
+        assert cg == ce == [[3, 4, 2]] * 3
+        assert lg == le
+        for a, b in ((mg.g_module, me.g_module), (mg.d_module, me.d_module)):
+            assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+        for a, b in ((mg.g_opt, me.g_opt), (mg.d_opt, me.d_opt)):
+            assert a.count == b.count == 3
+            assert all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu))
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_cuda_z_search_graph_equals_eager(cuda):
+    """A 6-step Z search through a frozen nb-1 flagship-width generator
+    (prebuilt layouts, CEM) replayed as a CUDA graph against the same search
+    eagerly: trace, Z and best Z bit for bit, 3 / 4 / 2 launches a step, and
+    a second search on the same buffers replays without capturing again."""
+    from esr_tpu_torch.cem import CEMConf, make_cem
+    from esr_tpu_torch.explore import objectives as PO
+    from esr_tpu_torch.explore.z_optimizer import ZSearch
+    from esr_tpu_torch.models import define_G
+
+    g = define_G(_nb2_options(".", network_G={"nf": 64, "nb": 1, "gc": 32, "num_latent_channels": 1}),
+                 device=cuda, seed=0).requires_grad_(False)
+    g.prepare_kernels()
+    cem = make_cem(CEMConf(scale=4), device=cuda)
+
+    def forward(lr, z):
+        return cem.project(g(lr, z), lr)
+
+    rng = np.random.default_rng(0)
+    lr = torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32)).to(cuda)
+    z0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 16, 16, 1)).astype(np.float32)).to(cuda)
+    mask = torch.ones(64, 64, device=cuda)
+    obj = PO.variance_objective(1.0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for graphed in (True, False):
+            search = ZSearch(forward, lr, z0, mask, obj.fn, obj.aux)
+            search.step.enabled = graphed
+            search.set_round(1.0)
+            before = [c.count for c in _COUNTERS]
+            losses = search.run(6, lambda count: 0.1)
+            torch.cuda.synchronize()
+            assert [c.count - n for c, n in zip(_COUNTERS, before)] == [18, 24, 12]
+            out.append((losses.clone(), search.z.clone(), search.best_z.clone(), search))
+        (lg, zg, bg, sg), (le, ze, be, _) = out
+        assert torch.equal(lg, le) and torch.equal(zg, ze) and torch.equal(bg, be)
+        graph = sg.step.graph
+        sg.load(lr, z0, mask, obj.aux)
+        sg.set_round(1.0)
+        assert torch.equal(sg.run(6, lambda count: 0.1), lg) and sg.step.graph is graph
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_error_raises(cuda):
+    """A step that reads a value back to the host mid-step cannot be
+    captured: the helper raises with the reason after the eager warm-up, and
+    counts nothing for the capture."""
+    from esr_tpu_torch.ops.cuda.lib import LaunchCounter
+    from esr_tpu_torch.utils.graphs import GraphedStep
+
+    x = torch.ones(4, device=cuda)
+    counter = LaunchCounter("test_capture")
+
+    def step():
+        counter.count += 1
+        return x * float(x.sum())
+
+    try:
+        with pytest.raises(RuntimeError, match="host sync: CUDA graph capture failed"):
+            GraphedStep(step, cuda, "host sync")()
+        assert counter.count == 1  # the warm-up ran; the capture counted nothing
+        assert torch.equal(x * 2, torch.full((4,), 2.0, device=cuda))  # the card still works
+    finally:
+        LaunchCounter.all.remove(counter)

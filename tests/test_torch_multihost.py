@@ -117,5 +117,5 @@ def test_multihost_helpers_single_process():
     items = list(range(10))
     assert host_shard(items) == items
     assert host_shard(items, process_index=1, process_count=4) == [1, 5, 9]
-    batch = global_device_array({"HR": np.ones((8, 4, 4, 3), np.float32)}, make_mesh())
+    batch = global_device_array({"HR": np.ones((8, 4, 4, 3), np.float32)}, make_mesh(), device="cpu")
     assert tuple(batch["HR"].shape) == (8, 4, 4, 3) and str(batch["HR"].device) == "cpu"

@@ -2,8 +2,8 @@
 run equals 3 steps + ``--auto_resume`` + 3 (weights, optimiser states and
 the logged losses bit for bit: the step's random numbers are a function of
 (seed, step) and the loader replays its position); SIGTERM finishes the step
-and saves; steps_per_dispatch 2 (ignored) gives the same trajectory; the zero-batch
-error; ``train_metrics.csv``; validation and the checkpoints the eval CLI
+and saves; steps_per_dispatch 2 (chunks of 2 between the print steps) gives
+the same trajectory; the zero-batch error; ``train_metrics.csv``; validation and the checkpoints the eval CLI
 loads; the SR trainer. Tiny size: nf 8, nb 1, gc 4, HR 32, batch 2.
 """
 
@@ -126,10 +126,26 @@ def test_train_cli_sigterm_saves_and_resumes(straight, tmp_path, monkeypatch):
 
 
 def test_train_cli_chunked_dispatch_matches_per_step(straight, tmp_path):
-    """steps_per_dispatch 2 is accepted and runs the same trajectory."""
-    ptrain.main(["-opt", _write(tmp_path, _opt(tmp_path, steps_per_dispatch=2)), "--device", "cpu"])
+    """steps_per_dispatch 2 with a print every 2 steps runs steps 1-2 and 5-6
+    as chunks (3 and 4 alone: validation and saves at 3) and the straight
+    run's trajectory: the same states, and its metrics at the printed steps."""
+    opt = _opt(tmp_path, steps_per_dispatch=2)
+    opt["logger"]["print_freq"] = 2
+    from esr_tpu_torch.models.srragan_model import SRRaGANModel
+
+    ran = []
+    orig = SRRaGANModel.optimize_parameters_chunk
+
+    def chunk(self, first_step, batches):
+        ran.append((first_step, len(batches["HR"])))
+        orig(self, first_step, batches)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(SRRaGANModel, "optimize_parameters_chunk", chunk)
+        ptrain.main(["-opt", _write(tmp_path, opt), "--device", "cpu"])
+    assert ran == [(1, 2), (5, 2)]
     _same_state(_state(tmp_path, 6), _state(straight, 6))
-    assert _csv(tmp_path) == _csv(straight)
+    assert _csv(tmp_path) == [r for r in _csv(straight) if int(r["step"]) % 2 == 0]
 
 
 def test_train_cli_zero_batch_loader_errors(tmp_path):
