@@ -38,7 +38,17 @@ Phases (any failure exits non-zero and prints no result):
    against the f32 plain path in turns: launches per forward on the f32
    counters and of ``conv_f32_kernel`` itself, CEM residual, max error
    within 1e-4 of the f32 plain path (a band the plain path with TF32 on
-   misses), ms per forward, ``conv_f32_kernel``'s device time in it;
+   misses), ms per forward, ``conv_f32_kernel``'s device time in it; and the
+   eval forward as one CUDA graph per input shape (``EvalForward``) against
+   the same forward eagerly, cuDNN deterministic, at B16 x LR 128, the
+   serving buckets (1x128x128 also the explorer's render), B2 x LR 64 and a
+   request's 96x80: bit for bit on the capture call and two replays, 69 / 4
+   / 2 launches a replay, capture seconds and pool growth, a replay's trace
+   (the eager forward's kernel events from one graph launch), ms of the
+   graph, the eager kernel path and the bf16 plain path as a graph in turns
+   (also at B16 x LR 128 above), the answer's copy, and a planted fault (a
+   forward that keeps its graphs after new weights' layouts are built
+   answers with the old weights; the layout generation check catches it);
 6. the eval CLI (``esr_tpu_torch.test.main``) at the flagship width on the
    weights of ``define_G(seed=0)`` loaded back from a ``.pth``: a SYNTHETIC
    set (4 images, HR 512) and a folder of PNGs written by the port's codec
@@ -47,12 +57,16 @@ Phases (any failure exits non-zero and prints no result):
    ``eval_batch`` 4, and the DIV2K-sized image with ``self_ensemble``:
    launches per forward, CEM residual of every draw, batched == serial, the
    saved PNGs == the SR uint8, the DIV2K-sized image's PSNR against the f32
-   plain path beside the bf16 plain path's, ms per image per draw;
+   plain path beside the bf16 plain path's, ms per image per draw; a forward
+   graph per padded shape (capture seconds, pool growth);
 7. serving: export buckets 1x64x64, 1x128x128, 1x96x96, start the HTTP
    server in a thread, GET /healthz, POST /sr (zeros Z, seeded random Z
    twice and another seed, a junk body, an image too large): each answer
-   equal to the live Servable's and to the forward on the padded LR cropped
-   back, launches and latency per request, export time;
+   equal to the live Servable's and to the eager forward on the padded LR
+   cropped back, the Servable's graph (one per bucket, captured by
+   make_server's warm-up) bit for bit against the eager forward, launches
+   and latency per request and its parts (the forward as a graph and
+   eagerly), export time;
 8. training: the train CLI (``esr_tpu_torch.train.main``) on the port's
    copy of train_explorable_SR.json at full width (G nf 64 nb 23 gc 32 x4
    with Z and CEM, D nf 64 with BatchNorm, VGG19 conv5_4 loss, B16 x HR
@@ -78,8 +92,10 @@ Phases (any failure exits non-zero and prints no result):
    histogram, realism, alternatives k=2 with one applied), then smooth with
    no selection (the whole image): each click's loss goes down (or its
    adaptive report names its stop), CEM residual, undo restores the SR bit
-   for bit, no layout built; launches per G call over the clicks, per Z step
-   forward and backward (none) by hand; dloss/dZ through the kernels against
+   for bit, no layout built; launches per G call over the clicks (the SR
+   renders counted at the session's render forward, a CUDA graph of the
+   image's shape: bit for bit against the session's forward eagerly), per
+   Z step forward and backward (none) by hand; dloss/dZ through the kernels against
    the bf16 and f32 plain paths (a band shown to fail an RDB kernel that
    returns its input); ms per Z step beside the bf16 plain autograd path (in
    turns), per click, the device's idle share and host time per step;
@@ -90,8 +106,10 @@ Phases (any failure exits non-zero and prints no result):
    at support 33, ms per ``project`` at B16; (b) KernelGAN: the
    effective-kernel identity, the supervised probe (corr > 0.88; run twice,
    the same kernel bit for bit), the adversarial estimate through
-   ``scripts.blind_bench`` (LR 96, 2000 iterations), ms per iteration and
-   the device's idle share; (c) the ``estimate_kernel`` script at 200
+   ``scripts.blind_bench`` (LR 96, 2000 iterations), the iteration as a
+   CUDA graph against the eager loop bit for bit over 250 iterations for
+   both steps (cuDNN deterministic), ms per iteration of both in turns and
+   a graphed chunk's device idle share; (c) the ``estimate_kernel`` script at 200
    iterations; (d) blind eval through
    ``test.main --estimate_kernel 200`` at the flagship width on two 1/f
    images and their Gaussian LR, beside the run without the flag, and with
@@ -126,8 +144,8 @@ Phases (any failure exits non-zero and prints no result):
 12. the scripts, the profiler, the probes and the port's entry point:
    ``graft_entry.entry()``'s forward (B2 x LR 64: 69 / 4 / 2 launches, CEM
    residual); ``utils/profiler``'s ``StepTimer`` and a ``trace`` of two
-   forwards in regions (138 ``rdb5c_tc_kernel`` events in their device
-   spans of its Chrome trace, after a forward outside them; device ms
+   forwards in regions (138 ``rdb5c_tc_kernel`` events launched in them,
+   by correlation id, in its Chrome trace, after a forward outside them; device ms
    by kernel, the host's split between CUDA launch calls, waits and aten
    ops' CPU time, also for one Z-search click); ``scripts.explore_bench``
    (one region, 2 repeat clicks, 32 steps, no adaptive imprint);
@@ -155,8 +173,9 @@ Phases (any failure exits non-zero and prints no result):
    step of the three paths, a click with its capture and a repeat click;
    (d) the train CLI with ``steps_per_dispatch`` 3 against the per-step run
    (log rows and checkpoints). At most 90 s. With one process, every train
-   step and Z step of the earlier phases is a graph replay too (the first of
-   each shape captures it); phase 11's ranks run eagerly.
+   step, Z step, eval forward (but a trainer's validation) and KernelGAN
+   iteration of the earlier phases is a graph replay too (the first of each
+   shape captures it); phase 11's ranks run eagerly.
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after; phase 11 in each rank). The last line is
@@ -165,6 +184,7 @@ to 0 just before, read just after; phase 11 in each rank). The last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -223,6 +243,7 @@ from esr_tpu_torch.options import parse
 from esr_tpu_torch.scripts import blind_bench
 from esr_tpu_torch.scripts import estimate_kernel as estimate_kernel_cli
 from esr_tpu_torch.scripts.serve import make_server
+from esr_tpu_torch.utils.graphs import GraphedStep
 
 REPO = Path(__file__).resolve().parent
 
@@ -264,6 +285,39 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, windows: int = 5) -> float:
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every ``GraphedStep`` made inside runs each call eagerly: the eager side
+    of a graph-against-eager comparison of a path that makes its own
+    (KernelGAN's iteration)."""
+    init = GraphedStep.__init__
+
+    def eager_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.enabled = False
+
+    GraphedStep.__init__ = eager_init
+    try:
+        yield
+    finally:
+        GraphedStep.__init__ = init
+
+
+def call_ms(fn, reps: int = 10) -> float:
+    """Milliseconds from one call of ``fn`` to its answer on the card (the
+    host's clock, synchronised before and after), median of ``reps``: the
+    latency a single request or render sees, host time included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -917,35 +971,42 @@ def phase_timing(card: str, rows: list[dict]) -> None:
            "scale": SCALE, "bf16": True}
     g = define_G(opt, device="cuda", seed=0)
     cem = make_cem(CEMConf(scale=SCALE), device="cuda")
-    fwd = make_eval_forward(g, cem)
+    graphed = make_eval_forward(g, cem)
+    fwd = make_eval_forward(g, cem, graphs=False)
     lr = torch.rand(B, LR, LR, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
     z = torch.zeros(B, LR, LR, NZ, device="cuda")
     plain = lambda: cem.project(plain_forward(g, lr, z, torch.bfloat16), lr)  # noqa: E731
+    plain_graph = GraphedStep(plain, lr.device, "bf16 plain forward")
 
     def layout_per_call(per_call: bool) -> None:
         """Build the kernels' weight layouts once, as make_eval_forward does,
-        or drop them so that every kernel call rebuilds its own."""
-        for m in g.modules():
-            if hasattr(m, "prepare_kernel"):
-                m.kernel_weights = None
+        or drop them so that every kernel call rebuilds its own (the graphed
+        forward sees the layout generation move and captures anew)."""
+        g.release_kernels()
         if not per_call:
             g.prepare_kernels()
 
-    # plain, kernels, kernels with the weight layout built per call (x2),
-    # kernels, plain: same card, same process
-    t = {"plain": [], "kernels": [], "kernels, layout per call": []}
-    for name in ("plain", "kernels", "kernels, layout per call", "kernels, layout per call", "kernels", "plain"):
+    # in turns, same card, same process: the bf16 plain path eagerly and as a
+    # CUDA graph, the kernel path as the forward's graph, eagerly, and eagerly
+    # with the weight layout built per call
+    paths = {"plain": plain, "plain, graphed": plain_graph, "kernels, graphed": lambda: graphed(lr, z),
+             "kernels": lambda: fwd(lr, z), "kernels, layout per call": lambda: fwd(lr, z)}
+    t = {name: [] for name in paths}
+    for name in list(paths) + list(paths)[::-1]:
         layout_per_call(name == "kernels, layout per call")
-        t[name].append(cuda_ms(plain if name == "plain" else lambda: fwd(lr, z), reps=2, warmup=1, windows=3))
+        t[name].append(cuda_ms(paths[name], reps=2, warmup=1, windows=3))
     hr_mp = B * (LR * SCALE) ** 2 / 1e6
     for name, ms in t.items():
         m = statistics.mean(ms)
         print(f"flagship forward B{B} LR{LR} x{SCALE} ({name}): {m:.2f} ms/forward "
               f"({', '.join(f'{v:.2f}' for v in ms)}), {hr_mp / (m / 1e3):.3f} HR MP/s on {card}", flush=True)
     print(f"kernel path / bf16 plain path: {statistics.mean(t['kernels']) / statistics.mean(t['plain']):.3f} "
-          "of the time per forward", flush=True)
+          f"of the time per forward; graphed: {statistics.mean(t['kernels, graphed']) / statistics.mean(t['plain, graphed']):.3f}"
+          f"; kernel path graphed / eager {statistics.mean(t['kernels, graphed']) / statistics.mean(t['kernels']):.3f}",
+          flush=True)
+    del graphed, plain_graph
 
-    # where the kernel path's time goes: device time by kernel over two forwards
+    # where the kernel path's time goes: device time by kernel over two eager forwards
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -956,7 +1017,7 @@ def phase_timing(card: str, rows: list[dict]) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile, 2 forwards (kernels): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    print(f"profile, 2 forwards (kernels, eager): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)", flush=True)
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
         ms = e.self_device_time_total / 1e3
@@ -1045,6 +1106,136 @@ def phase_f32_forward(card: str) -> dict:
           f"({sum(e.count for e in conv)} launches, {100 * conv_ms / max(busy_ms, 1e-9):.1f}% of busy)", flush=True)
     return {"launches": counts, "ms": statistics.mean(t["kernels"]), "plain_ms": statistics.mean(t["plain"]),
             "kernel_device_ms": conv_ms, "max_abs_err": err, "tf32_control_err": tf32_err}
+
+
+# -- phase 5, the forward as CUDA graphs ------------------------------------------
+
+# the shapes the port's callers give the eval forward (LR batch, height, width, Z): the bench shape
+# (phase 5), the serving buckets (phase 7; 1x128x128 is also the explorer's render of its LR 128 image,
+# phase 9), graft_entry.entry()'s B2 x LR 64 (phase 12), and a request's LR 96x80 unpadded (phase 4)
+GRAPH_SHAPES = (("B16 x LR 128", B, LR, LR, "zeros"), ("serving bucket 1x64x64", 1, 64, 64, "random"),
+                ("serving bucket 1x128x128, the explorer's render", 1, 128, 128, "random"),
+                ("serving bucket 1x96x96", 1, 96, 96, "random"), ("B2 x LR 64, graft_entry", 2, 64, 64, "zeros"),
+                ("request LR 96x80", 1, 96, 80, None))
+
+
+@torch.no_grad()
+def phase_forward_graphs(card: str) -> dict:
+    """Phase 5, the eval forward as one CUDA graph per input shape
+    (``EvalForward``) against the same forward eagerly, flagship width, bf16
+    kernels, CEM, cuDNN deterministic: at every shape of GRAPH_SHAPES the
+    capture call and two replays on new inputs bit for bit, 69 / 4 / 2
+    launches a replay, capture seconds and the pool's growth; a replay's
+    trace holds the kernels of an eager forward from one graph launch; ms per
+    forward of the graph, the eager kernel path and the bf16 plain path as a
+    graph, in turns, at B2 x LR 64 and the 1x64x64 bucket; the cost of the
+    answer's copy at B16 x LR 128; and a planted fault: a forward that keeps
+    its graphs after new weights' layouts are built answers with the old
+    weights, and the layout generation check is what catches it. Returns
+    the launches of one B16 x LR 128 replay."""
+    opt = {"network_G": {"nf": NF, "nb": NB, "gc": GC, "num_latent_channels": NZ}, "scale": SCALE, "bf16": True}
+    g = define_G(opt, device="cuda", seed=0)
+    cem = make_cem(CEMConf(scale=SCALE), device="cuda")
+    graphed, eager = make_eval_forward(g, cem), make_eval_forward(g, cem, graphs=False)
+    rng = np.random.default_rng(14)
+
+    def inputs(n, h, w, z_kind):
+        lr = torch.from_numpy(rng.random((n, h, w, 3), dtype=np.float32)).cuda()
+        if z_kind is None:
+            return lr, None
+        z = rng.uniform(-1, 1, (n, h, w, NZ)).astype(np.float32) if z_kind == "random" else \
+            np.zeros((n, h, w, NZ), np.float32)
+        return lr, torch.from_numpy(z).cuda()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        replay_counts = None
+        for what, n, h, w, z_kind in GRAPH_SHAPES:
+            same, counts, grew = [], [], None
+            for _ in range(3):  # the capture call, then two replays
+                lr, z = inputs(n, h, w, z_kind)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                r0 = torch.cuda.memory_reserved()
+                out, c, _ = counted(lambda: graphed(lr, z))
+                grew = (torch.cuda.memory_reserved() - r0) / 2**30 if grew is None else grew
+                counts.append(c)
+                same.append(torch.equal(out, eager(lr, z)))
+            step = graphed.graphs.steps[-1]
+            check(all(same) and all(c == EXPECTED_PER_FORWARD for c in counts) and step.graph is not None,
+                  f"phase 5 graphed forward, {what} ({n}x{h}x{w}, Z {z_kind}): the capture call and two replays == "
+                  f"the eager forward bit for bit {same}; launches a call {counts[-1]} == {EXPECTED_PER_FORWARD}; "
+                  f"capture {step.capture_seconds:.3f} s; the capture call's reserved memory +{grew:.3f} GiB (its "
+                  f"eager warm-up, then the graph's pool, shared by the shapes) on {card}")
+            if n == B:
+                replay_counts = counts[-1]
+        check(len(graphed.graphs.steps) == len(GRAPH_SHAPES),
+              f"phase 5 graphed forward: one graph per input shape ({len(graphed.graphs.steps)} for "
+              f"{len(GRAPH_SHAPES)} shapes)")
+
+        # a replay's trace: the kernels of an eager forward, from one graph launch
+        lr, z = inputs(B, LR, LR, "zeros")
+        with tempfile.TemporaryDirectory(prefix="forward_trace_") as d:
+            k_replay, split = traced(Path(d), "forward_replay", lambda: graphed(lr, z), lambda: graphed(lr, z))
+            k_eager, _ = traced(Path(d), "forward_eager", lambda: eager(lr, z), lambda: eager(lr, z))
+        want_k = {"rdb5c_tc_kernel": EXPECTED_PER_FORWARD["rdb5c"],
+                  "conv_tc_kernel": EXPECTED_PER_FORWARD["conv3x3"] + EXPECTED_PER_FORWARD["upsample2x_conv3x3"]}
+        check(k_replay == k_eager == want_k and split["graph_launches"] == 1,
+              f"phase 5 profiler trace of one B{B} x LR {LR} forward replay: kernel events {k_replay} == an eager "
+              f"forward's {k_eager} == {want_k}; {split['graph_launches']} graph launch, {split['launches']} launch "
+              f"calls in all; device busy {split['device_busy_ms']:.2f} ms")
+
+        # ms per forward where the host's share is largest, in turns: graph, eager kernels, bf16 plain as a graph
+        for what, n, h, w, z_kind in (GRAPH_SHAPES[4], GRAPH_SHAPES[1]):
+            lr, z = inputs(n, h, w, z_kind)
+            plain = GraphedStep(lambda: cem.project(plain_forward(g, lr, z, torch.bfloat16), lr), lr.device,  # noqa: B023
+                                "bf16 plain forward")
+            paths = {"graph": lambda: graphed(lr, z), "eager kernels": lambda: eager(lr, z),  # noqa: B023
+                     "bf16 plain, graphed": plain}
+            t, lat = {k: [] for k in paths}, {k: [] for k in paths}
+            for name in list(paths) + list(paths)[::-1]:
+                t[name].append(cuda_ms(paths[name], reps=10, warmup=2, windows=3))
+                lat[name].append(call_ms(paths[name]))
+            ms = {k: statistics.mean(v) for k, v in t.items()}
+            one = {k: statistics.mean(v) for k, v in lat.items()}
+            print(f"phase 5 forward {what} ({n}x{h}x{w}) on {card}, back to back (CUDA events): " + ", ".join(
+                f"{k} {v:.3f} ms ({', '.join(f'{x:.3f}' for x in t[k])})" for k, v in ms.items())
+                + f"; graph / eager {ms['graph'] / ms['eager kernels']:.3f}; one call to its answer on the host's "
+                f"clock (median of 10): " + ", ".join(f"{k} {v:.3f} ms" for k, v in one.items())
+                + f"; graph / eager {one['graph'] / one['eager kernels']:.3f}", flush=True)
+            del plain, paths
+        lr, z = inputs(B, LR, LR, "zeros")
+        out = graphed(lr, z)
+        copy_ms = cuda_ms(lambda: out.clone(), reps=10, warmup=2, windows=3)
+        fwd_ms = cuda_ms(lambda: graphed(lr, z), reps=2, warmup=1, windows=3)
+        print(f"phase 5 the answer's copy out of the graph at B{B} x LR {LR} ({out.numel() * 4 / 2**20:.1f} MiB f32): "
+              f"{copy_ms:.4f} ms of {fwd_ms:.2f} ms a graphed forward ({100 * copy_ms / fwd_ms:.2f}%) on {card}",
+              flush=True)
+        del out
+
+        # the planted fault: new weights and their layouts, a forward that keeps its old graphs
+        n, h, w = 2, 64, 64
+        lr, z = inputs(n, h, w, "random")
+        kept, checked = make_eval_forward(g, cem), make_eval_forward(g, cem)
+        kept._sync_layouts = lambda: None  # the copy with the generation check removed
+        old = [kept(lr, z), kept(lr, z), checked(lr, z), checked(lr, z)][-1]
+        old_layouts = [m.kernel_weights for m in g._kernel_modules()]  # alive: a stale graph reads the old weights
+        g.load_state_dict(define_G(opt, device="cuda", seed=1).state_dict())
+        g.prepare_kernels()
+        fresh = make_eval_forward(g, cem, graphs=False)(lr, z)
+        got, stale = checked(lr, z), kept(lr, z)
+        check(torch.equal(got, fresh) and not torch.equal(fresh, old) and len(checked.graphs.steps) == 1,
+              f"phase 5 stale layouts: after new weights and prepare_kernels, the forward drops its graphs "
+              f"(generation {checked.generation}) and answers as a fresh eager forward bit for bit; max |new - old| "
+              f"{max_err(fresh, old):.3g}")
+        check(torch.equal(stale, old) and not torch.equal(stale, fresh),
+              f"phase 5 planted fault, the generation check removed: the kept graph answers with the old weights "
+              f"(== the old answer {torch.equal(stale, old)}, max |stale - fresh| {max_err(stale, fresh):.3g}): the "
+              "comparison with a fresh forward fails it")
+        del old_layouts, kept, checked
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return replay_counts
 
 
 # -- phases 6 and 7: the inference entry points --------------------------------
@@ -1145,13 +1336,26 @@ def phase_eval(tmp: Path, pth: str) -> dict[str, dict]:
     out_dir = tmp / "results" / "eval_serial" / "folder"
     for idx, name in enumerate(("div2k", "ragged")):
         lr_p, orig = eval_cli._pad_to_bucket(folder[idx]["LR"], 32)
-        for zi in (0, 2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, walls = torch.cuda.memory_reserved(), []
+        for zi in (0, 2):  # the first call of the padded shape captures its graph, the second replays it
+            t0 = time.perf_counter()
             model.feed_data({"LR": lr_p})
             model.test(z=eval_cli._eval_z_draw(idx, zi - 1, lr_p.shape[:2], NZ) if zi else None)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
             want = eval_cli._sr_image(model.get_visuals_uint8()["SR"], orig, SCALE)
             saved = read_img_uint8(str(out_dir / f"{name}{'_z%d' % zi if zi else ''}.png"))
             check(saved.shape == want.shape and bool((saved == want).all()),
                   f"eval: saved {name} draw {zi} PNG {saved.shape} decodes to the SR uint8 (LR {lr_p.shape[:2]})")
+        step = model._forward.graphs.steps[-1]
+        print(f"eval forward graph of the {name} image's padded LR {lr_p.shape[:2]}: capture {step.capture_seconds:.3f} "
+              f"s; first call (warm-up + capture) {walls[0]:.3f} s, a replay's call {walls[1]:.3f} s (model.test, "
+              f"to the SR on the card); reserved memory +{(torch.cuda.memory_reserved() - r0) / 2**30:.3f} GiB "
+              "(the warm-up's blocks and the graph's pool, which the model's shapes share)", flush=True)
+    check(len(model._forward.graphs.steps) == 2, f"eval: one forward graph per padded shape "
+          f"({len(model._forward.graphs.steps)} for the two folder images)")
     g, cem, fwd = model.g_module, model.cem, model._forward
     lr = torch.from_numpy(folder[0]["LR"])[None].cuda()
     z = torch.from_numpy(eval_cli._eval_z_draw(0, 0, lr.shape[1:3], NZ))[None].cuda()
@@ -1176,11 +1380,12 @@ def phase_eval(tmp: Path, pth: str) -> dict[str, dict]:
     kw = {"reps": 2, "warmup": 1, "windows": 3}
     t_syn, t_syn4 = timed(1, 128, 128, **kw), timed(4, 128, 128, **kw)
     t_big, t_rag = timed(1, 512, 352, **kw), timed(1, 128, 96, **kw)
+    t_big_eager = timed(1, 512, 352, f=make_eval_forward(g, cem, graphs=False), **kw)
     t_se = timed(1, 510, 339, f=make_eval_forward(g, cem, self_ensemble=True), reps=1, warmup=1, windows=3)
     t_big_raw = timed(1, 510, 339, **kw)
-    print(f"eval forward device ms per image per draw (CEM included): serial LR 128x128 {t_syn:.2f}, "
-          f"batched 4 x 128x128 {t_syn4:.2f}; DIV2K-sized bucket 512x352 {t_big:.2f}, unpadded 510x339 "
-          f"{t_big_raw:.2f}; ragged bucket 128x96 {t_rag:.2f}; self-ensemble 510x339 {t_se:.2f} "
+    print(f"eval forward device ms per image per draw (CEM included; CUDA graphs): serial LR 128x128 {t_syn:.2f}, "
+          f"batched 4 x 128x128 {t_syn4:.2f}; DIV2K-sized bucket 512x352 {t_big:.2f} (eager {t_big_eager:.2f}), "
+          f"unpadded 510x339 {t_big_raw:.2f}; ragged bucket 128x96 {t_rag:.2f}; self-ensemble 510x339 {t_se:.2f} "
           f"({t_se / t_big_raw:.2f}x the plain forward)", flush=True)
     cem_new = make_cem(CEMConf(scale=SCALE))
     t0 = time.perf_counter()
@@ -1220,7 +1425,11 @@ def phase_serve(tmp: Path, pth: str) -> dict[str, int]:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    sv, live = server.servable, make_eval_forward(model.g_module, model.cem)
+    sv, live = server.servable, make_eval_forward(model.g_module, model.cem, graphs=False)
+    check(len(sv.forward.graphs.steps) == len(buckets) and all(st.graph is not None for st in sv.forward.graphs.steps),
+          f"serve: make_server's warm-up captured one forward graph per bucket "
+          f"({len(sv.forward.graphs.steps)} for {len(buckets)}; capture s "
+          f"{[round(st.capture_seconds, 3) for st in sv.forward.graphs.steps]})")
     totals = {c.name: 0 for c in COUNTERS}
     try:
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
@@ -1252,9 +1461,11 @@ def phase_serve(tmp: Path, pth: str) -> dict[str, int]:
             res = max_err(model.cem.downsample(out), lr_p)
             want_live = tensor2img(out[:, : SCALE * h, : SCALE * w])
             want_sv = tensor2img(sv.sr(lr, z)[:1])
-            check(sr.shape == (SCALE * h, SCALE * w, 3) and bool((sr == want_sv).all()) and bool((sr == want_live).all()),
-                  f"serve {what}: answer {sr.shape} == live Servable == forward on the padded LR "
-                  f"{(bh, bw)} cropped; CEM residual {res:.3g} <= {CEM_TOL}; {secs * 1e3:.1f} ms")
+            same = torch.equal(sv.forward(lr_p, z_p), out)
+            check(sr.shape == (SCALE * h, SCALE * w, 3) and bool((sr == want_sv).all()) and bool((sr == want_live).all())
+                  and same, f"serve {what}: answer {sr.shape} == live Servable == the eager forward on the padded LR "
+                  f"{(bh, bw)} cropped; the Servable's graph == the eager forward bit for bit {same}; CEM residual "
+                  f"{res:.3g} <= {CEM_TOL}; {secs * 1e3:.1f} ms")
             check(res <= CEM_TOL, f"serve {what}: CEM residual {res:.3g} <= {CEM_TOL}")
             answers.append(body)
         check(answers[1] == answers[2] and answers[1] != answers[3] and answers[0] != answers[1],
@@ -1279,6 +1490,7 @@ def phase_serve(tmp: Path, pth: str) -> dict[str, int]:
             parts[name] = statistics.median(times)
         parts["tensor2img + PNG encode of the answer"] -= parts["Servable.sr"]
         fwd_ms = cuda_ms(lambda: sv.forward(lr_p, z_p), reps=5, warmup=1, windows=3)
+        eager_ms = cuda_ms(lambda: live(lr_p, z_p), reps=5, warmup=1, windows=3)
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1289,8 +1501,9 @@ def phase_serve(tmp: Path, pth: str) -> dict[str, int]:
         busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         print("serve request LR 96x80 (bucket 96x96), host ms (median of 5): " +
-              ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f"; forward on the card {fwd_ms:.2f} ms "
-              f"(CUDA events, CEM included); one request under the profiler: wall {wall_ms:.2f} ms, device "
+              ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f"; forward on the card {fwd_ms:.2f} ms as "
+              f"its graph, {eager_ms:.2f} ms eagerly (CUDA events, CEM included); one request under the profiler: "
+              f"wall {wall_ms:.2f} ms, device "
               f"busy {busy_ms:.2f} ms (idle {100 - 100 * busy_ms / wall_ms:.1f}%)", flush=True)
         code, msg = post_sr(url, b"junk, not an image")
         check(code == 400, f"serve junk body: HTTP {code} ({msg[:60]!r})")
@@ -1731,10 +1944,12 @@ class SearchLog:
     trace (each tool click runs one or more searches). ``searching`` is set
     while a search runs: G's calls there are its Z steps, one each (a graph
     replay runs no Python, and the capture's call is none), so a forward hook
-    counts only the calls outside (:meth:`hook`)."""
+    counts only the calls outside (:meth:`hook`); ``rendering`` likewise
+    while the session's render forward runs (a graph per image shape too:
+    :meth:`count_renders` counts its calls)."""
 
     def __init__(self, inner):
-        self.inner, self.traces, self.searching = inner, [], False
+        self.inner, self.traces, self.searching, self.rendering = inner, [], False, False
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
@@ -1749,12 +1964,26 @@ class SearchLog:
         return z, losses
 
     def hook(self, g, forwards: list):
-        """Count ``g``'s calls outside the searches in ``forwards[0]``."""
+        """Count ``g``'s calls outside the searches and the renders in ``forwards[0]``."""
         def count(*_):
-            if not self.searching:
+            if not (self.searching or self.rendering):
                 forwards[0] += 1
 
         return g.register_forward_hook(count)
+
+    def count_renders(self, sess, renders: list) -> None:
+        """Count the session's render calls (one G call each) in ``renders[0]``."""
+        render = sess._render
+
+        def counted_render(lr, z):
+            renders[0] += 1
+            self.rendering = True
+            try:
+                return render(lr, z)
+            finally:
+                self.rendering = False
+
+        sess._render = counted_render
 
 
 def explore_session(tmp: Path, pth: str):
@@ -1819,8 +2048,10 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
           "explore: D attached for the realism tool, G frozen")
     log = SearchLog(sess._optimizer)
     sess._optimizer = log
-    forwards = [0]
+    forwards, renders = [0], [0]
     hook = log.hook(g, forwards)
+    render = sess._render
+    log.count_renders(sess, renders)
     clicks, text_target = explore_clicks(sess)
     y0, x0, y1, x1 = (v * SCALE for v in EXPLORE_BOX)
     sess.select_rect(y0, x0, y1, x1)
@@ -1835,7 +2066,7 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
     # the main path: every click, counts set to 0 just before and read just after
     for c in COUNTERS:
         c.reset()
-    forwards[0] = 0
+    forwards[0] = renders[0] = 0
     layouts0 = [c.count for c in LAYOUT_COUNTERS]
     timings = []
     for what, click in clicks:
@@ -1874,16 +2105,32 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
     torch.cuda.synchronize()
     counts = {c.name: c.count for c in COUNTERS}
     total_steps = sum(s for _, _, s in timings)
-    n_fwd = forwards[0] + total_steps
+    n_fwd = forwards[0] + renders[0] + total_steps
     hook.remove()
+    sess._render = render
     want = {k: v * n_fwd for k, v in EXPECTED_PER_FORWARD.items()}
     check(counts == want and [c.count for c in LAYOUT_COUNTERS] == layouts0,
-          f"explore, {len(clicks)} clicks ({total_steps} Z steps, {n_fwd} G calls with the SR renders): launches "
+          f"explore, {len(clicks)} clicks ({total_steps} Z steps, {n_fwd} G calls with the {renders[0]} SR renders): launches "
           f"{counts} == {want}, so none in any backward; layouts built during the clicks "
           f"{[c.count - b for c, b in zip(LAYOUT_COUNTERS, layouts0)]}")
     secs = sum(t for _, t, _ in timings)
     print(f"explore clicks: {secs:.2f} s for {total_steps} Z steps, {secs * 1e3 / total_steps:.2f} ms per Z step "
           f"on average (search, crop and paste, SR render and history included)", flush=True)
+    # the render: its own forward, a CUDA graph of the image's shape, against the session's forward eagerly
+    zt = torch.from_numpy(sess.z).to(lr.device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            same = torch.equal(render(lr, zt), sess.forward(lr, zt))
+        render_ms = cuda_ms(lambda: render(lr, zt), reps=5, warmup=1, windows=3)
+        with torch.no_grad():
+            eager_ms = cuda_ms(lambda: sess.forward(lr, zt), reps=5, warmup=1, windows=3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(same and len(render.graphs.steps) == 1 and render is not sess.forward,
+          f"explore render, LR {EXPLORE_LR}x{EXPLORE_LR} (the session's Z): its graph == the session's forward "
+          f"eagerly, bit for bit {same}; {len(render.graphs.steps)} graph; {render_ms:.3f} ms as a graph, "
+          f"{eager_ms:.3f} ms eagerly (CUDA events, CEM included)")
 
     # one Z step on the crop, by hand: the launches of its forward and backward
     y, x, size = bucket_crop(EXPLORE_BOX, EXPLORE_LR, EXPLORE_LR, SCALE)
@@ -2010,6 +2257,7 @@ def phase_explore(tmp: Path, pth: str) -> dict[str, int]:
 BLIND_LR = 96  # blind_bench's larger LR: 1/f HR 384 images, their Gaussian LR
 BLIND_ITERS = 200  # the estimator iterations of the blind CLIs' runs
 BENCH_ITERS = 2000  # blind_bench's adversarial estimate
+KG_ITERS = 250  # KernelGAN graph against eager: two chunks and a ragged last one
 BLIND_DEVICE = "cuda"
 ZERO_BY_DESIGN = {p: ("rdb5c", "upsample2x_conv3x3") for p in ("srresnet", "srresnet_train")}
 F32_SIMT = (rdb_conv.LAUNCHES_SIMT["f32"], kpack_conv.LAUNCHES_SIMT[(3, "f32")],
@@ -2085,10 +2333,11 @@ def blind_cem_checks() -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def kernelgan_checks(tmp: Path) -> tuple[np.ndarray, dict]:
+def kernelgan_checks(tmp: Path, card: str) -> tuple[np.ndarray, dict]:
     """(b) KernelGAN on the card: the effective-kernel identity, the
-    supervised probe, the adversarial estimate through ``blind_bench``, and
-    where an iteration's time goes. Returns the LR 96 image and the bench row."""
+    supervised probe, the adversarial estimate through ``blind_bench``, the
+    iteration as a CUDA graph against the eager loop (both steps), and where
+    an iteration's time goes. Returns the LR 96 image and the bench row."""
     conf = kernelgan.KernelGANConf()
     g = kernelgan.LinearKernelG(conf, seed=3).to(BLIND_DEVICE)
     x = torch.rand(1, BLIND_LR, BLIND_LR, 1, device=BLIND_DEVICE, generator=torch.Generator(BLIND_DEVICE).manual_seed(3))
@@ -2133,26 +2382,62 @@ def kernelgan_checks(tmp: Path) -> tuple[np.ndarray, dict]:
           f"residual est/true/bicubic {row['true_res_est']:.3g}/{row['true_res_true']:.3g}/{row['true_res_bicubic']:.3g};"
           f" self residual est {row['self_res_est']:.3g}; estimate {row['estimate_s']:.2f} s "
           f"({row['estimate_s'] * 1e3 / BENCH_ITERS:.3f} ms per iteration); f32 route launches {counts}")
-    # where an iteration's time goes: one chunk of 100, profiled
+    # the iteration as a CUDA graph (one capture, then a replay an iteration) against the same loop eagerly,
+    # cuDNN deterministic: both steps over 250 iterations (chunks of 100, 100 and 50), bit for bit
     _, lr96 = blind_lr(0, k_true)
+    adv250 = kernelgan.conf_for_image(lr96.shape, SCALE, KG_ITERS)
+    sup250 = kernelgan.KernelGANConf(**{**probe.__dict__, "iters": KG_ITERS})
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, conf, image, loss in (("adversarial", adv250, lr96, None), ("supervised", sup250, img, loss_override)):
+            runs = []
+            for graphed in (True, False):
+                calls = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.nullcontext() if graphed else eager_steps():
+                    k_, m_ = kernelgan.estimate_kernel(image, conf, progress=lambda *a: calls.append(a),  # noqa: B023
+                                                       loss_override=loss, device=BLIND_DEVICE)
+                runs.append((k_, m_, calls, time.perf_counter() - t0))
+            (k_g, m_g, c_g, s_g), (k_e, m_e, c_e, s_e) = runs
+            check(np.array_equal(k_g, k_e) and m_g == m_e and c_g == c_e and [c[0] for c in c_g] == [100, 200, 250],
+                  f"KernelGAN {what} step, {KG_ITERS} iterations (chunks of 100, 100, 50), cuDNN deterministic: the "
+                  f"iteration's CUDA graph (1 capture, {KG_ITERS - 1} replays) == the eager loop, kernel and every "
+                  f"chunk's metrics bit for bit (l_g {m_g['l_g']:.6f}); {s_g:.2f} s against {s_e:.2f} s")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # ms per iteration in turns (graph, eager, eager, graph): a 300-iteration estimate's progress calls (each
+    # after its chunk's one read from the device) 200 iterations apart, so no set-up and no capture; KernelGAN
+    # has no bf16 plain path (its G and D are f32 F.conv2d) to time beside them
+    def ms_per_iteration(graphed: bool) -> float:
+        stamps = {}
+        with contextlib.nullcontext() if graphed else eager_steps():
+            kernelgan.estimate_kernel(lr96, kernelgan.conf_for_image(lr96.shape, SCALE, 300), device=BLIND_DEVICE,
+                                      progress=lambda done, *_: stamps.setdefault(done, time.perf_counter()))
+        return (stamps[300] - stamps[100]) * 1e3 / 200
+
+    turns = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        turns[name].append(ms_per_iteration(name == "graph"))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    # where a graphed iteration's time goes: a 300-iteration estimate under the profiler (1 warm-up, 1 capture,
+    # 299 replays), its device busy time per iteration against the unprofiled iteration's time
     from torch.profiler import ProfilerActivity, profile
 
-    c100 = kernelgan.conf_for_image(lr96.shape, SCALE, 100)
-    kernelgan.estimate_kernel(lr96, c100, device=BLIND_DEVICE)  # warm
-    t0 = time.perf_counter()
-    kernelgan.estimate_kernel(lr96, c100, device=BLIND_DEVICE)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        kernelgan.estimate_kernel(lr96, c100, device=BLIND_DEVICE)
+        kernelgan.estimate_kernel(lr96, kernelgan.conf_for_image(lr96.shape, SCALE, 300), device=BLIND_DEVICE)
         torch.cuda.synchronize()
     ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in ops) / 1e3
-    print(f"KernelGAN iteration (default conf, g_input 64, LR {BLIND_LR}): {wall / 100:.3f} ms unprofiled; device busy "
-          f"{busy / 100:.3f} ms, idle {100 - 100 * busy / wall:.1f}%; {sum(e.count for e in ops) // 100} device ops per "
-          "iteration", flush=True)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3 / 300
+    print(f"KernelGAN iteration (default conf, g_input 64, LR {BLIND_LR}) on {card}: graph {ms['graph']:.3f} ms "
+          f"({', '.join(f'{v:.3f}' for v in turns['graph'])}), eager {ms['eager']:.3f} ms "
+          f"({', '.join(f'{v:.3f}' for v in turns['eager'])}), graph / eager {ms['graph'] / ms['eager']:.3f}; no bf16 "
+          f"plain path (f32 F.conv2d throughout); graphed: device busy {busy:.3f} ms an iteration, idle "
+          f"{100 - 100 * busy / ms['graph']:.1f}% of the graph's iteration; {sum(e.count for e in ops) // 300} device "
+          "events an iteration", flush=True)
     for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:5]:
-        print(f"  {e.self_device_time_total / 1e3 / 100:9.4f} ms/iter x{e.count // 100:<4d} {e.key[:90]}", flush=True)
+        print(f"  {e.self_device_time_total / 1e3 / 300:9.4f} ms/iter x{e.count:<5d} {e.key[:90]}", flush=True)
     return lr96, row
 
 
@@ -2340,13 +2625,13 @@ def srresnet_upconv_rows(g) -> list[dict]:
     return rows
 
 
-def phase_blind(tmp: Path, pth: str, rows: list[dict]) -> dict[str, dict]:
+def phase_blind(tmp: Path, pth: str, rows: list[dict], card: str) -> dict[str, dict]:
     """Phase 10: blind SR and the generator variants; returns the launches by
     path."""
     t_phase = time.perf_counter()
     launches = {}
     blind_cem_checks()
-    lr96, _ = kernelgan_checks(tmp)
+    lr96, _ = kernelgan_checks(tmp, card)
     lr_png = blind_cli_checks(tmp, lr96)
     launches["blind_eval"] = blind_eval_checks(tmp, pth)
     launches["blind_explore"] = blind_explore_checks(tmp, pth, lr_png)
@@ -3001,10 +3286,12 @@ def scripts_trace(tmp: Path, fn, lr, z, card: str) -> dict:
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "gpu_user_annotation"
              and e.get("name") in names]
     rdb_all = [e for e in events if e.get("cat") == "kernel" and "rdb5c_tc_kernel" in e.get("name", "")]
-    rdb_events = [e for e in rdb_all if any(a <= e["ts"] <= b for a, b in spans)]
-    check(len(rdb_events) == 2 * 3 * NB and len(spans) == 2,
-          f"phase 12 trace.json: {len(rdb_events)} rdb5c_tc_kernel events in the 2 regions' device spans == "
-          f"{2 * 3 * NB} ({len(spans)} spans; {len(rdb_all)} in the trace, 3 forwards; event categories "
+    # the regions' kernels by correlation with their launch calls (the forward is a CUDA graph: its
+    # kernels carry the graph launch's correlation id)
+    rdb_regions = sum(region_kernels(events, name)["rdb5c_tc_kernel"] for name in names)
+    check(rdb_regions == 2 * 3 * NB,
+          f"phase 12 trace.json: {rdb_regions} rdb5c_tc_kernel events launched in the 2 regions == {2 * 3 * NB} "
+          f"({len(spans)} device spans; {len(rdb_all)} in the trace, 3 forwards; event categories "
           f"{sorted({str(e.get('cat')) for e in events})})")
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in names]
@@ -3635,6 +3922,7 @@ def main() -> int:
     rows = phase_kernels()
     by_path = {"forward": phase_requests()}
     phase_timing(env["card"], rows)
+    by_path["forward_graph"] = phase_forward_graphs(env["card"])
     f32_forward = phase_f32_forward(env["card"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -3646,7 +3934,7 @@ def main() -> int:
         train_paths = phase_train(tmp)
         bands = {"grads": train_paths.pop("_grad_bands"), "losses": train_paths.pop("_loss_bands")}
         by_path["explore"] = phase_explore(tmp, pth)
-        by_path.update(phase_blind(tmp, pth, rows))
+        by_path.update(phase_blind(tmp, pth, rows, env["card"]))
         by_path.update(phase_parallel(tmp, pth, env["card"], bands))
         script_paths, f32_paths = phase_scripts(tmp, pth, env["card"])
         by_path.update(script_paths)

@@ -20,7 +20,8 @@ them with ``jax.random`` inside its scan), and the weights are seeded torch
 draws of flax's LeCun-normal init. The step takes its crops as arguments
 (:func:`make_kernelgan_step`), so a caller can feed it JAX's. The loop
 reads its metrics from the device once per chunk of 100 iterations, where
-``progress`` is called; the iterations between do not wait on the host.
+``progress`` is called; the iterations between do not wait on the host, and
+on CUDA each is one replay of a CUDA graph (:func:`estimate_kernel`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from torch import nn
 from esr_tpu_torch.device import full_f32, resolve_device
 from esr_tpu_torch.models.base_model import Adam
 from esr_tpu_torch.models.losses import jax_abs
+from esr_tpu_torch.utils.graphs import GraphedStep
 
 __all__ = [
     "KernelGANConf",
@@ -157,10 +159,9 @@ def effective_kernel(g: LinearKernelG, conf: KernelGANConf) -> torch.Tensor:
     centred delta probe returns the flipped kernel under cross-correlation,
     hence the flip. Differentiable in G's weights."""
     sup = _support(conf)
-    n = 2 * sup - 1  # the VALID response to a centred delta is exactly (sup, sup)
-    w = g.conv0.weight
-    delta = torch.zeros((1, n, n, 1), dtype=w.dtype, device=w.device)
-    delta[0, n // 2, n // 2, 0] = 1.0
+    c = sup - 1  # the VALID response to a centred delta of side 2c + 1 is exactly (sup, sup)
+    # built on the device (a pad of a one, no host copy), so that a CUDA graph can capture it
+    delta = F.pad(g.conv0.weight.new_ones((1, 1, 1, 1)), (0, 0, c, c, c, c))
     return g(delta, stride=False)[0, :, :, 0].flip(0, 1)
 
 
@@ -188,27 +189,50 @@ def _lsgan(logits: torch.Tensor, target: float) -> torch.Tensor:
     return torch.mean((logits - target) ** 2)
 
 
+def _adversarial_update(g: LinearKernelG, d: PatchD, conf: KernelGANConf, g_opt: Adam, d_opt: Adam,
+                        g_in: torch.Tensor, real: torch.Tensor) -> dict:
+    """The device part of an adversarial iteration: G's update, then D's, each
+    at its optimiser's staged step scalars (``Adam.step(grads)``)."""
+    with full_f32(), torch.enable_grad():
+        fake = g(g_in)
+        adv = _lsgan(d(fake), 1.0)
+        reg = _kernel_regularizers(effective_kernel(g, conf), conf)
+        l_g = adv + reg
+        g_grads = torch.autograd.grad(l_g, g_opt.params)
+    g_opt.step(list(g_grads))
+    fake = fake.detach()
+    with full_f32(), torch.enable_grad():
+        l_d = (_lsgan(d(real), 1.0) + _lsgan(d(fake), 0.0)) / 2.0
+        d_grads = torch.autograd.grad(l_d, d_opt.params)
+    d_opt.step(list(d_grads))
+    return {"l_g": l_g.detach(), "l_d": l_d.detach(), "adv": adv.detach(), "reg": reg.detach()}
+
+
+def _override_update(g: LinearKernelG, conf: KernelGANConf, g_opt: Adam, loss_override, g_in: torch.Tensor) -> dict:
+    """The device part of a supervised iteration: G's update at its staged step scalars."""
+    with full_f32(deterministic=True), torch.enable_grad():
+        fake = g(g_in)
+        main = loss_override(fake, g_in)
+        reg = _kernel_regularizers(effective_kernel(g, conf), conf)
+        l_g = main + reg
+        g_grads = torch.autograd.grad(l_g, g_opt.params)
+    g_opt.step(list(g_grads))
+    return {"l_g": l_g.detach(), "l_d": torch.zeros_like(l_g), "adv": main.detach(), "reg": reg.detach()}
+
+
 def make_kernelgan_step(g: LinearKernelG, d: PatchD, conf: KernelGANConf, g_opt: Adam, d_opt: Adam):
     """One (G update, D update) iteration ``step(g_in, real) -> metrics``:
     ``g_in`` a (1, g_input, g_input, 1) crop, ``real`` a (1, fake, fake, 1)
     crop (:func:`_fake_size`). G's loss is LSGAN against the pre-update D
     plus the kernel regularizers; D then learns real vs G's detached fakes.
-    The metrics stay 0-d tensors on the device."""
+    The metrics stay 0-d tensors on the device. The host stages both
+    optimisers' step scalars, then the device part runs (the one
+    :func:`estimate_kernel` replays)."""
 
     def step(g_in: torch.Tensor, real: torch.Tensor) -> dict:
-        with full_f32(), torch.enable_grad():
-            fake = g(g_in)
-            adv = _lsgan(d(fake), 1.0)
-            reg = _kernel_regularizers(effective_kernel(g, conf), conf)
-            l_g = adv + reg
-            g_grads = torch.autograd.grad(l_g, g_opt.params)
-        g_opt.step(list(g_grads), conf.lr_g)
-        fake = fake.detach()
-        with full_f32(), torch.enable_grad():
-            l_d = (_lsgan(d(real), 1.0) + _lsgan(d(fake), 0.0)) / 2.0
-            d_grads = torch.autograd.grad(l_d, d_opt.params)
-        d_opt.step(list(d_grads), conf.lr_d)
-        return {"l_g": l_g.detach(), "l_d": l_d.detach(), "adv": adv.detach(), "reg": reg.detach()}
+        g_opt.stage(conf.lr_g)
+        d_opt.stage(conf.lr_d)
+        return _adversarial_update(g, d, conf, g_opt, d_opt, g_in, real)
 
     return step
 
@@ -222,14 +246,8 @@ def make_override_step(g: LinearKernelG, conf: KernelGANConf, g_opt: Adam, loss_
     wide enough to cross its 0.88 bar."""
 
     def step(g_in: torch.Tensor) -> dict:
-        with full_f32(deterministic=True), torch.enable_grad():
-            fake = g(g_in)
-            main = loss_override(fake, g_in)
-            reg = _kernel_regularizers(effective_kernel(g, conf), conf)
-            l_g = main + reg
-            g_grads = torch.autograd.grad(l_g, g_opt.params)
-        g_opt.step(list(g_grads), conf.lr_g)
-        return {"l_g": l_g.detach(), "l_d": torch.zeros_like(l_g), "adv": main.detach(), "reg": reg.detach()}
+        g_opt.stage(conf.lr_g)
+        return _override_update(g, conf, g_opt, loss_override, g_in)
 
     return step
 
@@ -256,6 +274,17 @@ def _crop(img: torch.Tensor, oy: int, ox: int, size: int) -> torch.Tensor:
     return img[oy : oy + size, ox : ox + size][None]
 
 
+def _gather_crop(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """:func:`_crop` with the offsets as 0-d device tensors (``span =
+    arange(size)``), gathered on the device: the rows ``oy + span``, then the
+    columns ``ox + span``. The crop keeps the image's stride on its one
+    channel (any stride reads the same pixels of a size-1 dim), as the slice
+    crop does: the convs choose their path by the strides, and so round as
+    they did on the slice."""
+    crop = img.index_select(0, oy + span).index_select(1, ox + span)
+    return crop.as_strided(crop.shape, (*crop.stride()[:2], img.stride(2)))[None]
+
+
 def estimate_kernel(lr_image: np.ndarray, conf: KernelGANConf | None = None, progress=None,
                     loss_override=None, device: str | torch.device = "cuda") -> tuple[np.ndarray, dict]:
     """Estimate the downsampling kernel of ``lr_image`` (HWC or HW float in
@@ -267,7 +296,19 @@ def estimate_kernel(lr_image: np.ndarray, conf: KernelGANConf | None = None, pro
     ``progress(done, total, metrics)`` is called after every chunk of
     ``CHUNK`` iterations. ``loss_override(fake, g_in)`` replaces the
     adversarial term (a supervised L2 to an oracle downsample turns the GAN
-    into a deterministic inverse problem)."""
+    into a deterministic inverse problem).
+
+    Each iteration is in two parts. The host draws a chunk's crop offsets
+    (the CPU ``torch.Generator`` seeded by ``conf.seed``) and computes its
+    optimisers' step scalars, and uploads both once per chunk. The device
+    part reads one row of each from fixed buffers (slot copies before each
+    iteration), cuts the crops by a gather, and updates G (and D). On CUDA
+    that part is one CUDA graph (``utils/graphs.GraphedStep``), captured at
+    the first iteration and replayed for every other, the port's counterpart
+    of the JAX package's ``lax.scan`` chunks (on the CPU the same code runs
+    eagerly). A ``loss_override`` that touches
+    the host (a ``.item()``, a tensor built from host data) cannot be
+    captured: the capture raises with the reason, as JAX could not trace it."""
     conf = conf or KernelGANConf()
     dev = resolve_device(device)
     img = np.asarray(lr_image, np.float32)
@@ -281,19 +322,31 @@ def estimate_kernel(lr_image: np.ndarray, conf: KernelGANConf | None = None, pro
     h, w = img.shape
     img_t = torch.from_numpy(np.ascontiguousarray(img[..., None])).to(dev)
 
+    fake = _fake_size(conf)
     g = LinearKernelG(conf, seed=conf.seed).to(dev)
     g_opt = Adam(g.parameters(), b1=0.5)
+    opts = [(g_opt, conf.lr_g)]
+    off = torch.zeros(4, dtype=torch.int64, device=dev)  # this iteration's (fake y, fake x, real y, real x)
+    g_span = torch.arange(conf.g_input, device=dev)
     if loss_override is not None:
-        step = make_override_step(g, conf, g_opt, loss_override)
+        def core():
+            return _override_update(g, conf, g_opt, loss_override, _gather_crop(img_t, off[0], off[1], g_span))
     else:
-        if _fake_size(conf) < _d_receptive(conf):
+        if fake < _d_receptive(conf):
             raise ValueError(
-                f"G produces {_fake_size(conf)}px LR patches from g_input {conf.g_input} (VALID support "
+                f"G produces {fake}px LR patches from g_input {conf.g_input} (VALID support "
                 f"{_support(conf)}, scale {conf.scale}) but D's receptive field is {_d_receptive(conf)}px;"
                 " enlarge g_input or shrink d_kernels")
         d = PatchD(conf, seed=conf.seed + 1).to(dev)
-        step = make_kernelgan_step(g, d, conf, g_opt, Adam(d.parameters(), b1=0.5))
-    fake = _fake_size(conf)
+        d_opt = Adam(d.parameters(), b1=0.5)
+        opts.append((d_opt, conf.lr_d))
+        d_span = torch.arange(fake, device=dev)
+
+        def core():
+            return _adversarial_update(g, d, conf, g_opt, d_opt, _gather_crop(img_t, off[0], off[1], g_span),
+                                       _gather_crop(img_t, off[2], off[3], d_span))
+
+    step = GraphedStep(core, dev, "KernelGAN iteration")
     gen = torch.Generator().manual_seed(conf.seed)
     metrics: dict = {}
     for lo in range(0, conf.iters, CHUNK):
@@ -303,9 +356,13 @@ def estimate_kernel(lr_image: np.ndarray, conf: KernelGANConf | None = None, pro
         ox = torch.randint(0, w - conf.g_input + 1, (n, 1), generator=gen)
         ry = torch.randint(0, h - fake + 1, (n, 1), generator=gen)
         rx = torch.randint(0, w - fake + 1, (n, 1), generator=gen)
-        for fy, fx, y, x in torch.cat([oy, ox, ry, rx], 1).tolist():
-            g_in = _crop(img_t, fy, fx, conf.g_input)
-            m = step(g_in) if loss_override is not None else step(g_in, _crop(img_t, y, x, fake))
+        offs = torch.cat([oy, ox, ry, rx], 1).to(dev, non_blocking=True)
+        rows = [opt.scalar_rows([opt.next_scalars(lr) for _ in range(n)]) for opt, lr in opts]
+        for i in range(n):
+            off.copy_(offs[i])
+            for (opt, _), r in zip(opts, rows):
+                opt.scalars.copy_(r[i])
+            m = step()
         vals = torch.stack(list(m.values())).tolist()  # the chunk's one read from the device
         metrics = dict(zip(m, vals))
         if progress is not None:

@@ -10,8 +10,12 @@ The forward of every tool is ``cem.project(g(lr, z), lr)`` with ``g``
 frozen: its parameters need no gradient and its kernels' weight layouts are
 built once (``prepare_kernels``), so each Z step runs the kernels forward on
 them and the plain recompute backward differentiates only Z
-(``ops/cuda/autograd.py``). :meth:`ExplorationSession.set_generator_weights`
-loads new weights and rebuilds the layouts. Z and the LR image are kept on
+(``ops/cuda/autograd.py``). The SR render (the whole image, no gradient) is
+a callable of its own, ``make_eval_forward``'s, a CUDA graph per image shape
+on the card; the Z search calls :meth:`ExplorationSession.forward` inside its
+own graph's capture, and captures do not nest.
+:meth:`ExplorationSession.set_generator_weights` loads new weights and
+rebuilds the layouts. Z and the LR image are kept on
 the host as numpy, as in the JAX package, and go to the device once per tool
 click.
 
@@ -27,6 +31,7 @@ import torch
 
 from esr_tpu_torch.explore import objectives as obj
 from esr_tpu_torch.explore.z_optimizer import ZOptimizer, bucket_crop
+from esr_tpu_torch.models.base_model import make_eval_forward
 from esr_tpu_torch.models.networks import normalize_rrdb_keys
 
 __all__ = ["ExplorationSession"]
@@ -49,7 +54,7 @@ class ExplorationSession:
         self.g, self.cem = g, cem
         self.device = next(g.parameters()).device
         g.requires_grad_(False)
-        g.prepare_kernels()
+        self._render = make_eval_forward(g, cem)  # builds the kernels' layouts
         self._optimizer = ZOptimizer(self.forward, scale=scale, n_steps=n_steps, lr=opt_lr, device=self.device)
         self._history: list[np.ndarray] = []
         self._redo: list[np.ndarray] = []
@@ -75,11 +80,13 @@ class ExplorationSession:
     def set_generator_weights(self, state_dict: dict) -> None:
         """Load new generator weights (strictly; either reference key layout,
         ``normalize_rrdb_keys``) and rebuild the kernels' layouts from them;
-        the cached SR and the captured Z searches are dropped."""
+        the cached SR, the render's graphs and the captured Z searches are
+        dropped."""
         self.g.load_state_dict(normalize_rrdb_keys(state_dict), strict=True)
         self.g.requires_grad_(False)
         self.g.release_kernels()
         self.g.prepare_kernels()
+        self._render.graphs.clear()
         self._optimizer.clear_searches()
         self._sr_cache = None
 
@@ -133,9 +140,8 @@ class ExplorationSession:
 
     # -- core ops ----------------------------------------------------------
 
-    @torch.no_grad()
     def _sr(self, z: np.ndarray) -> np.ndarray:
-        return self.forward(self._tensor(self.lr_img), self._tensor(z)).float().cpu().numpy()
+        return self._render(self._tensor(self.lr_img), self._tensor(z)).float().cpu().numpy()
 
     def current_sr(self, z: np.ndarray | None = None) -> np.ndarray:
         """The SR of the session's Z (cached until Z changes), or of ``z``."""

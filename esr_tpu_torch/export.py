@@ -11,8 +11,11 @@ loads with :func:`load_servable`, with no options JSON:
 - ``G.pth``: the generator's state dict (reference ESRGAN keys).
 
 Unlike the JAX package's StableHLO artifact, this one holds no compiled
-program: loading it needs ``esr_tpu_torch``'s model code, and the kernels
-are built (nvcc) at the first forward on CUDA. ``format_version`` is 2, so
+program: loading it needs ``esr_tpu_torch``'s model code, the kernels are
+built (nvcc) at the first forward on CUDA, and each bucket's forward is
+captured as a CUDA graph at its first call (``make_server`` makes that call
+for every bucket before it serves), as the JAX ``Servable`` compiles one
+program per bucket. ``format_version`` is 2, so
 that the JAX package's loader (version 1) refuses it ("newer than this
 loader"), and :class:`Servable` refuses a JAX artifact by its missing
 ``format``.

@@ -3,7 +3,8 @@
 ``entry(device)`` returns ``(fn, example_args)``: ``fn(lr, z)`` is the
 CEM-wrapped flagship forward (RRDBNet nf 64, nb 23, gc 32, x4, one Z
 channel, bf16 convs on the Hopper kernels, CEM in matmul mode), on seeded
-weights, and the example arguments are a B2 x LR 64 input and a zero Z. The
+weights, a CUDA graph per input shape on the card (the JAX entry's jitted
+program), and the example arguments are a B2 x LR 64 input and a zero Z. The
 JAX entry runs the folded (``fold=2``) program, a TPU lane layout with no
 counterpart here, so there is no fold.
 

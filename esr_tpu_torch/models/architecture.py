@@ -51,7 +51,14 @@ def _up_factors(scale: int) -> tuple[int, ...]:
 
 
 class _Generator(nn.Module):
-    """The kernel-layout surface the models call on any generator."""
+    """The kernel-layout surface the models call on any generator.
+
+    ``layout_generation`` counts the changes of the weight layouts
+    (``prepare_kernels``, ``release_kernels``): a CUDA graph of a forward
+    holds the layouts' addresses, so its owner drops it when the count has
+    moved (``models/base_model.EvalForward``)."""
+
+    layout_generation = 0
 
     def _kernel_modules(self) -> list[nn.Module]:
         """The modules whose forward runs a CUDA kernel."""
@@ -63,6 +70,7 @@ class _Generator(nn.Module):
         after changing the weights."""
         for m in self._kernel_modules():
             m.prepare_kernel(self.dtype)
+        self.layout_generation += 1
 
     def release_kernels(self) -> None:
         """Drop the weight layouts ``prepare_kernels`` built (a trainer does so
@@ -70,6 +78,7 @@ class _Generator(nn.Module):
         for m in self.modules():
             if hasattr(m, "prepare_kernel"):
                 m.kernel_weights = None
+        self.layout_generation += 1
 
     def _input(self, lr: torch.Tensor, z: torch.Tensor | None) -> torch.Tensor:
         """LR, with the Z map (zeros when None) concatenated when the net has one."""

@@ -1,7 +1,8 @@
 """The eval forward and the models' shared surface (port of the single-device
 parts of esr_tpu/models/base_model.py).
 
-``make_eval_forward``: the generator, then the exact CEM projection.
+``make_eval_forward``: the generator, then the exact CEM projection (on
+CUDA, a CUDA graph per input shape: ``EvalForward``).
 ``BaseModel``: what the CLIs and the export path call on a model —
 ``_make_forward`` (the options' wrappers around ``make_eval_forward``),
 ``load_network``, the visuals getters and the training surface: losses,
@@ -38,6 +39,7 @@ from esr_tpu_torch.utils.graphs import StepGraphs
 __all__ = [
     "Adam",
     "BaseModel",
+    "EvalForward",
     "TrainStep",
     "make_eval_forward",
     "multistep_schedule",
@@ -190,7 +192,66 @@ class TrainStep:
         return self.core(key, **inputs)
 
 
-def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None):
+class EvalForward:
+    """``fwd(lr, z=None) = cem.project(g(lr, z), lr)`` (:func:`make_eval_forward`).
+
+    ``graphs`` (a ``StepGraphs``): on CUDA in one process, without
+    ``apply_fn``, one CUDA graph per shape of ``lr`` and ``z`` (``z`` None
+    is a shape of its own), the port's counterpart of the JAX package's
+    per-shape compiled forward. The first call of a shape runs eagerly on a
+    side stream (the kernels' build, cuDNN's and cuBLAS's choices, CEM's
+    per-shape constants) and captures; later calls copy ``lr`` and ``z``
+    into the graph's buffers and replay. Each call returns a fresh tensor (a
+    device copy of the graph's output), which the next call does not
+    overwrite. The graphs hold the addresses of the kernels' weight
+    layouts: every call compares ``g.layout_generation`` (a host int) with
+    the one its graphs were captured at and drops them when it has moved
+    (``prepare_kernels`` / ``release_kernels`` since). Elsewhere (the CPU,
+    several ranks, a sharded ``apply_fn``, ``graphs=False``) every call runs
+    eagerly."""
+
+    def __init__(self, g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None, graphs: bool = True):
+        self.g = g
+        self.device = next(g.parameters()).device
+        g.prepare_kernels()
+        self.generation = g.layout_generation
+        apply_raw = apply_fn or g
+        apply_raw = make_self_ensemble(apply_raw) if self_ensemble else apply_raw
+
+        @torch.no_grad()
+        def run(key, lr: torch.Tensor, z: torch.Tensor | None) -> torch.Tensor:  # noqa: ARG001
+            raw = apply_raw(lr, z)
+            return cem.project(raw, lr) if cem is not None else raw
+
+        self._run = run
+        on_card = graphs and self.device.type == "cuda"
+        n_world = comm.world()[1]
+        if on_card and (apply_fn is not None or n_world > 1):
+            logging.getLogger("base").info(
+                "eval forward: %s runs each call eagerly, not as a CUDA graph per shape",
+                "a sharded forward" if apply_fn is not None else f"each of {n_world} ranks")
+        self.graphs = StepGraphs(run, self.device, "eval forward",
+                                 enabled=on_card and apply_fn is None and n_world == 1)
+
+    def _sync_layouts(self) -> None:
+        """Drop the graphs when the generator's weight layouts changed since their capture."""
+        if self.g.layout_generation != self.generation:
+            self.graphs.clear()
+            self.generation = self.g.layout_generation
+
+    @torch.no_grad()
+    def __call__(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
+        for name, t in (("lr", lr), ("z", z)):
+            if t is not None and t.device != self.device:
+                raise ValueError(f"{name} is on {t.device}, the generator on {self.device}")
+        if not self.graphs.enabled:
+            return self._run(None, lr, z)
+        self._sync_layouts()
+        return self.graphs.run(None, {"lr": lr, "z": z}).clone()
+
+
+def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None,
+                      graphs: bool = True) -> EvalForward:
     """``fwd(lr, z=None) = cem.project(g(lr, z), lr)`` (raw ``g`` when ``cem``
     is None), without autograd. With ``self_ensemble`` the generator call is
     the x8 dihedral mean (``ops/ensemble.py``: two batched calls), projected
@@ -198,21 +259,9 @@ def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False, apply_f
     the answer is (N, sH, sW, 3) f32. ``apply_fn(lr, z)``: the generator's
     forward when it is not ``g`` itself (a sharded one of ``parallel/``). The
     kernels' weight layout is built here, once: make a new forward after
-    changing g's weights."""
-    device = next(g.parameters()).device
-    g.prepare_kernels()
-    apply_raw = apply_fn or g
-    apply_raw = make_self_ensemble(apply_raw) if self_ensemble else apply_raw
-
-    @torch.no_grad()
-    def fwd(lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
-        for name, t in (("lr", lr), ("z", z)):
-            if t is not None and t.device != device:
-                raise ValueError(f"{name} is on {t.device}, the generator on {device}")
-        raw = apply_raw(lr, z)
-        return cem.project(raw, lr) if cem is not None else raw
-
-    return fwd
+    changing g's weights. On CUDA in one process each input shape is a CUDA
+    graph (:class:`EvalForward`); ``graphs=False`` runs every call eagerly."""
+    return EvalForward(g, cem, self_ensemble, apply_fn, graphs)
 
 
 def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -247,7 +296,7 @@ class BaseModel:
                              f"{max(2, comm.world()[1])}")
         return int(v)
 
-    def _make_forward(self):
+    def _make_forward(self, graphs: bool = True):
         """The eval forward of ``make_eval_forward`` with the options' wrappers:
         ``self_ensemble`` outermost around the generator, then CEM.
         ``network_G.fold`` > 1 runs the unfolded forward (its spatial-fold
@@ -266,7 +315,9 @@ class BaseModel:
         mesh is kept (``_eval_mesh``) for the evaluator, which deals images
         over its 'data' axis. ``eval_tp`` with ``eval_pp``, ``eval_spatial``
         with ``eval_pp``, and spatial x TP x data raise, as in the JAX
-        package. Every rank of the mesh calls the forward alike."""
+        package. Every rank of the mesh calls the forward alike. ``graphs``:
+        as in ``make_eval_forward`` (a trainer's validation forward, built
+        anew for each validation, runs eagerly)."""
         lg = logging.getLogger("base")
         tp = self._parallel_shards("eval_tp")
         pp = self._parallel_shards("eval_pp")
@@ -317,7 +368,7 @@ class BaseModel:
         if se:
             lg.info("self_ensemble: x8 dihedral eval forward (two batched calls: 4 flips + "
                     "4 transposed), CEM-projected mean")
-        return make_eval_forward(g, self.cem, self_ensemble=se, apply_fn=apply_raw)
+        return make_eval_forward(g, self.cem, self_ensemble=se, apply_fn=apply_raw, graphs=graphs)
 
     def _train_parallel(self) -> StepParallel:
         """The train step's parallel axes (port of the JAX package's

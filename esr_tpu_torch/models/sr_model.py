@@ -170,8 +170,8 @@ class SRModel(BaseModel):
                 zz = torch.as_tensor(z, dtype=torch.float32, device=self.device)
                 if zz.ndim == 3:
                     zz = zz[None]
-        if self.is_train:
-            sr = self._make_forward()(lr, zz)
+        if self.is_train:  # eager: the weights change before the next validation
+            sr = self._make_forward(graphs=False)(lr, zz)
             self.g_module.release_kernels()
         else:
             sr = self._forward(lr, zz)

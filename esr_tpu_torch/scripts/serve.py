@@ -47,7 +47,9 @@ def _decode_rgb(body: bytes) -> np.ndarray:
 def make_server(artifact_dir: str, host: str = "127.0.0.1", port: int = 8008, device="cuda"):
     """Build (not start) the server: a ThreadingHTTPServer whose
     ``serve_forever()`` / ``shutdown()`` the caller owns. Loads the artifact
-    and runs one forward per bucket here, in the caller's thread."""
+    and runs one forward per bucket here, in the caller's thread (on the
+    card that call captures the bucket's CUDA graph, so no request pays for
+    a capture)."""
     servable = load_servable(artifact_dir, device)
     for b, h, w in servable.buckets:
         servable.sr(np.zeros((b, h, w, 3), np.float32))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, the eval
-and serving entry points through them, and the train and Z steps as CUDA
-graphs against the same steps eagerly, on the card.
+and serving entry points through them, and the train and Z steps, the eval
+forward and KernelGAN's iteration as CUDA graphs against the same work
+eagerly, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor esr_tpu, so that they run where
@@ -913,3 +914,107 @@ def test_cuda_graph_capture_error_raises(cuda):
         assert torch.equal(x * 2, torch.full((4,), 2.0, device=cuda))  # the card still works
     finally:
         LaunchCounter.all.remove(counter)
+
+
+@pytest.mark.cuda
+def test_cuda_eval_forward_graph_equals_eager(cuda):
+    """The eval forward as a CUDA graph per input shape against the same
+    forward eagerly, at two shapes (with Z, and Z None), cuDNN deterministic:
+    bit for bit on the capture call and on two replays each, 6 / 4 / 2
+    launches a replay, one graph per shape; after prepare_kernels (new
+    layouts) the graphs are dropped and the answer is still the eager one."""
+    from esr_tpu_torch.cem import CEMConf, make_cem
+    from esr_tpu_torch.models import define_G, make_eval_forward
+
+    g = define_G(_nb2_options("."), device=cuda, seed=0)
+    cem = make_cem(CEMConf(scale=4), device=cuda)
+    fwd, eager = make_eval_forward(g, cem), make_eval_forward(g, cem, graphs=False)
+    rng = np.random.default_rng(1)
+    cases = [(torch.from_numpy(rng.random((1, 24, 20, 3), dtype=np.float32)).to(cuda),
+              torch.from_numpy(rng.uniform(-1, 1, (1, 24, 20, 1)).astype(np.float32)).to(cuda)),
+             (torch.from_numpy(rng.random((2, 16, 16, 3), dtype=np.float32)).to(cuda), None)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(3):
+            for lr, z in cases:
+                before = [c.count for c in _COUNTERS]
+                got = fwd(lr, z)
+                torch.cuda.synchronize()
+                assert [c.count - n for c, n in zip(_COUNTERS, before)] == [6, 4, 2]
+                assert torch.equal(got, eager(lr, z))
+        assert len(fwd.graphs.steps) == 2 and all(s.graph is not None for s in fwd.graphs.steps)
+        g.prepare_kernels()
+        lr, z = cases[0]
+        assert torch.equal(fwd(lr, z), eager(lr, z)) and len(fwd.graphs.steps) == 1
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("supervised", [False, True], ids=["adversarial", "override"])
+def test_cuda_kernelgan_graph_equals_eager(cuda, supervised):
+    """150 KernelGAN iterations (chunks of 100 and 50) with each iteration a
+    replay of one CUDA graph against the same loop eagerly, cuDNN
+    deterministic: the kernel and the metrics of both chunks bit for bit."""
+    import torch.nn.functional as F
+
+    from esr_tpu_torch.cem import kernelgan
+    from esr_tpu_torch.utils.graphs import GraphedStep
+
+    img = np.random.default_rng(3).random((72, 80)).astype(np.float32)
+    conf = kernelgan.KernelGANConf(iters=150)
+
+    def loss(fake, g_in):
+        return F.mse_loss(fake, 0.5 * g_in[:, 10::4, 10::4][:, : fake.shape[1], : fake.shape[2]])
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        init = GraphedStep.__init__
+
+        def eager_init(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            self.enabled = False
+
+        runs = []
+        for graphed in (True, False):
+            calls = []
+            with pytest.MonkeyPatch.context() as mp:
+                if not graphed:  # the same loop, every iteration eagerly
+                    mp.setattr(GraphedStep, "__init__", eager_init)
+                k, m = kernelgan.estimate_kernel(img, conf, progress=lambda *a: calls.append(a),
+                                                 loss_override=loss if supervised else None, device=cuda)
+            runs.append((k, m, calls))
+        (kg_, mg, cg), (ke, me, ce) = runs
+        assert np.array_equal(kg_, ke) and mg == me and cg == ce and [c[0] for c in cg] == [100, 150]
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_cuda_served_answers_equal_the_live_forward(cuda, tmp_path):
+    """make_server's warm-up captures one graph per bucket; later answers
+    (replays) equal the eager forward on the edge-padded LR byte for byte."""
+    from esr_tpu_torch.export import export_servable
+    from esr_tpu_torch.models import create_model, make_eval_forward
+    from esr_tpu_torch.options import parse
+    from esr_tpu_torch.scripts.serve import make_server
+
+    model = create_model(parse(_nb2_options(tmp_path), is_train=False))
+    export_servable(model, [(1, 16, 16), (1, 32, 32)], str(tmp_path / "art"))
+    server = make_server(str(tmp_path / "art"), "127.0.0.1", 0)
+    try:
+        sv = server.servable
+        assert len(sv.forward.graphs.steps) == 2 and all(s.graph is not None for s in sv.forward.graphs.steps)
+        live = make_eval_forward(model.g_module, model.cem, graphs=False)
+        rng = np.random.default_rng(4)
+        for h, w in ((16, 16), (24, 19), (32, 32)):
+            lr = rng.random((1, h, w, 3)).astype(np.float32)
+            z = rng.uniform(-1, 1, (1, h, w, 1)).astype(np.float32)
+            _, bh, bw = sv._bucket_for(1, h, w)
+            pad = ((0, 0), (0, bh - h), (0, bw - w), (0, 0))
+            want = live(torch.from_numpy(np.pad(lr, pad, mode="edge")).to(cuda),
+                        torch.from_numpy(np.pad(z, pad, mode="edge")).to(cuda))[:, : 4 * h, : 4 * w]
+            np.testing.assert_array_equal(sv.sr(lr, z), want.cpu().numpy())
+        assert len(sv.forward.graphs.steps) == 2
+    finally:
+        server.server_close()

@@ -75,8 +75,8 @@ def test_render_display_zmap_and_rubber_band(setup):
     vm = make_vm(setup)
     jvm = JViewModel(JSession(setup.jforward, setup.params, setup.lr, n_steps=2))
     calls = []
-    inner = vm.session.forward
-    vm.session.forward = lambda lr, z: calls.append(1) or inner(lr, z)
+    inner = vm.session._render  # the session's render forward (its Z search calls session.forward)
+    vm.session._render = lambda lr, z: calls.append(1) or inner(lr, z)
     img = vm.render_display()
     assert img.shape == (64, 64, 3) and img.dtype == np.uint8
     vm.pointer_down(8, 8)

@@ -16,6 +16,13 @@ against the JAX package's (esr_tpu.cem.kernelgan), on the CPU in f32.
   and init: aligned correlation > 0.88; its step takes cuDNN's deterministic
   algorithms.
 - ``conf_for_image`` and the size checks raise as JAX's do.
+- The loop in two parts (host: a chunk's offsets and step scalars; device:
+  the crops gathered at device offsets and the updates, one CUDA graph on
+  the card): the gather equals the slice crop bit for bit, the staged step
+  equals the one-call step, and ``estimate_kernel`` equals a copy of the
+  eager loop it replaced bit for bit over 250 iterations (a ragged last
+  chunk), eagerly and through a stand-in for the graph's capture and replay
+  (tests/torch_fake_graphs.py).
 """
 
 import jax
@@ -27,9 +34,12 @@ import torch
 import torch.nn.functional as F
 from flax.training.train_state import TrainState
 
+import torch_fake_graphs
+
 from esr_tpu.cem import kernelgan as jkg
 from esr_tpu.scripts.blind_bench import aligned_corr, gaussian_kernel
 from esr_tpu_torch.cem import kernelgan as kg
+from esr_tpu_torch.device import full_f32
 from esr_tpu_torch.models import kernelgan_state_dict_from_jax
 from esr_tpu_torch.models.base_model import Adam
 
@@ -239,3 +249,144 @@ def test_estimate_kernel_runs_on_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kg.estimate_kernel(np.zeros((64, 64)), kg.KernelGANConf(**TINY))
+
+
+# -- the loop in two parts ----------------------------------------------------------------
+
+
+def _one_call_steps(g, d, conf, g_opt, d_opt, loss_override):
+    """The one-call steps the two-part ones replaced: each Adam stages its
+    learning rate in ``step(grads, lr)`` itself."""
+
+    def adversarial(g_in, real):
+        with full_f32(), torch.enable_grad():
+            fake = g(g_in)
+            adv = kg._lsgan(d(fake), 1.0)
+            reg = kg._kernel_regularizers(kg.effective_kernel(g, conf), conf)
+            l_g = adv + reg
+            g_grads = torch.autograd.grad(l_g, g_opt.params)
+        g_opt.step(list(g_grads), conf.lr_g)
+        fake = fake.detach()
+        with full_f32(), torch.enable_grad():
+            l_d = (kg._lsgan(d(real), 1.0) + kg._lsgan(d(fake), 0.0)) / 2.0
+            d_grads = torch.autograd.grad(l_d, d_opt.params)
+        d_opt.step(list(d_grads), conf.lr_d)
+        return {"l_g": l_g.detach(), "l_d": l_d.detach(), "adv": adv.detach(), "reg": reg.detach()}
+
+    def override(g_in):
+        with full_f32(deterministic=True), torch.enable_grad():
+            fake = g(g_in)
+            main = loss_override(fake, g_in)
+            reg = kg._kernel_regularizers(kg.effective_kernel(g, conf), conf)
+            l_g = main + reg
+            g_grads = torch.autograd.grad(l_g, g_opt.params)
+        g_opt.step(list(g_grads), conf.lr_g)
+        return {"l_g": l_g.detach(), "l_d": torch.zeros_like(l_g), "adv": main.detach(), "reg": reg.detach()}
+
+    return override if loss_override is not None else adversarial
+
+
+def _eager_loop(lr_image, conf, progress=None, loss_override=None):
+    """The estimator's loop before it was split in two: Python-int slice
+    crops and the one-call steps, on the CPU."""
+    img = np.asarray(lr_image, np.float32)
+    if img.ndim == 3:
+        img = img.mean(axis=-1)
+    h, w = img.shape
+    img_t = torch.from_numpy(np.ascontiguousarray(img[..., None]))
+    g = kg.LinearKernelG(conf, seed=conf.seed)
+    g_opt = Adam(g.parameters(), b1=0.5)
+    d = d_opt = None
+    if loss_override is None:
+        d = kg.PatchD(conf, seed=conf.seed + 1)
+        d_opt = Adam(d.parameters(), b1=0.5)
+    step = _one_call_steps(g, d, conf, g_opt, d_opt, loss_override)
+    fake = kg._fake_size(conf)
+    gen = torch.Generator().manual_seed(conf.seed)
+    metrics = {}
+    for lo in range(0, conf.iters, kg.CHUNK):
+        n = min(kg.CHUNK, conf.iters - lo)
+        oy = torch.randint(0, h - conf.g_input + 1, (n, 1), generator=gen)
+        ox = torch.randint(0, w - conf.g_input + 1, (n, 1), generator=gen)
+        ry = torch.randint(0, h - fake + 1, (n, 1), generator=gen)
+        rx = torch.randint(0, w - fake + 1, (n, 1), generator=gen)
+        for fy, fx, y, x in torch.cat([oy, ox, ry, rx], 1).tolist():
+            g_in = img_t[fy : fy + conf.g_input, fx : fx + conf.g_input][None]
+            m = step(g_in) if loss_override is not None else step(g_in, img_t[y : y + fake, x : x + fake][None])
+        metrics = dict(zip(m, torch.stack(list(m.values())).tolist()))
+        if progress is not None:
+            progress(lo + n, conf.iters, dict(metrics))
+    with torch.no_grad():
+        k = kg.effective_kernel(g, conf).double().numpy()
+    if k.sum() <= 1e-8:
+        k = np.abs(k)
+    return k / k.sum(), metrics
+
+
+def _half_scale_loss(fake, g_in):
+    return torch.mean((fake - 0.5 * g_in[:, 6::4, 6::4][:, : fake.shape[1], : fake.shape[2]]) ** 2)
+
+
+@pytest.mark.parametrize("shape", [(40, 44), (37, 53), (64, 49)])
+def test_gather_crop_equals_slice_crop(shape):
+    """The device gather at tensor offsets is the slice crop, bit for bit,
+    on random offsets of ragged images, at G's and D's crop sizes."""
+    rng = np.random.default_rng(sum(shape))
+    img = torch.from_numpy(np.ascontiguousarray(rng.random(shape).astype(np.float32)[..., None]))
+    for size in (32, kg._fake_size(kg.KernelGANConf(**TINY))):
+        span = torch.arange(size)
+        for _ in range(20):
+            oy, ox = int(rng.integers(0, shape[0] - size + 1)), int(rng.integers(0, shape[1] - size + 1))
+            got = kg._gather_crop(img, torch.tensor(oy), torch.tensor(ox), span)
+            want = kg._crop(img, oy, ox, size)
+            assert got.shape == want.shape == (1, size, size, 1) and torch.equal(got, want), (oy, ox, size)
+            assert got.stride(-1) == want.stride(-1), (got.stride(), want.stride())
+
+
+@pytest.mark.parametrize("supervised", [False, True], ids=["adversarial", "override"])
+def test_staged_step_equals_one_call_step(supervised):
+    """make_kernelgan_step / make_override_step (scalars staged by the host,
+    then the device part) == the one-call steps, bit for bit over 3 steps:
+    metrics, weights and Adam moments."""
+    conf = kg.KernelGANConf(**TINY)
+    runs = []
+    for staged in (True, False):
+        g, d = kg.LinearKernelG(conf, seed=3), kg.PatchD(conf, seed=4)
+        g_opt, d_opt = Adam(g.parameters(), b1=0.5), Adam(d.parameters(), b1=0.5)
+        loss = _half_scale_loss if supervised else None
+        if staged:
+            step = (kg.make_override_step(g, conf, g_opt, loss) if supervised
+                    else kg.make_kernelgan_step(g, d, conf, g_opt, d_opt))
+        else:
+            step = _one_call_steps(g, d, conf, g_opt, d_opt, loss)
+        metrics = []
+        for i in range(3):
+            crops = np.random.default_rng(100 + i)
+            g_in = torch.from_numpy(crops.random((1, 32, 32, 1)).astype(np.float32))
+            real = torch.from_numpy(crops.random((1, 5, 5, 1)).astype(np.float32))
+            metrics.append({k: v.clone() for k, v in (step(g_in) if supervised else step(g_in, real)).items()})
+        runs.append((metrics, [p.detach().clone() for p in (*g.parameters(), *d.parameters())],
+                     [t.clone() for opt in (g_opt, d_opt) for t in (*opt.mu, *opt.nu)], g_opt.count))
+    (m1, p1, s1, c1), (m2, p2, s2, c2) = runs
+    assert c1 == c2 == 3
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(m1, m2) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(p1 + s1, p2 + s2))
+
+
+@pytest.mark.parametrize("supervised", [False, True], ids=["adversarial", "override"])
+@pytest.mark.parametrize("graphs", ["eager", "fake_capture"])
+def test_estimate_kernel_equals_the_eager_loop(supervised, graphs, monkeypatch):
+    """estimate_kernel on the CPU == the loop it replaced (Python-int slice
+    crops, one-call steps), bit for bit over 250 iterations (chunks of 100,
+    100, 50): the kernel, the last metrics and every progress call; the same
+    through the graph stand-in (one capture, 249 replays)."""
+    captured = torch_fake_graphs.install(monkeypatch) if graphs == "fake_capture" else []
+    img = np.random.default_rng(6).random((40, 44, 3)).astype(np.float32)
+    conf = kg.KernelGANConf(**dict(TINY, iters=250))
+    loss = _half_scale_loss if supervised else None
+    calls, want_calls = [], []
+    got = kg.estimate_kernel(img, conf, progress=lambda *a: calls.append(a), loss_override=loss, device="cpu")
+    want = _eager_loop(img, conf, progress=lambda *a: want_calls.append(a), loss_override=loss)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] and calls == want_calls and [c[0] for c in calls] == [100, 200, 250]
+    assert len(captured) == (1 if graphs == "fake_capture" else 0)
