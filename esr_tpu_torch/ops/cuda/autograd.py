@@ -36,11 +36,12 @@ __all__ = ["Conv3x3Fn", "Rdb5cFn", "Upsample2xConvFn", "conv3x3_fn", "rdb5c_fn",
 _RDB_KEYS = tuple(f"{p}{k}" for k in range(1, 6) for p in ("w", "b"))
 
 
-def _rdb5c_kernel(x: torch.Tensor, params: dict) -> torch.Tensor:
+# each kernel on a layout built now from the live parameters
+def _rdb5c_live(x: torch.Tensor, params: dict) -> torch.Tensor:
     return rdb5c_launch(x, rdb5c_kernel_weights(params, x.dtype, x.device))
 
 
-def _conv_kernel(x: torch.Tensor, kernel: torch.Tensor, bias, act: bool, ksize: int) -> torch.Tensor:
+def _conv_live(x: torch.Tensor, kernel: torch.Tensor, bias, act: bool, ksize: int) -> torch.Tensor:
     return conv_launch(x, conv_kernel_weights(kernel, bias, x.dtype, x.device, ksize), act)
 
 
@@ -66,7 +67,7 @@ class Rdb5cFn(torch.autograd.Function):
     def forward(ctx, x, *wb_kw):
         wb, kw = wb_kw[:10], (wb_kw[10] if len(wb_kw) > 10 else None)
         ctx.save_for_backward(x, *wb)
-        return _rdb5c_kernel(x, dict(zip(_RDB_KEYS, wb))) if kw is None else rdb5c_launch(x, kw)
+        return _rdb5c_live(x, dict(zip(_RDB_KEYS, wb))) if kw is None else rdb5c_launch(x, kw)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -80,7 +81,7 @@ class Rdb5cFn(torch.autograd.Function):
 def _conv_forward(ctx, x, kernel, bias, act: bool, ksize: int, kw) -> torch.Tensor:
     ctx.act = act
     ctx.save_for_backward(x, kernel, bias)
-    return _conv_kernel(x, kernel, bias, act, ksize) if kw is None else conv_launch(x, kw, act)
+    return _conv_live(x, kernel, bias, act, ksize) if kw is None else conv_launch(x, kw, act)
 
 
 def _conv_backward(ctx, grad_out, plain) -> tuple:

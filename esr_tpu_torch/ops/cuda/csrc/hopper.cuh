@@ -171,6 +171,18 @@ struct Wgmma<8> {
 };
 
 template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
 struct Wgmma<32> {
   __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
@@ -298,20 +310,21 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Tensor map of an NHWC bf16 tensor with c channels (a multiple of 64), read
-// in boxes of (64 channels, bw, bh, 1 image) into 128B-swizzled shared
-// memory. Returns 0 or a CUresult (-1 if the driver has no
-// cuTensorMapEncodeTiled).
+// Tensor map of an NHWC bf16 tensor with c channels (a multiple of box_c),
+// read in boxes of (box_c channels, bw, bh, 1 image) into swizzled shared
+// memory: box_c 64 with the 128-byte swizzle, 32 with the 64-byte one.
+// Returns 0 or a CUresult (-1 if the driver has no cuTensorMapEncodeTiled).
 inline int encode_nhwc64_map(CUtensorMap* map, const void* x, int n, int h, int w, int bh, int bw,
-                             int c = 64) {
+                             int c = 64, int box_c = 64) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return -1;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
   const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2, (cuuint64_t)h * w * c * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)bw, (cuuint32_t)bh, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                 box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 box_c == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -14,7 +14,8 @@
 // What bounds it: at the flagship shape (nf 64, gc 32, B16 x 128 x 128) one
 // launch does 2 * 239,616 MAC/px = 125.6 GFLOP against ~67 MB of activation
 // in and out, ~1,900 FLOP per byte: far above the card's ~295 FLOP/byte
-// balance point, so it is bound by operations, never by device memory.
+// balance point, so it is bound by operations, never by device memory (at
+// nf 16, gc 8 the same count is ~470 FLOP per byte, still above it).
 // Inside an SM the scarce things are shared memory and its read rate: the
 // 16 x 16 tile's window and intermediates (196 KB) leave 30 KB beside them,
 // and with the pixels as M an RS wgmma of N = 32 (convs 1-4) needs 2 KB of A
@@ -25,41 +26,43 @@
 // 968 with A already in registers), so the kernel is bound by that read
 // rate, at about 4.4x the operations bound (PERF.md).
 //
-// Design. Each block owns one strip x wtile output tile of one image and
-// holds the (strip + 10) x (wtile + 10) x nf input window (halo margin 5, one
-// pixel per conv). x_1..x_4 are computed on shrinking windows ((strip + 10 -
-// 2k) x (wtile + 10 - 2k)) and stay in shared memory in the input dtype, so
-// no intermediate or concat ever reaches device memory; only the halo is
+// Design. rdb5c_tc_kernel<NF, GC, TILE> runs every bf16 RDB (an f32 RDB is
+// five launches of conv_f32.cuh's kernel, chained by rdb_conv.py through a
+// scratch tensor: in f32 the fused tile's window and x_1..x_4 do not fit
+// shared memory at a tile whose halo is cheap). Each block owns TILE x TILE
+// output tiles of one image and holds the (TILE + 10)^2 x NF input window
+// (halo margin 5, one pixel per conv). x_1..x_4 are computed on shrinking
+// windows ((TILE + 10 - 2k)^2) and stay in shared memory in bf16, so no
+// intermediate or concat ever reaches device memory; only the halo is
 // recomputed (1.34x the FLOPs at 16 x 16). The dense concat is never built:
-// each earlier feature adds its own slice of the weight's cin axis. Two
-// kernels, one route each (an f32 RDB is five launches of conv_f32.cuh's
-// kernel, chained by rdb_conv.py through a scratch tensor: in f32 the fused
-// tile's window and x_1..x_4 do not fit shared memory at a tile whose halo
-// is cheap):
-//  - rdb5c_tc_kernel (bf16, the main path; nf 64, gc 32, 16 x 16 tiles fixed
-//    at compile time): persistent blocks of a producer warpgroup (one thread
-//    works; its registers go to the consumers) and two consumer
-//    warpgroups. The producer brings each tile's 26 x 26 x 64 window
-//    with one TMA box (zero fill outside the image = the SAME padding of x)
-//    and streams the RDB's weights (479 KB, more than a block can hold)
-//    through a ring of three 8 KB shared-memory slots, one bulk copy per
-//    stage, in exactly the order the consumers read them: every weight byte
-//    reaches an SM once per tile, and no k-loop reads global memory. The
-//    consumers run each conv as an implicit GEMM on the tensor cores: RS
-//    wgmma, the pixels as M (A by ldmatrix from the swizzled windows shifted
-//    by the tap), the whole cout as N (m64n32k16, conv 5 m64n64k16), B from
-//    the ring slot through a descriptor. A warpgroup holds all its 64-pixel
-//    M-tiles of a conv in registers, so each weight stage is read once per
-//    warpgroup. A named barrier over the consumer threads separates conv k
-//    from conv k + 1; the producer runs ahead across it.
-//  - rdb5c_kernel, SIMT FMAs over planar windows, any tile, weights from L2,
-//    f32 accumulation, for the bf16 widths the tensor-core kernel does not
-//    take (the x window and x_1..x_4 kept in bf16, each x_k rounded to bf16
-//    as the plain version rounds it). nf and gc are multiples of 8 (kCO):
-//    rdb_conv.py zero-pads other widths in the weight layout (zero weights
-//    and bias give x_k = 0 in the padded channels). At nf 16, gc 8 a launch
-//    does ~18 FLOP per byte of activation: bound by operations on the SIMT
-//    units, not by memory.
+// each earlier feature adds its own slice of the weight's cin axis.
+// Persistent blocks of a producer warpgroup (one thread works; its registers
+// go to the consumers) and two consumer warpgroups. The producer brings each
+// tile's window with one TMA box per 64 channels (zero fill outside the image
+// = the SAME padding of x) and streams the RDB's weights (479 KB at 64 / 32,
+// more than a block can hold) through a ring of three shared-memory slots,
+// one bulk copy per stage, in exactly the order the consumers read them:
+// every weight byte reaches an SM once per tile, and no k-loop reads global
+// memory. The consumers run each conv as an implicit GEMM on the tensor
+// cores: RS wgmma, the pixels as M (A by ldmatrix from the swizzled windows
+// shifted by the tap), the whole cout as N, B from the ring slot through a
+// descriptor. A warpgroup holds all its 64-pixel M-tiles of a conv in
+// registers, so each weight stage is read once per warpgroup; a conv of one
+// M-tile (conv 5 at an 8 x 8 tile) is split by cout between the warpgroups
+// instead. A named barrier over the consumer threads separates conv k from
+// conv k + 1; the producer runs ahead across it.
+//
+// Instances (rdb_conv.py pads every other bf16 width to the smallest that
+// holds it: zero weights, bias and input channels give x_k = lrelu(0) = 0 in
+// the padded channels, so the function is the same). What bounds each on
+// this card is the shared memory of its windows beside the ring:
+//  - <64, 32, 16>, the main path: 196 KB of windows + 24 KB of ring;
+//  - <32, 16, 16>, nf <= 32 and gc <= 16 (the JAX package's test and dry-run
+//    widths): 98 KB + 24 KB. A 16 x 16 tile keeps the halo cheap; narrower
+//    widths make the tile's tensor-core work small beside its fixed costs;
+//  - <128, 64, 8>, nf <= 128 and gc <= 64: 168 KB + 48 KB (16 KB stages, the
+//    size of one conv-5 k-block). A 16 x 16 tile's windows would take 392 KB;
+//    at 8 x 8 the halo is 3.4x the tile's own work.
 #pragma once
 
 #include "common.cuh"
@@ -67,177 +70,105 @@
 
 namespace esr {
 
-struct RdbArgs {
-  const __nv_bfloat16* x;      // (n, h, w, nf) NHWC
-  __nv_bfloat16* out;          // (n, h, w, nf) NHWC
-  const __nv_bfloat16* wt[5];  // conv k: [9][cin_k][cout_k], K = 9 * (nf + (k-1) gc) tap-major
-  const float* b[5];           // conv k bias: [cout_k]
-  int n, h, w, nf, gc, strip, wtile;
-};
+constexpr int kRdbGroups = 2;                     // consumer warpgroups
+constexpr int kRdbConsumers = 128 * kRdbGroups;
+constexpr int kRdbThreads = kRdbConsumers + 128;  // the consumers + a producer warpgroup
+constexpr int kRdbSlots = 3;                      // weight ring slots
 
-// Shared-memory bytes one block of the SIMT kernel needs.
-inline size_t rdb5c_smem_bytes(int nf, int gc, int strip, int wtile) {
-  size_t n = (size_t)nf * (strip + 10) * (wtile + 10);
-  for (int k = 1; k < 5; ++k) n += (size_t)gc * (strip + 10 - 2 * k) * (wtile + 10 - 2 * k);
-  return n * sizeof(__nv_bfloat16);
+__host__ __device__ constexpr uint32_t rdb_align(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
+
+// A window of C 16-byte chunks a pixel (C = 2, 4 or 8): the XOR key of pixel
+// p's chunks, and the chunk index of chunk q of pixel p (common.cuh's
+// swz(p, q, C) / 8; C = 8 is TMA's 128B swizzle, C = 4 its 64B one).
+template <int C>
+__device__ __forceinline__ int rdb_key(int p) {
+  static_assert(C == 2 || C == 4 || C == 8, "2, 4 or 8 chunks a pixel");
+  return C == 8 ? (p & 7) : (p >> (C == 4 ? 1 : 2)) & (C - 1);
 }
-
-__global__ void __launch_bounds__(kThreads) rdb5c_kernel(const RdbArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // feature k lives on a (fh[k] x fw[k]) grid whose origin is k pixels inside
-  // the input window's origin
-  __nv_bfloat16* feat[5];
-  int fh[5], fw[5], fc[5];
-  size_t off = 0;
-  for (int k = 0; k < 5; ++k) {
-    fh[k] = a.strip + 10 - 2 * k;
-    fw[k] = a.wtile + 10 - 2 * k;
-    fc[k] = k == 0 ? a.nf : a.gc;
-    feat[k] = reinterpret_cast<__nv_bfloat16*>(smem_raw) + off;
-    off += (size_t)fc[k] * fh[k] * fw[k];
-  }
-  const int n = blockIdx.z, y0 = blockIdx.y * a.strip, x0 = blockIdx.x * a.wtile;
-  load_window(feat[0], a.x, n, a.h, a.w, a.nf, y0 - 5, x0 - 5, fh[0], fw[0]);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int k = 1; k <= 5; ++k) {
-    const int oh = k < 5 ? fh[k] : a.strip, ow = k < 5 ? fw[k] : a.wtile;
-    const int cout = k < 5 ? a.gc : a.nf, cin_total = a.nf + (k - 1) * a.gc;
-    const int npx = oh * ow, n_pb = (npx + kPixBlock - 1) / kPixBlock, n_cg = cout / kCO;
-    const __nv_bfloat16* wk = a.wt[k - 1];
-    const float* bk = a.b[k - 1];
-    // a warp item: kPixBlock output pixels x kCO channels (warp-uniform)
-    for (int item = warp; item < n_pb * n_cg; item += nwarps) {
-      const int pb = item % n_pb, cg = item / n_pb;
-      int q[kPX], pr[kPX], pc[kPX];
-      bool ok[kPX];
-#pragma unroll
-      for (int p = 0; p < kPX; ++p) {
-        q[p] = pb * kPixBlock + lane + 32 * p;
-        ok[p] = q[p] < npx;
-        const int qq = ok[p] ? q[p] : 0;
-        pr[p] = qq / ow;
-        pc[p] = qq % ow;
-      }
-      float acc[kPX][kCO];
-#pragma unroll
-      for (int c = 0; c < kCO; ++c) {
-        const float bv = bk[cg * kCO + c];
-#pragma unroll
-        for (int p = 0; p < kPX; ++p) acc[p][c] = bv;
-      }
-      int cin_off = 0;
-      for (int j = 0; j < k; ++j) {
-        // output pixel (r, c) of conv k sits at window (r + k, c + k); its
-        // first tap reads window (r + k - 1, c + k - 1) = feature j's
-        // (r + s, c + s)
-        const int s = k - 1 - j;
-        int base[kPX];
-#pragma unroll
-        for (int p = 0; p < kPX; ++p) base[p] = (pr[p] + s) * fw[j] + pc[p] + s;
-        accumulate(acc, feat[j], fh[j] * fw[j], fw[j], base, fc[j], 3, 3,
-                   wk + (size_t)cin_off * cout + cg * kCO, cin_total * cout, cout);
-        cin_off += fc[j];
-      }
-      if (k < 5) {
-#pragma unroll
-        for (int p = 0; p < kPX; ++p) {
-          if (!ok[p]) continue;
-          const int gy = y0 - 5 + k + pr[p], gx = x0 - 5 + k + pc[p];
-          const bool inside = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
-#pragma unroll
-          for (int c = 0; c < kCO; ++c) {
-            const float v = inside ? lrelu(acc[p][c]) : 0.f;
-            feat[k][(cg * kCO + c) * npx + q[p]] = __float2bfloat16(v);
-          }
-        }
-      } else {
-        const int plane0 = fh[0] * fw[0];
-#pragma unroll
-        for (int p = 0; p < kPX; ++p) {
-          const int gy = y0 + pr[p], gx = x0 + pc[p];
-          if (!ok[p] || gy >= a.h || gx >= a.w) continue;
-          const int xi = (pr[p] + 5) * fw[0] + pc[p] + 5;
-          __nv_bfloat16* o = a.out + (((size_t)n * a.h + gy) * a.w + gx) * a.nf + cg * kCO;
-#pragma unroll
-          for (int c = 0; c < kCO; ++c) {
-            const float xv = __bfloat162float(feat[0][(cg * kCO + c) * plane0 + xi]);
-            o[c] = __float2bfloat16(xv + 0.2f * acc[p][c]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
+template <int C>
+__device__ __forceinline__ int rdb_chunk(int p, int q) {
+  return p * C + (q ^ rdb_key<C>(p));
 }
 
 // ---------------------------------------------------------------------------
-// rdb5c_tc_kernel: the bf16 main path (see the note at the top).
+// The shape of one instance.
 //
 // Shared memory (from a 1024-byte aligned base): the weight ring (3 slots of
-// 8 KB), the x window (26 x 26 pixels x 128 bytes, TMA's 128B swizzle =
-// swz(p, q, 8)), x_1..x_4 (edge 26 - 2k, 64 bytes a pixel, swz(p, q, 4)),
-// eight mbarriers.
+// kStage bytes), the x window ((TILE + 10)^2 pixels; one 128B-swizzled plane
+// per 64 channels, each 1024-byte aligned, as TMA writes it; NF 32: one plane
+// of 64-byte pixels with TMA's 64B swizzle), x_1..x_4 (edge TILE + 10 - 2k,
+// 2 GC bytes a pixel, chunk q of pixel p at swz(p, q, GC / 8)), eight
+// mbarriers.
 //
 // The weight image (rdb5c_kernel_weights in rdb_conv.py builds it): for each
 // conv k, its K = 9 cin_k values (tap-major, the concat's channel order in a
 // tap) cut into 64-deep k-blocks, the last one zero-padded; a k-block is
 // cout_k rows of 64 K values, 128B-swizzled: the K-major wgmma B operand of
-// its four 16-deep k-steps. The five convs' k-blocks back to back are 59
-// stages of 8 KB; stage t is bytes [8192 t, 8192 t + 8192) and goes to ring
-// slot t % 3. A 16-deep k-step never straddles a source feature (they are 32
-// or 64 channels) and a k-block never straddles a stage.
+// its four 16-deep k-steps. Each conv's k-blocks start at a multiple of their
+// size and the image ends at a whole stage (zero bytes between): stage t is
+// bytes [kStage t, kStage (t + 1)) and goes to ring slot t % 3. A 16-deep
+// k-step never straddles a source feature (NF and GC are multiples of 16) and
+// a k-block never straddles a stage. At <64, 32, 16> no padding is needed:
+// 59 stages of 8 KB.
 // ---------------------------------------------------------------------------
 
-constexpr int kRdbTile = 16;                     // output tile edge
-constexpr int kRdbWin = kRdbTile + 10;           // x window edge: 26
-constexpr int kRdbGroups = 2;                    // consumer warpgroups
-constexpr int kRdbConsumers = 128 * kRdbGroups;
-constexpr int kRdbThreads = kRdbConsumers + 128;  // the consumers + a producer warpgroup
-constexpr uint32_t kRdbStage = 8192;             // bytes per weight stage and ring slot
-constexpr int kRdbSlots = 3;
+template <int NF, int GC, int TILE>
+struct Rdb {
+  static_assert((NF == 32 || NF == 64 || NF == 128) && (GC == 16 || GC == 32 || GC == 64), "the wgmma widths");
+  static constexpr int kNF = NF, kGC = GC;
+  static constexpr int kWin = TILE + 10;           // x window edge
+  static constexpr uint32_t kStage = NF * 128 > 8192 ? NF * 128 : 8192;  // bytes per stage and slot
+  // the bytes of one 64-channel plane of the x window (1024-byte aligned when
+  // NF 128 has two; NF 32: the whole window)
+  static constexpr uint32_t kPlane = NF > 64 ? rdb_align(kWin * kWin * 128, 1024) : kWin * kWin * NF * 2;
 
-// Feature j (0: x, 1..4: x_j): window edge and 16-byte chunks per pixel.
-__host__ __device__ constexpr int rdb_edge(int j) { return kRdbWin - 2 * j; }
-__host__ __device__ constexpr int rdb_chunks(int j) { return j == 0 ? 8 : 4; }
-// Byte offset of feature j's window (j = 5: the end of the windows).
-__host__ __device__ constexpr uint32_t rdb_feat_off(int j) {
-  uint32_t off = kRdbSlots * kRdbStage;
-  for (int i = 0; i < j; ++i) off += rdb_edge(i) * rdb_edge(i) * rdb_chunks(i) * 16;
-  return off;
-}
-// Conv k (1..5): cin, cout, bytes of a k-block, k-blocks, and the byte offset
-// of its first k-block in the weight image (k = 6: the image's size).
-__host__ __device__ constexpr int rdb_cin(int k) { return 64 + 32 * (k - 1); }
-__host__ __device__ constexpr int rdb_cout(int k) { return k < 5 ? 32 : 64; }
-__host__ __device__ constexpr uint32_t rdb_kblock_bytes(int k) { return rdb_cout(k) * 128; }
-__host__ __device__ constexpr int rdb_kblocks(int k) { return (9 * rdb_cin(k) + 63) / 64; }
-__host__ __device__ constexpr uint32_t rdb_wbase(int k) {
-  uint32_t off = 0;
-  for (int i = 1; i < k; ++i) off += rdb_kblocks(i) * rdb_kblock_bytes(i);
-  return off;
-}
-// Conv k's output edge (k < 5: x_k's window; 5: the tile) and 64-pixel M-tiles.
-__host__ __device__ constexpr int rdb_out_edge(int k) { return k < 5 ? rdb_edge(k) : kRdbTile; }
-__host__ __device__ constexpr int rdb_mtiles(int k) {
-  return (rdb_out_edge(k) * rdb_out_edge(k) + 63) / 64;
-}
+  // Feature j (0: x, 1..4: x_j): window edge and 16-byte chunks per pixel.
+  __host__ __device__ static constexpr int edge(int j) { return kWin - 2 * j; }
+  __host__ __device__ static constexpr int chunks(int j) { return j == 0 ? NF / 8 : GC / 8; }
+  // Byte offset of feature j's window (j = 5: the end of the windows).
+  __host__ __device__ static constexpr uint32_t feat_off(int j) {
+    uint32_t off = kRdbSlots * kStage;
+    for (int i = 0; i < j; ++i) off += i == 0 ? (NF + 63) / 64 * kPlane : edge(i) * edge(i) * chunks(i) * 16;
+    return off;
+  }
+  // Conv k (1..5): cin, cout, bytes of a k-block, k-blocks, and the byte
+  // offset of its first k-block in the weight image (k = 6: the image's size).
+  __host__ __device__ static constexpr int cin(int k) { return NF + GC * (k - 1); }
+  __host__ __device__ static constexpr int cout(int k) { return k < 5 ? GC : NF; }
+  __host__ __device__ static constexpr uint32_t kblock_bytes(int k) { return cout(k) * 128; }
+  __host__ __device__ static constexpr int kblocks(int k) { return (9 * cin(k) + 63) / 64; }
+  __host__ __device__ static constexpr uint32_t wbase(int k) {
+    uint32_t off = 0;
+    for (int i = 1; i < k; ++i) off = rdb_align(off + kblocks(i) * kblock_bytes(i), i < 5 ? kblock_bytes(i + 1) : kStage);
+    return off;
+  }
+  // Conv k's output edge (k < 5: x_k's window; 5: the tile) and 64-pixel M-tiles.
+  __host__ __device__ static constexpr int out_edge(int k) { return k < 5 ? edge(k) : TILE; }
+  __host__ __device__ static constexpr int mtiles(int k) { return (out_edge(k) * out_edge(k) + 63) / 64; }
 
-constexpr uint32_t kRdbWBytes = rdb_wbase(6);  // 483,328
-constexpr int kRdbStages = kRdbWBytes / kRdbStage;  // 59
-constexpr uint32_t kRdbXBytes = rdb_feat_off(1) - rdb_feat_off(0);
-constexpr uint32_t kRdbBarOff = rdb_feat_off(5);
-static_assert(kRdbWBytes % kRdbStage == 0, "the weight image is whole stages");
-static_assert(rdb_wbase(5) % kRdbStage == 0, "conv 5's k-blocks fill whole stages");
-static_assert(rdb_feat_off(0) % 1024 == 0, "the TMA window is 1024-byte aligned");
+  static constexpr uint32_t kWBytes = wbase(6);
+  static constexpr int kStages = kWBytes / kStage;
+  static constexpr uint32_t kXBytes = kWin * kWin * NF * 2;  // what the window's TMA boxes bring
+  static constexpr uint32_t kBarOff = feat_off(5);
+  static constexpr size_t kSmemBytes = 1024 + kBarOff + 8 * 8;
+  static_assert(kWBytes % kStage == 0, "the weight image is whole stages");
+  static_assert(kStages > kRdbSlots, "the producer's window schedule needs more stages than slots");
+  static_assert(feat_off(0) % 1024 == 0 && (NF <= 64 || kPlane % 1024 == 0), "the TMA planes are 1024-byte aligned");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
 
-inline size_t rdb_tc_smem_bytes() { return 1024 + kRdbBarOff + 8 * 8; }
+  // Feature j's window: the chunk index, from its start, of chunk q of pixel p
+  // (x at NF 128: in the plane of 64 channels that holds it).
+  static constexpr int kXC = NF < 64 ? NF / 8 : 8;  // chunks a pixel of an x plane
+  __device__ __forceinline__ static int chunk(int j, int p, int q) {
+    if (j > 0) return rdb_chunk<GC / 8>(p, q);
+    return NF > 64 ? (q >> 3) * (int)(kPlane / 16) + rdb_chunk<8>(p, q & 7) : rdb_chunk<kXC>(p, q);
+  }
+};
 
 struct RdbTcArgs {
-  const unsigned char* wimg;  // the weight image, kRdbWBytes
+  const unsigned char* wimg;  // the weight image, Rdb::kWBytes
   const float* b[5];          // conv k bias: [cout_k]
-  __nv_bfloat16* out;         // (n, h, w, 64) NHWC
+  __nv_bfloat16* out;         // (n, h, w, NF) NHWC
   int n, h, w, tiles_x, tiles_y, n_tiles;
 };
 
@@ -255,14 +186,18 @@ __device__ __forceinline__ void rdb_release(uint64_t* empty, int stage) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage % kRdbSlots]);
 }
 
-// Conv K of one tile for M-tiles g, g + G, .. (MT of them; G = kRdbGroups) of warpgroup g:
-// the implicit GEMM, then its epilogue (K < 5: bias, lrelu, zero outside the
-// image, bf16 into x_K's window; K = 5: x + 0.2 (acc + b5) to global).
-template <int K, int MT>
+// Conv K of one tile for warpgroup g: M-tiles g, g + G, .. (MT of them; G =
+// kRdbGroups) at all cout_K channels, or (SPLIT) M-tile 0 at channels
+// [g N, (g + 1) N) of cout_K = G N. The implicit GEMM, then its epilogue (K <
+// 5: bias, lrelu, zero outside the image, bf16 into x_K's window; K = 5: x +
+// 0.2 (acc + b5) to global).
+template <class R, int K, int MT, bool SPLIT>
 __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* sm, RdbRing& ring,
                                             int g, int n, int y0, int x0) {
-  constexpr int N = rdb_cout(K), KS = rdb_cin(K) / 16, O = rdb_out_edge(K), NPX = O * O;
-  constexpr uint32_t KB = rdb_kblock_bytes(K), WB = rdb_wbase(K);
+  constexpr int N = SPLIT ? R::cout(K) / kRdbGroups : R::cout(K), KS = R::cin(K) / 16, O = R::out_edge(K),
+                NPX = O * O, XS = R::chunks(0) / 2, JS = R::chunks(1) / 2;  // k-steps of x and of an x_j
+  constexpr uint32_t KB = R::kblock_bytes(K), WB = R::wbase(K);
+  const int n0 = SPLIT ? g * N : 0;  // this warpgroup's first output channel
   // the lane through a volatile read: the values below are the same in every
   // tile, and hoisted out of the tile loop (for all five convs) they would
   // crowd out the registers the wgmma pipeline needs
@@ -271,25 +206,25 @@ __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* s
   const int lane = (int)lane_v, w4 = (threadIdx.x >> 5) & 3, half = lane >> 4;
   const uint32_t sm_s = smem_addr(sm);
 
-  // this thread's bias columns: 8 jn + 2 (lane % 4) + e
+  // this thread's bias columns: n0 + 8 jn + 2 (lane % 4) + e
   float bv[N / 8][2];
 #pragma unroll
   for (int jn = 0; jn < N / 8; ++jn) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) bv[jn][e] = __ldg(a.b[K - 1] + 8 * jn + 2 * (lane & 3) + e);
+    for (int e = 0; e < 2; ++e) bv[jn][e] = __ldg(a.b[K - 1] + n0 + 8 * jn + 2 * (lane & 3) + e);
   }
-  // pix[i][j]: the window pixel of feature j that this lane's A row of M-tile
-  // G i + g reads at tap (0, 0). Output pixel (r, c) of conv K reads feature
-  // j's (r + s + ty, c + s + tx) at tap (ty, tx), s = K - 1 - j. Rows past
-  // the region read pixel 0 and are not stored.
+  // pix[i][j]: the window pixel of feature j that this lane's A row of its
+  // i-th M-tile reads at tap (0, 0). Output pixel (r, c) of conv K reads
+  // feature j's (r + s + ty, c + s + tx) at tap (ty, tx), s = K - 1 - j. Rows
+  // past the region read pixel 0 and are not stored.
   int pix[MT][K];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
-    int p = (kRdbGroups * i + g) * 64 + 16 * w4 + (lane & 15);
+    int p = (SPLIT ? i : kRdbGroups * i + g) * 64 + 16 * w4 + (lane & 15);
     p = p < NPX ? p : 0;
     const int r = p / O, c = p - r * O;
 #pragma unroll
-    for (int j = 0; j < K; ++j) pix[i][j] = (r + K - 1 - j) * rdb_edge(j) + c + K - 1 - j;
+    for (int j = 0; j < K; ++j) pix[i][j] = (r + K - 1 - j) * R::edge(j) + c + K - 1 - j;
   }
   float acc[MT][N / 2];
 #pragma unroll
@@ -298,30 +233,39 @@ __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* s
     for (int v = 0; v < N / 2; ++v) acc[i][v] = 0.f;
   }
   // A is double-buffered in registers by k-step: a step's ldmatrix runs
-  // while the previous step's wgmma is on the tensor cores (KS is even)
+  // while the previous step's wgmma is on the tensor cores. An odd KS (<32,
+  // 16, 16>'s convs 2 and 4) gives a tap's first k-step the buffer of the
+  // previous tap's last, so a tap then starts by waiting for every wgmma
   uint32_t af[2][MT][4] = {};
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
     const int ty = tap / 3, tx = tap - 3 * ty;
+    if constexpr (KS % 2 == 1) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) reg_fence(af[0][i][r]);
+      }
+    }
 #pragma unroll
     for (int cs = 0; cs < KS; ++cs) {
-      // k-step cs of the tap: x's channels 16 cs .. (cs < 4), else x_j's
-      const int j = cs < 4 ? 0 : 1 + (cs - 4) / 2;
-      const int q = (cs < 4 ? 2 * cs : 2 * ((cs - 4) % 2)) + half;
+      // k-step cs of the tap: x's channels 16 cs .. (cs < XS), else x_j's
+      const int j = cs < XS ? 0 : 1 + (cs - XS) / JS;
+      const int q = (cs < XS ? 2 * cs : 2 * ((cs - XS) % JS)) + half;
       const int buf = cs & 1;
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const int p = pix[i][j] + ty * rdb_edge(j) + tx;
-        const int chunk = j == 0 ? p * 8 + (q ^ (p & 7)) : p * 4 + (q ^ ((p >> 1) & 3));
-        ldmatrix_x4(af[buf][i], sm_s + rdb_feat_off(j) + chunk * 16);
+        const int p = pix[i][j] + ty * R::edge(j) + tx;
+        ldmatrix_x4(af[buf][i], sm_s + R::feat_off(j) + R::chunk(j, p, q) * 16);
       }
       const int s = tap * KS + cs;
       const uint32_t kb = WB + (uint32_t)(s >> 2) * KB;  // this k-step's k-block in the image
-      const int st = ring.base + (int)(kb / kRdbStage);
+      const int st = ring.base + (int)(kb / R::kStage);
       const bool fresh = st != ring.cur;
       if (fresh) mbar_wait(&ring.full[st % kRdbSlots], (st / kRdbSlots) & 1);
-      const uint64_t desc =
-          wgmma_desc_sw128(ring.slots + (st % kRdbSlots) * kRdbStage + kb % kRdbStage + (s & 3) * 32);
+      const uint64_t desc = wgmma_desc_sw128(ring.slots + (st % kRdbSlots) * R::kStage + kb % R::kStage +
+                                             n0 * 128 + (s & 3) * 32);
       wgmma_fence();
 #pragma unroll
       for (int i = 0; i < MT; ++i) Wgmma<N>::mma(acc[i], af[buf][i], desc);
@@ -345,35 +289,36 @@ __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* s
     for (int v = 0; v < N / 2; ++v) reg_fence(acc[i][v]);
   }
 
-  // accumulator acc[i][4 jn + 2 hf + e]: pixel (G i + g) * 64 + 16 w4 + lane / 4 + 8 hf,
-  // channel 8 jn + 2 (lane % 4) + e
+  // accumulator acc[i][4 jn + 2 hf + e]: pixel (M-tile) * 64 + 16 w4 + lane / 4 + 8 hf,
+  // channel n0 + 8 jn + 2 (lane % 4) + e
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int p = (kRdbGroups * i + g) * 64 + 16 * w4 + (lane >> 2) + 8 * hf;
+      const int p = (SPLIT ? i : kRdbGroups * i + g) * 64 + 16 * w4 + (lane >> 2) + 8 * hf;
       if (p >= NPX) continue;
       const int r = p / O, c = p - r * O;
       if constexpr (K < 5) {
         const int gy = y0 - 5 + K + r, gx = x0 - 5 + K + c;
         const bool inside = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
-        unsigned char* row = sm + rdb_feat_off(K) + p * 64 + 4 * (lane & 3);
+        unsigned char* row = sm + R::feat_off(K) + p * R::kGC * 2 + 4 * (lane & 3);
 #pragma unroll
         for (int jn = 0; jn < N / 8; ++jn) {
           const float v0 = inside ? lrelu(acc[i][4 * jn + 2 * hf] + bv[jn][0]) : 0.f;
           const float v1 = inside ? lrelu(acc[i][4 * jn + 2 * hf + 1] + bv[jn][1]) : 0.f;
-          *reinterpret_cast<uint32_t*>(row + ((jn ^ ((p >> 1) & 3)) << 4)) = pack_bf16x2(v0, v1);
+          *reinterpret_cast<uint32_t*>(row + ((jn ^ rdb_key<R::kGC / 8>(p)) << 4)) = pack_bf16x2(v0, v1);
         }
       } else {
         const int gy = y0 + r, gx = x0 + c;
         if (gy >= a.h || gx >= a.w) continue;
-        const int xw = (r + 5) * kRdbWin + c + 5;  // the same pixel in x's window
-        const unsigned char* xrow = sm + rdb_feat_off(0) + xw * 128 + 4 * (lane & 3);
-        uint32_t* o = reinterpret_cast<uint32_t*>(a.out + (((size_t)n * a.h + gy) * a.w + gx) * 64 +
+        const int xw = (r + 5) * R::kWin + c + 5;  // the same pixel in x's window
+        // (x's plane of channels n0 ..)
+        const unsigned char* xrow = sm + R::feat_off(0) + (n0 / 64) * R::kPlane + xw * R::kXC * 16 + 4 * (lane & 3);
+        uint32_t* o = reinterpret_cast<uint32_t*>(a.out + (((size_t)n * a.h + gy) * a.w + gx) * R::kNF + n0 +
                                                   2 * (lane & 3));
 #pragma unroll
         for (int jn = 0; jn < N / 8; ++jn) {
-          const uint32_t xv = *reinterpret_cast<const uint32_t*>(xrow + ((jn ^ (xw & 7)) << 4));
+          const uint32_t xv = *reinterpret_cast<const uint32_t*>(xrow + ((jn ^ rdb_key<R::kXC>(xw)) << 4));
           const float v0 = __uint_as_float(xv << 16) + 0.2f * (acc[i][4 * jn + 2 * hf] + bv[jn][0]);
           const float v1 =
               __uint_as_float(xv & 0xffff0000u) + 0.2f * (acc[i][4 * jn + 2 * hf + 1] + bv[jn][1]);
@@ -384,27 +329,32 @@ __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* s
   }
 }
 
-// Conv K for warpgroup g: M-tiles g, g + G, ..; the first (M-tiles % G)
-// groups take one more.
-template <int K>
-__device__ __forceinline__ void rdb_tc_conv_group(const RdbTcArgs& a, unsigned char* sm,
-                                                  RdbRing& ring, int g, int n, int y0, int x0) {
-  constexpr int LO = rdb_mtiles(K) / kRdbGroups, REM = rdb_mtiles(K) % kRdbGroups;
-  static_assert(LO > 0, "every consumer warpgroup has an M-tile");
-  if (REM > 0 && g < REM) {
-    rdb_tc_conv<K, LO + (REM > 0)>(a, sm, ring, g, n, y0, x0);
+// Conv K for warpgroup g: M-tiles g, g + G, .. (the first M-tiles % G groups
+// take one more), or, for a conv of fewer M-tiles than groups, its one M-tile
+// at the group's share of cout.
+template <class R, int K>
+__device__ __forceinline__ void rdb_tc_conv_group(const RdbTcArgs& a, unsigned char* sm, RdbRing& ring,
+                                                  int g, int n, int y0, int x0) {
+  constexpr int LO = R::mtiles(K) / kRdbGroups, REM = R::mtiles(K) % kRdbGroups;
+  if constexpr (LO == 0) {
+    static_assert(R::mtiles(K) == 1 && R::cout(K) % (8 * kRdbGroups) == 0, "one M-tile, split by cout");
+    rdb_tc_conv<R, K, 1, true>(a, sm, ring, g, n, y0, x0);
+  } else if (REM > 0 && g < REM) {
+    rdb_tc_conv<R, K, LO + (REM > 0), false>(a, sm, ring, g, n, y0, x0);
   } else {
-    rdb_tc_conv<K, LO>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv<R, K, LO, false>(a, sm, ring, g, n, y0, x0);
   }
   named_barrier(1, kRdbConsumers);  // x_K is complete before conv K + 1 reads it
 }
 
-// xmap: the input's tensor map, boxes of 26 x 26 pixels x 64 channels.
+// xmap: the input's tensor map, boxes of (TILE + 10)^2 pixels x min(NF, 64) channels.
+template <int NF, int GC, int TILE>
 __global__ void __launch_bounds__(kRdbThreads, 1)
     rdb5c_tc_kernel(const __grid_constant__ CUtensorMap xmap, const RdbTcArgs a) {
+  using R = Rdb<NF, GC, TILE>;
   extern __shared__ __align__(1024) unsigned char rdb_smem[];
   unsigned char* sm = rdb_smem + ((1024 - (smem_addr(rdb_smem) & 1023)) & 1023);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + kRdbBarOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + R::kBarOff);
   // bars[0..2]: ring slot full; [3..5]: ring slot empty; [6]: x window full;
   // [7]: the consumer warps are done with the x window
   uint64_t *full = bars, *empty = bars + 3, *xfull = bars + 6, *xfree = bars + 7;
@@ -424,10 +374,10 @@ __global__ void __launch_bounds__(kRdbThreads, 1)
   }
   __syncthreads();
 
-  // 384 threads get 168 registers each. A consumer needs more (conv 1: 5
-  // M-tiles x 16 accumulators and two A buffers), or ptxas serializes the
-  // wgmmas or spills; the producer warpgroup hands its share over (24 + 2 x
-  // 240 = 3 x 168).
+  // 384 threads get 168 registers each. A consumer needs more (conv 1 at 16 x
+  // 16: 5 M-tiles x 16 accumulators and two A buffers), or ptxas serializes
+  // the wgmmas or spills; the producer warpgroup hands its share over (24 + 2
+  // x 240 = 3 x 168).
   if (warp >= kRdbConsumers / 32) {  // the producer warpgroup: one thread works
     setmaxnreg_dec<24>();
     if (warp == kRdbConsumers / 32 && lane == 0) {
@@ -436,20 +386,22 @@ __global__ void __launch_bounds__(kRdbThreads, 1)
       int it = 0;
       for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x, ++it) {
         const int n = t / tiles_img, r = t % tiles_img;
-        const int y0 = (r / a.tiles_x) * kRdbTile, x0 = (r % a.tiles_x) * kRdbTile;
-        for (int s = 0; s < kRdbStages; ++s, ++st) {
+        const int y0 = (r / a.tiles_x) * TILE, x0 = (r % a.tiles_x) * TILE;
+        for (int s = 0; s < R::kStages; ++s, ++st) {
           // the tile's window: at once for the first tile; later, once the
           // previous tile's stages 0..2 are in flight and its consumers are
           // done with x (its stage 3 waits on this tile's conv 1)
           if (s == (it == 0 ? 0 : kRdbSlots)) {
             if (it > 0) mbar_wait(xfree, (it - 1) & 1);
-            mbar_expect_tx(xfull, kRdbXBytes);
-            tma_load_4d(sm + rdb_feat_off(0), &xmap, 0, x0 - 5, y0 - 5, n, xfull);
+            mbar_expect_tx(xfull, R::kXBytes);
+#pragma unroll
+            for (int c = 0; c < NF; c += 64)  // one box per 64-channel plane
+              tma_load_4d(sm + R::feat_off(0) + (c / 64) * R::kPlane, &xmap, c, x0 - 5, y0 - 5, n, xfull);
           }
           const int slot = st % kRdbSlots;
           if (st >= kRdbSlots) mbar_wait(&empty[slot], (st / kRdbSlots - 1) & 1);
-          mbar_expect_tx(&full[slot], kRdbStage);
-          bulk_copy_g2s(sm + slot * kRdbStage, a.wimg + (size_t)s * kRdbStage, kRdbStage, &full[slot]);
+          mbar_expect_tx(&full[slot], R::kStage);
+          bulk_copy_g2s(sm + slot * R::kStage, a.wimg + (size_t)s * R::kStage, R::kStage, &full[slot]);
         }
       }
     }
@@ -462,14 +414,14 @@ __global__ void __launch_bounds__(kRdbThreads, 1)
   int it = 0;
   for (int t = blockIdx.x; t < a.n_tiles; t += gridDim.x, ++it) {
     const int n = t / tiles_img, r = t % tiles_img;
-    const int y0 = (r / a.tiles_x) * kRdbTile, x0 = (r % a.tiles_x) * kRdbTile;
-    ring.base = it * kRdbStages;
+    const int y0 = (r / a.tiles_x) * TILE, x0 = (r % a.tiles_x) * TILE;
+    ring.base = it * R::kStages;
     mbar_wait(xfull, it & 1);
-    rdb_tc_conv_group<1>(a, sm, ring, g, n, y0, x0);
-    rdb_tc_conv_group<2>(a, sm, ring, g, n, y0, x0);
-    rdb_tc_conv_group<3>(a, sm, ring, g, n, y0, x0);
-    rdb_tc_conv_group<4>(a, sm, ring, g, n, y0, x0);
-    rdb_tc_conv_group<5>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv_group<R, 1>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv_group<R, 2>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv_group<R, 3>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv_group<R, 4>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv_group<R, 5>(a, sm, ring, g, n, y0, x0);
     // conv 5's wgmmas are complete and its epilogue has read x: release the
     // tile's last stage and the window (the barrier above also keeps the
     // next tile's x_1 writes behind this tile's conv 5 reads)

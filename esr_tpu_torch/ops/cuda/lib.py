@@ -36,9 +36,9 @@ _VP, _I, _SZ, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_floa
 # C signatures of the kernels' entry points, by library
 _SIGNATURES = {
     "rdb5c": {
-        "esr_rdb5c": ([_I] + [_VP] * 12 + [_I] * 7 + [_VP], _I),
-        "esr_rdb5c_smem_bytes": ([_I] * 5, _SZ),
-        "esr_rdb5c_weight_image_bytes": ([], _SZ),
+        "esr_rdb5c": ([_VP] * 8 + [_I] * 6 + [_VP], _I),
+        "esr_rdb5c_smem_bytes": ([_I] * 3, _SZ),
+        "esr_rdb5c_weight_image_bytes": ([_I] * 3, _SZ),
     },
     "conv3x3": {
         "esr_conv": ([_VP] * 4 + [_I] * 9 + [_VP], _I),

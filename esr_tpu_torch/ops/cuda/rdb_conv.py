@@ -1,30 +1,30 @@
-"""Fused ResidualDenseBlock-5C forward: the ``rdb5c`` CUDA kernels and their
+"""Fused ResidualDenseBlock-5C forward: the ``rdb5c`` CUDA kernel and its
 plain PyTorch version.
 
 Port of ``esr_tpu/ops/pallas/rdb_conv.py``: ``fused_rdb5c`` and
-``fused_rdb5c_tiled`` keep their signatures and reach the kernels by three
-routes, by dtype and width: bf16 at nf 64, gc 32 runs the tensor-core kernel
-of ``csrc/rdb5c.cuh`` (the main path); bf16 at any other width runs that
-file's SIMT kernel in bf16; f32 runs the block as five launches of the f32
-conv kernel (``csrc/conv_f32.cuh``, :func:`_rdb5c_f32`): conv k reads x and
-x_1..x_{k-1} from two sources, so the dense concat is never built, and
-writes x_k into its channels of one scratch tensor; conv 5 adds the
-residual. Each route counts one launch a block under its own name
-(:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`), the f32 one too. The ``strip`` x
-``wtile`` tile is a schedule hint, as on the TPU, since tiling changes no
-output pixel: the bf16 SIMT kernel runs the tile asked for, the tensor-core
-kernel its own 16 x 16 and the f32 convs theirs whatever is asked. bf16
-widths that are not multiples of 8 are zero-padded in the SIMT weight layout
-(zero weights and bias: the padded channels of each x_k are lrelu(0) = 0,
-and the later convs read them through zero rows), so the function is the
-same. The kernels read their weights in their own layout
-(:func:`rdb5c_kernel_weights`; tensor cores: :func:`rdb5c_weight_image`;
-f32: :class:`Rdb5cF32Weights`):
-the wrappers build it per call, a module can build it once and call
-:func:`rdb5c_launch`. Tensors are NHWC and
-weights HWIO, as in the JAX package. A CPU tensor takes
-:func:`rdb5c_reference`; a CUDA tensor launches a kernel or raises. The
-kernels are forward-only, like the Pallas one.
+``fused_rdb5c_tiled`` keep their signatures and reach the kernels by dtype.
+bf16 runs the tensor-core kernel of ``csrc/rdb5c.cuh``, one launch a block,
+in one of its instances (:data:`INSTANCES`: nf / gc / tile 32 / 16 / 16, 64
+/ 32 / 16, the main path, and 128 / 64 / 8). A width runs on the narrowest
+instance that holds it, zero-padded to it: zero weights and bias in the
+padded channels give x_k = lrelu(0) = 0 there, the later convs read them
+through zero weights, and x is padded with zero channels and the output cut
+back, so the function is the same. A bf16 RDB wider than nf 128 or gc 64
+raises ``ValueError`` on the card. f32 runs the block as five launches of
+the f32 conv kernel (``csrc/conv_f32.cuh``, :func:`_rdb5c_f32`), at any
+width: conv k reads x and x_1..x_{k-1} from two sources, so the dense
+concat is never built, and writes x_k into its channels of one scratch
+tensor; conv 5 adds the residual. Each dtype counts one launch a block
+under its own name (:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`). The ``strip``
+x ``wtile`` tile is a schedule hint, as on the TPU, since tiling changes no
+output pixel: each kernel runs its own tiles whatever is asked. The kernels
+read their weights in their own layout (:func:`rdb5c_kernel_weights`;
+bf16: :func:`rdb5c_weight_image` of the padded weights; f32:
+:class:`Rdb5cF32Weights`): the wrappers build it per call, a module can
+build it once and call :func:`rdb5c_launch`. Tensors are NHWC and weights
+HWIO, as in the JAX package. A CPU tensor takes :func:`rdb5c_reference`, at
+any width; a CUDA tensor launches a kernel or raises. The kernels are
+forward-only, like the Pallas one.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from esr_tpu_torch.ops.cuda import kpack_conv, lib
 from esr_tpu_torch.ops.cuda.kpack_conv import ConvKernelWeights, sw128_rows
 
 __all__ = [
+    "INSTANCES",
     "LAUNCHES",
     "LAUNCHES_SIMT",
     "LAYOUTS",
@@ -45,6 +46,7 @@ __all__ = [
     "Rdb5cKernelWeights",
     "fused_rdb5c",
     "fused_rdb5c_tiled",
+    "rdb5c_instance",
     "rdb5c_kernel_weights",
     "rdb5c_launch",
     "rdb5c_params_from_module",
@@ -52,25 +54,17 @@ __all__ = [
     "rdb5c_weight_image",
 ]
 
-# launches by route, one a block: the tensor-core kernel (bf16, nf 64, gc
-# 32: the main path), the bf16 SIMT kernel, and the f32 route (five f32 conv
-# launches a block); and the weight layouts built
+# launches, one a block: the bf16 tensor-core kernel (every instance) and the
+# f32 route (five f32 conv launches a block, on the FP32 units); and the
+# weight layouts built
 LAUNCHES = lib.LaunchCounter("rdb5c")
-LAUNCHES_SIMT = {dt: lib.LaunchCounter(f"rdb5c_simt_{dt}") for dt in ("bf16", "f32")}
+LAUNCHES_SIMT = {"f32": lib.LaunchCounter("rdb5c_simt_f32")}
 LAYOUTS = lib.LaunchCounter("rdb5c_kernel_weights")
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# Default tile edge of the bf16 SIMT kernel, halved until the block's window
-# fits the 227 KB of shared memory. Larger tiles recompute less halo. The
-# tensor-core kernel's tile is 16 x 16.
-_SIMT_TILE = 16
-_TC_NF, _TC_GC, _TC_TILE = 64, 32, 16
-_SMEM_LIMIT = 232448
-_ROUTE_CODE = {"tc": 1, "simt": 2}
-
-
-def _ceil8(n: int) -> int:
-    return -(-n // 8) * 8
+# the bf16 kernel's instances (nf, gc, tile), narrowest first, as csrc/rdb5c.cu
+# lists them
+INSTANCES = ((32, 16, 16), (64, 32, 16), (128, 64, 8))
 
 
 def rdb5c_reference(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -109,8 +103,7 @@ def fused_rdb5c_tiled(
 ) -> torch.Tensor:
     """Fused RDB forward over ``strip`` x ``wtile`` output tiles (ragged edges
     allowed; a schedule hint: the tensor-core kernel and the f32 convs run
-    their own tiles whatever is asked). The bf16 SIMT kernel's tile edges
-    default to its largest fitting square."""
+    their own tiles whatever is asked)."""
     if x.device.type == "cpu":
         return rdb5c_reference(x, params)
     _require_cuda(x)
@@ -121,15 +114,11 @@ def fused_rdb5c_tiled(
 class Rdb5cKernelWeights(NamedTuple):
     """One bf16 RDB's weights in the kernel's layout, on one device."""
 
-    # tc: (rdb5c_weight_image,); simt: w_k as [9][cin_k][cout_k], zero-padded
-    # to nf_pad / gc_pad channels per source feature and output
-    wts: tuple[torch.Tensor, ...]
-    bs: tuple[torch.Tensor, ...]  # f32, zero-padded like the weights
+    image: torch.Tensor  # rdb5c_weight_image of the weights zero-padded to the instance's widths
+    bs: tuple[torch.Tensor, ...]  # f32 biases, zero-padded like the weights
     nf: int
     gc: int
-    route: str  # "tc" (tensor cores) or "simt"
-    nf_pad: int  # nf and gc as the kernel runs them (simt: rounded up to multiples of 8)
-    gc_pad: int
+    instance: tuple[int, int, int]  # (nf, gc, tile) of the kernel instance that runs it
 
 
 class Rdb5cF32Weights(NamedTuple):
@@ -142,29 +131,50 @@ class Rdb5cF32Weights(NamedTuple):
     gc: int
 
 
+def rdb5c_instance(nf: int, gc: int) -> tuple[int, int, int]:
+    """The narrowest bf16 kernel instance (nf, gc, tile) that holds an RDB
+    of these widths; ``ValueError`` past the widest."""
+    for inst in INSTANCES:
+        if nf <= inst[0] and gc <= inst[1]:
+            return inst
+    raise ValueError(f"fused_rdb5c: the bf16 kernel takes nf up to {INSTANCES[-1][0]} and gc up to "
+                     f"{INSTANCES[-1][1]}, got nf={nf}, gc={gc} (f32 and the CPU take any width)")
+
+
 def rdb5c_weight_image(params: dict) -> torch.Tensor:
-    """HWIO ``w1..w5`` -> the bf16 kernel's weight image, flat, in their dtype.
+    """HWIO ``w1..w5`` at an instance's widths -> the bf16 kernel's weight
+    image, flat, in their dtype.
 
     For each conv k, its K = 9 cin_k values (tap-major, the concat's channel
     order within a tap) are cut into 64-deep k-blocks, the last one
     zero-padded; a k-block is cout_k rows of 64 K values with the 128-byte
     swizzle (:func:`sw128_rows`), the K-major wgmma B operand of its four
-    16-deep k-steps. The five convs' k-blocks follow each other; the kernel
-    copies the image to shared memory in 8 KB stages."""
-    parts = []
+    16-deep k-steps. Each conv's k-blocks start at a multiple of their size
+    and the image ends at a whole stage (zeros between); the kernel copies
+    it to shared memory in stages of ``max(8 KB, 128 nf)`` bytes."""
+    parts, size = [], 0  # size in elements of 2 bytes, as the kernel's byte offsets / 2
+
+    def zeros(n):  # a gap in the image (none at nf 64 / gc 32)
+        if n:
+            parts.append(w.new_zeros(n))
+        return n
+
     for k in range(1, 6):
         w = params[f"w{k}"]
         cin, cout = w.shape[2], w.shape[3]
-        m = w.reshape(9 * cin, cout)
-        m = F.pad(m, (0, 0, 0, -(-9 * cin // 64) * 64 - 9 * cin))
+        size += zeros(-size % (64 * cout))
+        m = F.pad(w.reshape(9 * cin, cout), (0, 0, 0, -(-9 * cin // 64) * 64 - 9 * cin))
         parts.append(sw128_rows(m.reshape(-1, 64, cout).transpose(1, 2)).reshape(-1))
+        size += parts[-1].numel()
+    zeros(-size % (max(8192, 128 * cout) // 2))  # to a whole stage (cout: conv 5's, nf)
     return torch.cat(parts)
 
 
-def _pad_simt(w: torch.Tensor, b: torch.Tensor, k: int, nf: int, gc: int, nf_p: int,
-              gc_p: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Conv k's HWIO weight and bias zero-padded to the padded widths: each
-    source feature's cin slice (x: nf, x_j: gc) and the output channels."""
+def _pad_widths(w: torch.Tensor, b: torch.Tensor, k: int, nf: int, gc: int, nf_p: int,
+                gc_p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Conv k's HWIO weight and bias zero-padded to the instance's widths:
+    each source feature's cin slice (x: nf, x_j: gc) and the output
+    channels."""
     widths = [nf] + [gc] * (k - 1)
     pads = [nf_p] + [gc_p] * (k - 1)
     parts = torch.split(w, widths, dim=2)
@@ -179,12 +189,13 @@ def rdb5c_kernel_weights(
 ) -> Rdb5cKernelWeights | Rdb5cF32Weights:
     """HWIO ``w1..w5``, ``b1..b5`` -> the kernel's layout in ``dtype`` (the
     port's counterpart of ``rdb5c_params_from_flax``'s kernel layout): the
-    tensor-core weight image for bf16 at nf 64, gc 32; the five convs' f32
-    conv layouts for f32 (any width); else the bf16 SIMT layout, zero-padded
-    to multiples of 8 channels."""
+    five convs' f32 conv layouts for f32 (any width); for bf16 the weight
+    image of the narrowest instance that holds nf and gc, the weights and
+    biases zero-padded to its widths (``ValueError`` past the widest)."""
     if dtype not in _DTYPES:
         raise TypeError(f"fused_rdb5c: dtype {dtype} not supported (bfloat16, float32)")
     nf, gc = params["w5"].shape[-1], params["w1"].shape[-1]
+    inst = rdb5c_instance(nf, gc) if dtype == torch.bfloat16 else None
     ws, bs = {}, []
     for k in range(1, 6):
         cin, cout = nf + (k - 1) * gc, nf if k == 5 else gc
@@ -199,28 +210,23 @@ def rdb5c_kernel_weights(
         convs = tuple(kpack_conv.conv_kernel_weights(ws[f"w{k}"], bs[k - 1], dtype, device, _count=False)
                       for k in range(1, 6))
         return Rdb5cF32Weights(convs, nf, gc)
-    if dtype == torch.bfloat16 and (nf, gc) == (_TC_NF, _TC_GC):
-        return Rdb5cKernelWeights((rdb5c_weight_image(ws).contiguous(),), tuple(b.contiguous() for b in bs),
-                                  nf, gc, "tc", nf, gc)
-    nf_p, gc_p = _ceil8(nf), _ceil8(gc)
-    wts, bps = [], []
-    for k in range(1, 6):
-        w, b = _pad_simt(ws[f"w{k}"], bs[k - 1], k, nf, gc, nf_p, gc_p)
-        wts.append(w.reshape(9, -1, w.shape[-1]).contiguous())
-        bps.append(b.contiguous())
-    return Rdb5cKernelWeights(tuple(wts), tuple(bps), nf, gc, "simt", nf_p, gc_p)
+    if inst[:2] != (nf, gc):
+        for k in range(1, 6):
+            ws[f"w{k}"], bs[k - 1] = _pad_widths(ws[f"w{k}"], bs[k - 1], k, nf, gc, *inst[:2])
+    return Rdb5cKernelWeights(rdb5c_weight_image(ws).contiguous(), tuple(b.contiguous() for b in bs), nf, gc, inst)
 
 
 def rdb5c_launch(
     x: torch.Tensor, kw: Rdb5cKernelWeights | Rdb5cF32Weights, strip: int | None = None, wtile: int | None = None
 ) -> torch.Tensor:
-    """Launch the kernel on CUDA tensor ``x`` (N, H, W, nf) with weights in its layout."""
+    """Launch the kernel on CUDA tensor ``x`` (N, H, W, nf) with weights in
+    its layout (``strip`` x ``wtile``: a schedule hint, unused)."""
     _require_cuda(x)
     lib.forward_only("fused_rdb5c", x)
     if x.dim() != 4 or x.shape[3] != kw.nf:
         raise ValueError(f"fused_rdb5c: x must be (N, H, W, {kw.nf}), got {tuple(x.shape)}")
     f32 = isinstance(kw, Rdb5cF32Weights)
-    w = kw.convs[0].wt if f32 else kw.wts[0]
+    w = kw.convs[0].wt if f32 else kw.image
     if w.dtype != x.dtype or w.device != x.device:
         raise ValueError(f"fused_rdb5c: weights in {w.dtype} on {w.device}, x in {x.dtype} on {x.device}")
     if f32:
@@ -228,37 +234,18 @@ def rdb5c_launch(
         LAUNCHES_SIMT["f32"].count += 1
         return out
     so = lib.load("rdb5c")
-    route = _ROUTE_CODE[kw.route]
-    tc = kw.route == "tc"
-    if tc and kw.wts[0].numel() * 2 != so.esr_rdb5c_weight_image_bytes():
-        raise ValueError("fused_rdb5c: the weight image does not have the kernel's size")
-    nf, gc = kw.nf_pad, kw.gc_pad
-    if tc:
-        strip = wtile = _TC_TILE
-    elif strip is None and wtile is None:  # the default square, halved until it fits
-        strip = wtile = _SIMT_TILE
-        while strip > 1 and so.esr_rdb5c_smem_bytes(route, nf, gc, strip, strip) > _SMEM_LIMIT:
-            strip = wtile = strip // 2
-    else:
-        strip = strip or wtile
-        wtile = wtile or strip
-    smem = so.esr_rdb5c_smem_bytes(route, nf, gc, strip, wtile)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_rdb5c: a {strip}x{wtile} tile needs {smem} B of shared "
-                         f"memory, more than the {_SMEM_LIMIT} B a block can use")
+    nf, gc, tile = kw.instance
+    if kw.image.numel() * 2 != so.esr_rdb5c_weight_image_bytes(nf, gc, tile):
+        raise ValueError(f"fused_rdb5c: the weight image does not have instance {kw.instance}'s size")
     if nf != kw.nf:
         x = F.pad(x, (0, nf - kw.nf))
     x = lib.aligned16(x)
     out = torch.empty_like(x)
     n, h, w, _ = x.shape
-    wts = list(kw.wts) + [None] * (5 - len(kw.wts))
-    err = so.esr_rdb5c(
-        route, lib.ptr(x), lib.ptr(out),
-        *[lib.ptr(t) for t in wts], *[lib.ptr(t) for t in kw.bs],
-        n, h, w, nf, gc, strip, wtile, lib.stream(x),
-    )
+    err = so.esr_rdb5c(lib.ptr(x), lib.ptr(out), lib.ptr(kw.image), *[lib.ptr(t) for t in kw.bs],
+                       n, h, w, nf, gc, tile, lib.stream(x))
     lib.check(so, err, "rdb5c launch")
-    (LAUNCHES if tc else LAUNCHES_SIMT["bf16"]).count += 1
+    LAUNCHES.count += 1
     return out if nf == kw.nf else out[..., : kw.nf].contiguous()
 
 

@@ -478,25 +478,41 @@ def test_cuda_load_network_rebuilds_the_layouts(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf,gc,shape", [(8, 4, (2, 37, 53)), (16, 8, (1, 45, 30)), (12, 6, (1, 17, 9))])
-def test_cuda_rdb5c_bf16_simt_widths_within_band(cuda, nf, gc, shape):
-    """bf16 RDBs at widths the tensor-core kernel does not take run the SIMT
-    kernel in bf16 (counted under its own route, none under the tensor-core
-    one), at the default tile and at another, within twice the bf16 plain
-    version's error against the f32 plain version on the same bf16 inputs."""
+@pytest.mark.parametrize("nf,gc,shape", [(8, 4, (2, 37, 53)), (16, 8, (1, 45, 30)), (12, 6, (1, 17, 9)),
+                                         (48, 24, (2, 37, 53)), (128, 64, (1, 45, 30))])
+def test_cuda_rdb5c_bf16_other_widths_within_band(cuda, nf, gc, shape):
+    """bf16 RDBs at widths other than the flagship's run the tensor-core
+    kernel, zero-padded to its narrowest instance that holds them (32 / 16,
+    64 / 32 or 128 / 64), one launch counted on its counter and none on any
+    other, at the default tile and at another (a hint), within twice the
+    bf16 plain version's error against the f32 plain version on the same
+    bf16 inputs."""
     p = _rdb_params(nf, gc, cuda, seed=nf)
     x = torch.randn(*shape, nf, device=cuda, generator=torch.Generator(device=cuda).manual_seed(nf)).bfloat16()
     ref = rdb_conv.rdb5c_reference(x.float(), p)
     tol = 2 * (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
-    simt, tc = rdb_conv.LAUNCHES_SIMT["bf16"], rdb_conv.LAUNCHES
-    before = (simt.count, tc.count)
+    before = _counts()
     with torch.no_grad():
         outs = [rdb_conv.fused_rdb5c(x, p), rdb_conv.fused_rdb5c_tiled(x, p, strip=8, wtile=12)]
     torch.cuda.synchronize()
-    assert (simt.count, tc.count) == (before[0] + 2, before[1])
+    assert [c.count - b for c, b in zip(ALL_COUNTERS, before)] == [2 * int(c is rdb_conv.LAUNCHES) for c in ALL_COUNTERS]
     for got in outs:
         assert got.shape == x.shape and got.dtype == torch.bfloat16
         assert (got.float() - ref).abs().max().item() <= tol
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_rdb5c_bf16_past_the_limit_raises(cuda):
+    """A bf16 RDB wider than the widest instance (nf 128, gc 64) raises
+    ValueError on the card, naming the limit, and launches nothing."""
+    before = _counts()
+    for nf, gc in ((136, 32), (64, 72)):
+        p = _rdb_params(nf, gc, cuda)
+        x = torch.zeros(1, 8, 8, nf, device=cuda, dtype=torch.bfloat16)
+        with torch.no_grad(), pytest.raises(ValueError, match="nf up to 128 and gc up to 64"):
+            rdb_conv.fused_rdb5c(x, p)
+    assert _counts() == before
 
 
 def _wide_conv_case(cuda, shape, cin, cout):
@@ -561,17 +577,17 @@ def test_cuda_conv_bf16_past_the_limit_raises(cuda):
 @pytest.mark.cuda
 def test_cuda_bf16_small_model_runs_on_the_kernels(cuda):
     """A bf16 generator at nf 8, gc 4 (the widths of `__graft_entry__.py`'s dryrun) runs on the
-    card: RDBs on the bf16 SIMT kernel, convs on the tensor-core one, and
-    its answer is finite."""
+    card: RDBs on the tensor-core RDB kernel (its 32 / 16 instance), convs
+    on the tensor-core conv kernel, and its answer is finite."""
     from esr_tpu_torch.models import define_G, make_eval_forward
 
     opt = {"network_G": {"nf": 8, "nb": 2, "gc": 4, "num_latent_channels": 1}, "scale": 4, "bf16": True}
     g = define_G(opt, device=cuda, seed=3)
     lr = torch.rand(1, 20, 24, 3, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
-    before = (rdb_conv.LAUNCHES_SIMT["bf16"].count, kpack_conv.LAUNCHES.count)
+    before = (rdb_conv.LAUNCHES.count, kpack_conv.LAUNCHES.count)
     out = make_eval_forward(g)(lr)
     torch.cuda.synchronize()
-    assert (rdb_conv.LAUNCHES_SIMT["bf16"].count - before[0], kpack_conv.LAUNCHES.count - before[1]) == (6, 4)
+    assert (rdb_conv.LAUNCHES.count - before[0], kpack_conv.LAUNCHES.count - before[1]) == (6, 4)
     assert bool(torch.isfinite(out).all())
 
 

@@ -3,9 +3,9 @@ and drops the kernels' layouts; the synthetic dataset's image cache is
 bounded; a frozen block hands its prebuilt layout to the kernel's autograd
 Function, which then builds none and differentiates only the input.
 
-The card-side halves (load B == fresh on B bit for bit, the bf16 RDB SIMT
-route and the wide bf16 convs at other widths, a frozen Z step through the
-kernels) are in tests/test_torch_cuda.py."""
+The card-side halves (load B == fresh on B bit for bit, the bf16 RDB and
+the wide bf16 convs at other widths on the tensor-core kernels, a frozen Z
+step through the kernels) are in tests/test_torch_cuda.py."""
 
 import numpy as np
 import torch

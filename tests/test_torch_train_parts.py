@@ -257,8 +257,8 @@ def test_clip_is_optax_formula():
 def plain_launch(monkeypatch):
     """The Functions' kernel launches replaced by the plain versions (no CUDA
     here), so that their save / recompute plumbing can be checked."""
-    monkeypatch.setattr(fns, "_rdb5c_kernel", rdb5c_reference)
-    monkeypatch.setattr(fns, "_conv_kernel", lambda x, k, b, act, ksize: (
+    monkeypatch.setattr(fns, "_rdb5c_live", rdb5c_reference)
+    monkeypatch.setattr(fns, "_conv_live", lambda x, k, b, act, ksize: (
         conv3x3_reference if ksize == 3 else upsample2x_conv3x3_reference)(x, k, b, act))
 
 
