@@ -90,7 +90,15 @@ Phases (any failure exits non-zero and prints no result):
    ms per GAN step, steps/s, peak memory and the device's idle share (of
    the unprofiled step) of the kernel path beside the bf16 plain autograd
    path (in turns), where a step's time goes, and the host time of the
-   per-call weight layouts;
+   per-call weight layouts; ``async_checkpoint`` through the graphed GAN
+   trainer: the ms a save event (G, D, the training state) blocks the
+   training thread sync and async, the wait after it, the bytes, the async
+   files equal to the sync files of the same state (also with graphed steps
+   run while the write was pending), a step's ms with a write pending and
+   with none (each split into the training thread's queueing and the wait
+   for the card); the train CLI with ``async_checkpoint`` and ``use_tb_logger``,
+   3 steps then ``--auto_resume`` to 6, equal to the straight run, and its
+   log line saying tensorboardX is absent (or its event file's rows);
 9. exploration: the editor's session as the explore CLI builds it
    (``build_session_from_opt``: G from the seed-0 ``.pth``, CEM, a seed-0 D
    from its own ``.pth``) on an LR 128 x 128 PNG; a 40 x 40 LR selection
@@ -193,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import os
 import statistics
@@ -253,6 +262,8 @@ from esr_tpu_torch.scripts.serve import make_server
 from esr_tpu_torch.utils.graphs import GraphedStep
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "tests"))
+import torch_checks  # noqa: E402  (the tests' readers of checkpoint files and event files)
 
 # H100 SXM published dense peaks (NVIDIA H100 datasheet): bf16 tensor
 # cores and HBM3. Bounds are stated against these whatever the power limit.
@@ -1760,6 +1771,159 @@ def planted_faults() -> dict:
     }
 
 
+CKPT_PENDING_STEPS = 8  # the most graphed GAN steps timed while one asynchronous write is pending
+
+
+def tree_bytes(obj) -> int:
+    """The bytes of every tensor in nested dicts / lists."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tree_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tree_bytes(v) for v in obj)
+    return 0
+
+
+class BaseLogLines(logging.Handler):
+    """The ``base`` log's messages that contain ``word``, caught on the root
+    logger (``setup_logger`` replaces the ``base`` logger's own handlers)."""
+
+    def __init__(self, word: str):
+        super().__init__(logging.INFO)
+        self.word, self.lines = word, []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if record.name == "base" and self.word in record.getMessage():
+            self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self)
+
+
+def checkpoint_checks(tmp: Path, val_dir: Path, name: str, straight: dict, straight_rows: list) -> None:
+    """``async_checkpoint`` through the graphed GAN trainer at full width:
+    (a) the ms that a save event (``save(k)`` + ``save_training(e, k)``)
+    blocks the training thread, sync and async, after graphed steps, the ms
+    of the wait after it and the bytes; (b) the async files equal the sync
+    files of the same state tensor for tensor, also when graphed steps ran
+    while the write was pending; (c) ms of a GAN step with a write pending
+    and with none, each as the ms the training thread takes to queue it plus
+    the ms it then waits for the card; (d) the train CLI with ``async_checkpoint`` and
+    ``use_tb_logger``: 3 steps, then --auto_resume to 6 == the straight run;
+    (e) its log: the CSV rows, and the line that says tensorboardX is absent
+    (or, where it imports, the rows in its event file)."""
+    opt = train_options(tmp / "ckpt", "ckpt", "train_explorable_SR.json", None, niter=100)
+    model = create_model(parse(opt, is_train=True))
+    batch = dispatch_batches(1)[0]
+    steps = iter(range(1, 10**6))
+
+    def step_ms() -> tuple[float, float]:
+        """One graphed GAN step: (ms from its start to the card's end, ms
+        the training thread took to queue it)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.feed_data(batch)
+        model.optimize_parameters(next(steps))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    for _ in range(3):  # the first captures the step's graph
+        step_ms()
+    roots = {k: tmp / "ckpt" / k for k in ("sync", "async", "async, steps during the write")}
+
+    def save_into(root: Path, async_: bool) -> float:
+        model.opt["async_checkpoint"] = async_
+        for sub in ("models", "training_state"):
+            (root / sub).mkdir(parents=True, exist_ok=True)
+            model.opt["path"][sub] = str(root / sub)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.save(3)
+        t1 = time.perf_counter()
+        model.save_training(1, 3)
+        parts[root.name] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        return (time.perf_counter() - t0) * 1e3
+
+    parts = {}  # root -> (ms of save(3): G and D, ms of save_training: the state)
+    block = {"sync": save_into(roots["sync"], False), "async": save_into(roots["async"], True)}
+    t0 = time.perf_counter()
+    model.wait_for_checkpoints()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    block["async, steps during the write"] = save_into(roots["async, steps during the write"], True)
+    during = []  # (wall, queue) ms of the steps that began and ended with the write pending
+    while len(during) < CKPT_PENDING_STEPS and model.checkpoint_pending():
+        ms = step_ms()
+        if model.checkpoint_pending():
+            during.append(ms)
+    t0 = time.perf_counter()
+    model.wait_for_checkpoints()
+    wait_after_steps_ms = (time.perf_counter() - t0) * 1e3
+    idle = [step_ms() for _ in range(max(len(during), 3))]
+    files = {k: torch_checks.checkpoint_files(r) for k, r in roots.items()}
+    nbytes = sum(p.stat().st_size for p in roots["sync"].rglob("*") if p.is_file())
+    snap = tree_bytes(files["sync"])
+    live_g = model.g_module.state_dict()
+    moved = any(not torch.equal(v, live_g[k].cpu()) for k, v in files["sync"]["models/3_G.pth"].items())
+    print(f"checkpoint save event at B{B} x HR{TRAIN_HR}, full width (3_G.pth, 3_D.pth, 3.state): "
+          f"{nbytes:,d} bytes on disk, {snap:,d} bytes of tensors ({snap / 2**20:.1f} MiB host snapshot); the "
+          f"training thread blocked {block['sync']:.1f} ms sync, {block['async']:.1f} ms async (then "
+          f"wait_for_checkpoints {wait_ms:.1f} ms), {block['async, steps during the write']:.1f} ms async before "
+          f"{len(during)} graphed steps (then the wait {wait_after_steps_ms:.1f} ms); of each, save(3) (G, D) + "
+          f"save_training (the state): {'; '.join(f'{k} {a:.1f} + {b:.1f}' for k, (a, b) in parts.items())} ms",
+          flush=True)
+    check(sorted(files["sync"]) == ["models/3_D.pth", "models/3_G.pth", "training_state/3.state"]
+          and all(torch_checks.tree_diff(files[k], files["sync"]) is None for k in roots) and len(during) >= 1
+          and moved,
+          f"async_checkpoint through the graphed GAN trainer: the async files == the sync files of the same state "
+          f"tensor for tensor, also with {len(during)} graphed step(s) run while the write was pending (the "
+          "weights moved since: the snapshot is the state at the call)")
+    print(f"GAN step B{B} x HR{TRAIN_HR} (graph) with an async checkpoint write pending: "
+          f"{statistics.median(w for w, _ in during) if during else float('nan'):.2f} ms (median of {len(during)}; "
+          f"each as ms queueing on the training thread + ms then waiting for the card: "
+          f"{', '.join(f'{q:.2f} + {w - q:.2f}' for w, q in during)}), with none pending "
+          f"{statistics.median(w for w, _ in idle):.2f} ms (median of {len(idle)}; "
+          f"{', '.join(f'{q:.2f} + {w - q:.2f}' for w, q in idle)}), host clock", flush=True)
+    del model, files
+    release_memory()
+
+    # (d), (e): the train CLI with async checkpoints and the tensorboardX logger, 3 steps then --auto_resume to 6
+    root = tmp / "resumed_async"
+    opt3 = train_options(root, name, "train_explorable_SR.json", val_dir, niter=3)
+    opt3["async_checkpoint"] = True
+    opt3["logger"]["use_tb_logger"] = True
+    with BaseLogLines("tensorboardX") as said:
+        _, c3, _ = run_train(root, opt3)
+        _, c6, _ = run_train(root, dict(opt3, train=dict(opt3["train"], niter=6)), "--auto_resume")
+    b = train_state(root, name, 6)
+    diff = max((straight[n]["net"][k].float() - v.float()).abs().max().item()
+               for n in ("G", "D") for k, v in b[n]["net"].items())
+    rows = train_csv(root, name)
+    ldiff = max(abs(float(r[k]) - float(s[k])) / max(abs(float(s[k])), 1e-12)
+                for r, s in zip(rows, straight_rows) for k in s if k not in ("step", "epoch"))
+    check(b["iter"] == 6 and len(rows) == 6 and diff <= 1e-6 and ldiff <= 1e-5,
+          f"train CLI with async_checkpoint: 3 steps + --auto_resume + 3 == 6 straight steps: weights max diff "
+          f"{diff:.3g}, metrics max relative diff {ldiff:.3g}; launches {c3} + {c6}")
+    log_dir = root / "experiments" / name
+    try:
+        import tensorboardX  # noqa: F401
+    except ImportError:
+        check(len(said.lines) == 2 and not (log_dir / "tb_logger").exists(),
+              f"use_tb_logger without tensorboardX: the CSV's 6 rows, no event file, one line a run: {said.lines[:1]}")
+    else:
+        want = {(k, int(r["step"]), float(np.float32(float(v)))) for r in rows for k, v in r.items()
+                if k not in ("step", "epoch", "lr")}
+        got = torch_checks.tb_events(log_dir)
+        check(want <= got and not said.lines,
+              f"use_tb_logger with tensorboardX: the event files hold the CSV's {len(want)} values at their steps "
+              f"({len(got)} records)")
+
+
 def phase_train(tmp: Path) -> dict[str, dict]:
     """The train CLI at full width, resume, the SR trainer, the gradient
     band, and timing; returns the launches by path."""
@@ -1800,6 +1964,7 @@ def phase_train(tmp: Path) -> dict[str, dict]:
     check(b["iter"] == 6 and len(rows_r) == 6 and diff <= 1e-6 and ldiff <= 1e-5,
           f"train CLI: 3 steps + --auto_resume + 3 == 6 straight steps: weights max diff {diff:.3g}, metrics max "
           f"relative diff {ldiff:.3g}; launches {c3} + {c6}")
+    checkpoint_checks(tmp, val_dir, name, a, rows)
     torch.backends.cudnn.deterministic = False
 
     # the SR (PSNR) trainer, 2 steps

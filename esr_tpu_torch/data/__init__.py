@@ -1,13 +1,15 @@
 """Dataset and loader factories (port of esr_tpu/data/__init__.py):
 ``create_dataset`` for the LRHR, LR, SYNTHETIC and PACKED modes,
 ``collate_samples``, a ``DataLoader`` that decodes in one background thread
-(shuffled by seed + epoch and resumable mid-epoch for training), and
-``create_dataloader``."""
+(shuffled by seed + epoch and resumable mid-epoch for training),
+``create_dataloader``, and ``create_worker_loader``, whose loader decodes
+each batch's samples over ``n_workers`` threads."""
 
 from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -24,6 +26,7 @@ __all__ = [
     "collate_samples",
     "create_dataloader",
     "create_dataset",
+    "create_worker_loader",
     "draw_z",
     "make_train_pipeline",
 ]
@@ -71,10 +74,13 @@ class DataLoader:
     starts where ``set_position`` put it. ``set_shard(i, n)`` (data
     parallelism) makes it load only rows i*B/n .. (i+1)*B/n - 1 of each
     batch of ``batch_size`` B: with the datasets' (seed, epoch, index) crops,
-    the rows that one process loading the whole batch would hold there."""
+    the rows that one process loading the whole batch would hold there.
+    ``n_workers`` > 0 decodes each batch's samples over that many threads
+    (the background thread collates them in order); 0 decodes them on the
+    background thread itself."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, drop_last: bool = False,
-                 prefetch: int = 2, seed: int = 0, collate_keys=("LR", "HR")):
+                 prefetch: int = 2, seed: int = 0, collate_keys=("LR", "HR"), n_workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -82,6 +88,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.collate_keys = collate_keys
+        self.n_workers = n_workers
         self._epoch = 0
         self._skip = 0
         self._shard = (0, 1)
@@ -132,15 +139,20 @@ class DataLoader:
             return False
 
         def worker():
+            pool = ThreadPoolExecutor(self.n_workers, thread_name_prefix="loader") if self.n_workers else None
+            decode = pool.map if pool else map
             try:
                 for b in range(first, len(self)):
-                    batch = collate_samples([self.dataset[int(k)] for k in idx[b * bs : (b + 1) * bs][rows]],
-                                            self.collate_keys)
+                    ids = [int(k) for k in idx[b * bs : (b + 1) * bs][rows]]
+                    batch = collate_samples(list(decode(self.dataset.__getitem__, ids)), self.collate_keys)
                     if not put(batch):
                         return
             except Exception as e:  # surface loader errors in the consumer's thread
                 if not put(e):
                     return
+            finally:
+                if pool:
+                    pool.shutdown(wait=True, cancel_futures=True)
             put(None)
 
         t = threading.Thread(target=worker, daemon=True)
@@ -168,3 +180,15 @@ def create_dataloader(dataset, dataset_opt: dict):
                           shuffle=bool(dataset_opt.get("use_shuffle", True)), drop_last=True,
                           seed=int(dataset_opt.get("seed") or 0))
     return DataLoader(dataset, batch_size=1)
+
+
+def create_worker_loader(dataset, dataset_opt: dict, collate_keys=("LR", "HR")) -> DataLoader:
+    """The port of the JAX package's ``create_grain_loader``: the train
+    loader of :func:`create_dataloader` (``batch_size`` 16, shuffled unless
+    ``use_shuffle`` is false, by ``seed``, last batch dropped, one epoch per
+    iteration) whose batches ``n_workers`` threads decode. The train CLI
+    does not use it, as the JAX package's does not use grain's."""
+    return DataLoader(dataset, batch_size=int(dataset_opt.get("batch_size") or 16),
+                      shuffle=bool(dataset_opt.get("use_shuffle", True)), drop_last=True,
+                      seed=int(dataset_opt.get("seed") or 0), collate_keys=collate_keys,
+                      n_workers=int(dataset_opt.get("n_workers") or 0))

@@ -18,6 +18,7 @@ step (``data/pipeline.py``); without it the host does all of them.
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 
 import numpy as np
@@ -137,9 +138,13 @@ class SyntheticDataset(_EpochDraws):
     def _make_image(self, index: int) -> np.ndarray:
         # a pure function of the index (the epoch varies only the crop), so
         # the most recently used ones are kept
-        if index in self._img_cache:
-            self._img_cache.move_to_end(index)
-            return self._img_cache[index]
+        # each cache operation is one call (loader threads may share the dataset): a
+        # concurrent eviction costs a remake, never an error
+        img = self._img_cache.get(index)
+        if img is not None:
+            with contextlib.suppress(KeyError):
+                self._img_cache.move_to_end(index)
+            return img
         rng = np.random.default_rng(1000 + index)
         s = self.image_size
         yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
@@ -159,7 +164,8 @@ class SyntheticDataset(_EpochDraws):
         img = np.clip(img, 0, 1).astype(np.float32)
         self._img_cache[index] = img
         if len(self._img_cache) > self.CACHE_IMAGES:
-            self._img_cache.popitem(last=False)
+            with contextlib.suppress(KeyError):
+                self._img_cache.popitem(last=False)
         return img
 
     def __getitem__(self, index: int) -> dict:

@@ -8,7 +8,12 @@ CUDA, a CUDA graph per input shape: ``EvalForward``).
 ``load_network``, the visuals getters and the training surface: losses,
 learning rate, and checkpoints as torch files (``<iter>_<net>.pth`` network
 state_dicts, ``<iter>.state`` training states; the JAX package writes orbax
-directories, which the port cannot read).
+directories, which the port cannot read). Every file is written whole under a
+temporary name and renamed into place. ``async_checkpoint: true`` (the JAX
+package's orbax ``AsyncCheckpointer``) queues the state's copy to pinned
+host memory on the training thread and writes it on a background thread
+(:class:`CheckpointWriter`); pending writes are drained by the next save,
+by ``wait_for_checkpoints`` and at interpreter exit.
 
 The optimiser is optax's: ``multistep_schedule`` is its piecewise-constant
 MultiStepLR (a milestone m applies from count m on), ``step_keyed`` reads it
@@ -19,8 +24,11 @@ written to ``optax.clip_by_global_norm``'s formula.
 
 from __future__ import annotations
 
+import atexit
 import logging
 import os
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +47,7 @@ from esr_tpu_torch.utils.graphs import StepGraphs
 __all__ = [
     "Adam",
     "BaseModel",
+    "CheckpointWriter",
     "EvalForward",
     "TrainStep",
     "make_eval_forward",
@@ -47,6 +56,108 @@ __all__ = [
     "step_generator",
     "step_keyed",
 ]
+
+def write_checkpoint(obj, path: str) -> None:
+    """``torch.save`` to ``path + ".tmp"``, then renamed to ``path``: a
+    reader sees the old file or the whole new one, never a partial one."""
+    tmp = path + ".tmp"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+
+
+def host_snapshot(obj):
+    """``(copy, ready)``: ``obj`` (nested dicts and lists of tensors and
+    scalars) with every tensor copied to host memory, and the CUDA event that
+    completes the copies from the card (None when no tensor is on a GPU).
+    Taken on the training thread. A tensor on the card is copied into pinned
+    memory without blocking, on the current stream: after the work already
+    queued there and before any later step, which updates the parameters and
+    Adam moments in place. Read ``copy`` after ``ready.synchronize()``. A
+    tensor on the CPU is cloned, since a later step would reach a view."""
+    copies = []
+
+    def snap(o):
+        if isinstance(o, torch.Tensor):
+            t = o.detach()
+            if not t.is_cuda:
+                return t.clone()
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            copies.append(t.device)
+            return out.copy_(t, non_blocking=True)
+        if isinstance(o, dict):
+            out = type(o)((k, snap(v)) for k, v in o.items())
+            if hasattr(o, "_metadata"):  # a module's state_dict: its version numbers
+                out._metadata = o._metadata
+            return out
+        if isinstance(o, (list, tuple)):
+            return type(o)(snap(v) for v in o)
+        return o
+
+    copy = snap(obj)
+    if not copies:
+        return copy, None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(copies[0]))
+    return copy, ready
+
+
+def _write_when_ready(obj, path: str, ready) -> None:
+    if ready is not None:
+        ready.synchronize()
+    write_checkpoint(obj, path)
+
+
+class CheckpointWriter:
+    """One background thread that writes checkpoints (the port of the JAX
+    package's orbax ``AsyncCheckpointer``). ``submit`` waits for the write in
+    flight (so at most one snapshot is held in host memory), takes the host
+    snapshot on the caller's thread (:func:`host_snapshot`: the copies from
+    the card are queued, not waited for) and hands it to the writer thread,
+    which waits for the copies and writes;
+    ``wait`` blocks until the pending write is on disk and re-raises its
+    exception; ``pending`` says whether a write is still in flight. Every writer is drained at interpreter exit
+    (``_drain_writers``)."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint-writer")
+        self._pending = None
+        _LIVE_WRITERS.add(self)
+
+    def submit(self, obj, path: str) -> None:
+        self.wait()
+        copy, ready = host_snapshot(obj)
+        self._pending = self._pool.submit(_write_when_ready, copy, path, ready)
+
+    def pending(self) -> bool:
+        return self._pending is not None and not self._pending.done()
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+
+# live writers, drained once at interpreter exit (weak references: a model
+# that is gone does not keep its writer alive; a write it left in flight still
+# finishes, as the interpreter joins the pool's thread at exit)
+_LIVE_WRITERS: weakref.WeakSet = weakref.WeakSet()
+
+
+def _drain_writers() -> None:
+    for w in list(_LIVE_WRITERS):
+        try:
+            w.wait()
+        except Exception:  # noqa: BLE001 - at exit: reported, and the other writers still drained
+            logging.getLogger("base").exception("a checkpoint write failed at exit")
+
+
+atexit.register(_drain_writers)
+
 
 def opt_float(cfg: dict | None, key: str, default: float) -> float:
     """Numeric option that honours an explicit 0 (``gan_weight: 0`` is an
@@ -493,6 +604,7 @@ class BaseModel:
                 f"{path} is a directory (an orbax checkpoint of the JAX package?); the port loads a "
                 "torch .pth state dict — convert it with `python -m esr_tpu.scripts.export_torch_weights "
                 f"--kind rrdb --ckpt {path} --out G.pth`")
+        self.wait_for_checkpoints()
         state = normalize_rrdb_keys(torch.load(path, map_location=self.device, weights_only=True))
         self._drop_step_graphs()
         self._load_state(self.g_module, state)
@@ -593,6 +705,10 @@ class BaseModel:
                               for _, v in items]).cpu().tolist()
         return {k: float(v) for (k, _), v in zip(items, packed)}
 
+    def update_learning_rate(self) -> None:
+        """No-op (the reference API's hook): each step reads its learning rate
+        from the schedule at its own step."""
+
     def get_current_learning_rate(self) -> float:
         sched = next(iter(self.schedulers.values()), None)
         return float(sched(self.step)) if sched is not None else 0.0
@@ -625,32 +741,53 @@ class BaseModel:
             state[key] = P.tensor.local_param_tensors(net, state[key])
         opt.load_state_dict(state)
 
+    def _write(self, obj, path: str) -> None:
+        """Write ``obj`` to ``path`` on rank 0 (every rank builds ``obj``: its
+        gathers are collectives): on this thread, or with
+        ``async_checkpoint`` a host snapshot taken here and written by the
+        model's :class:`CheckpointWriter` (the JAX package's top-level key)."""
+        if comm.world()[0]:
+            return
+        if not self.opt.get("async_checkpoint"):
+            write_checkpoint(obj, path)
+            return
+        if getattr(self, "_writer", None) is None:
+            self._writer = CheckpointWriter()
+        self._writer.submit(obj, path)
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until every checkpoint write of this model is on disk;
+        re-raise a failed write's exception (call before reading a
+        just-saved checkpoint and at a clean shutdown)."""
+        if getattr(self, "_writer", None) is not None:
+            self._writer.wait()
+
+    def checkpoint_pending(self) -> bool:
+        """Whether an asynchronous checkpoint write of this model is still in flight."""
+        return getattr(self, "_writer", None) is not None and self._writer.pending()
+
     def save_network(self, net: nn.Module, network_label: str, iter_label) -> str:
         """``<models>/<iter>_<label>.pth``, written by rank 0 (every rank calls it)."""
         path = os.path.join(self.opt["path"]["models"], f"{iter_label}_{network_label}.pth")
-        state = self._full_state(net)
-        if comm.world()[0] == 0:
-            torch.save(state, path)
+        self._write(self._full_state(net), path)
         return path
 
     def _load_module(self, net: nn.Module, path: str) -> None:
         if os.path.isdir(path):
             raise ValueError(f"{path} is a directory (an orbax checkpoint of the JAX package?); the port "
                              "loads torch .pth state dicts")
+        self.wait_for_checkpoints()
         net.load_state_dict(torch.load(path, map_location=self.device, weights_only=True), strict=True)
 
     def save_training_state(self, epoch: int, iter_step: int, states: dict) -> str:
         """``<training_state>/<iter>.state``: epoch, iter and, per network, its
         state_dict and its optimiser's state; written by rank 0."""
         path = os.path.join(self.opt["path"]["training_state"], f"{iter_step}.state")
-        if comm.world()[0]:
-            return path
-        tmp = path + ".tmp"
-        torch.save({"epoch": int(epoch), "iter": int(iter_step), **states}, tmp)
-        os.replace(tmp, path)
+        self._write({"epoch": int(epoch), "iter": int(iter_step), **states}, path)
         return path
 
     def restore_training_state(self, path: str) -> dict:
+        self.wait_for_checkpoints()
         return torch.load(path, map_location=self.device, weights_only=True)
 
     @staticmethod

@@ -6,12 +6,13 @@
 Parse the options, seed, build the loaders and the model, then per step
 ``feed_data`` -> ``optimize_parameters`` with the periodic log line (and
 ``train_metrics.csv``), validation PSNR and checkpoints (``<iter>_G.pth``,
-``<iter>_D.pth``, ``<iter>.state``). ``--auto_resume`` continues from the
-newest training state and replays the data stream from there
-(``set_position``); SIGTERM (a preemption notice) finishes the step in
-flight, saves the networks and the training state, and exits cleanly (under
-a process group, every rank stops after the first step at which any rank
-has seen it). The watchdog (on unless ``train.watchdog: false``) exits 86
+``<iter>_D.pth``, ``<iter>.state``; with ``async_checkpoint: true`` written
+on a background thread, and waited for before the run ends).
+``--auto_resume`` continues from the newest training state and replays the
+data stream from there (``set_position``); SIGTERM (a preemption notice)
+finishes the step in flight, saves the networks and the training state, and
+exits cleanly (under a process group, every rank stops after the first step
+at which any rank has seen it). The watchdog (on unless ``train.watchdog: false``) exits 86
 when steps stop coming. Runs on CUDA unless ``--device cpu``.
 
 ``train.steps_per_dispatch`` k > 1 groups k loader batches into a chunk
@@ -209,16 +210,18 @@ def _train(opt, auto_resume: bool, device, preempted: dict) -> None:
             # run (set_position) would hand other batches to those steps
             current_step = run(chunk, current_step)
         model.save("latest")
+        model.save_training(epoch if preempted["stop"] else total_epochs, current_step)
+        model.wait_for_checkpoints()  # async_checkpoint: on disk before the watchdog stops
         if preempted["stop"]:
-            model.save_training(epoch, current_step)
             logger.info(f"preempted (SIGTERM) — state saved @ iter {current_step}; "
                         "rerun with --auto_resume to continue")
         else:
-            model.save_training(total_epochs, current_step)
             logger.info("training complete")
     finally:
         if wd is not None:
             wd.stop()
+        if tlogger is not None:
+            tlogger.close()
 
 
 def _stop_requested(preempted: dict) -> bool:

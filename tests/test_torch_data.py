@@ -1,9 +1,10 @@
 """The port's host data path and eval ops against the JAX package's (and
 against cv2 and PIL for the PNG codec), on the CPU.
 
-Tolerances: images, options, uint8 conversions and Z draws exact;
-``imresize_np`` / ``imresize`` and f32 samples 1e-5 (f64 vs f32 matmul
-orders); ``calculate_psnr`` / ``calculate_ssim`` 1e-10 (the same float64
+The worker loader (``create_worker_loader``, threads) against JAX's train
+loader's batches. Tolerances: images, options, uint8 conversions and Z
+draws exact; ``imresize_np`` / ``imresize`` and f32 samples 1e-5 (f64 vs
+f32 matmul orders); ``calculate_psnr`` / ``calculate_ssim`` 1e-10 (the same float64
 math); the device twins of PSNR / SSIM 1e-5 relative (f32).
 """
 
@@ -20,6 +21,7 @@ import pytest
 import torch
 from PIL import Image
 
+from esr_tpu.data import create_dataloader as jcreate_dataloader
 from esr_tpu.data import create_dataset as jcreate_dataset
 from esr_tpu.data import util as jutil
 from esr_tpu.ops import color as jcolor
@@ -28,7 +30,7 @@ from esr_tpu.ops.resize import imresize as jimresize
 from esr_tpu.ops.resize import imresize_np as jimresize_np
 from esr_tpu.options import parse as jparse
 from esr_tpu.options import save as jsave
-from esr_tpu_torch.data import DataLoader, create_dataset, png
+from esr_tpu_torch.data import DataLoader, create_dataset, create_worker_loader, png
 from esr_tpu_torch.data import util as putil
 from esr_tpu_torch.ops import color as pcolor
 from esr_tpu_torch.ops import metrics as pmetrics
@@ -260,6 +262,72 @@ def test_dataloader_batches_in_order_and_surfaces_errors():
     assert first["LR"].shape == (2, 2, 2, 3) and first["LR_path"] == ["p0", "p1"]
     with pytest.raises(KeyError, match="boom"):
         next(it)
+
+
+TRAIN_SET = {"mode": "SYNTHETIC", "phase": "train", "HR_size": 16, "n_images": 7, "image_size": 32}
+
+
+@pytest.mark.parametrize("n_workers", [0, 2])
+def test_worker_loader_batch_contract(n_workers):
+    """``create_worker_loader`` (the port of ``create_grain_loader``), as
+    tests/test_e2e.py holds grain's: one epoch per iteration of full batches
+    (7 samples, batch 2: 3 batches, the short one dropped), uint8 HR crops,
+    path lists, each sample at most once an epoch, reshuffled each epoch."""
+    loader = create_worker_loader(create_dataset(TRAIN_SET), {"batch_size": 2, "n_workers": n_workers})
+    orders = []
+    for _ in range(2):
+        batches = list(loader)
+        assert len(batches) == len(loader) == 3
+        paths = []
+        for batch in batches:
+            assert set(batch) == {"LR", "HR", "HR_path", "LR_path"} and batch["LR"] is None
+            assert batch["HR"].shape == (2, 16, 16, 3) and batch["HR"].dtype == np.uint8
+            assert isinstance(batch["HR_path"], list) and len(batch["HR_path"]) == 2
+            paths += batch["HR_path"]
+        assert len(set(paths)) == 6
+        orders.append(paths)
+    assert orders[0] != orders[1]
+
+
+def test_worker_loader_threads_match_serial_and_jax():
+    """``n_workers`` 0 and 2 yield the same batches for the same seed, and so
+    does the JAX package's train loader (``create_dataloader``: shuffled by
+    seed + epoch), over two epochs; a loader abandoned mid-epoch returns."""
+    opt = {"phase": "train", "batch_size": 2, "seed": 3}
+    serial = create_worker_loader(create_dataset(TRAIN_SET), dict(opt, n_workers=0))
+    threads = create_worker_loader(create_dataset(TRAIN_SET), dict(opt, n_workers=2))
+    jax_loader = jcreate_dataloader(jcreate_dataset(dict(TRAIN_SET)), opt)
+    for _ in range(2):
+        for a, b, j in zip(list(serial), list(threads), list(jax_loader), strict=True):
+            assert a["HR_path"] == b["HR_path"] == j["HR_path"]
+            assert np.array_equal(a["HR"], b["HR"]) and np.array_equal(a["HR"], np.asarray(j["HR"]))
+    it = iter(threads)
+    next(it)
+    it.close()
+
+
+def test_worker_loader_threads_share_the_image_cache():
+    """16 decode threads (more than the cores) on one SyntheticDataset whose
+    LRU holds 2 images, with the interpreter switching threads every
+    microsecond: every batch of 3 epochs equals the serial loader's (a cache
+    eviction racing a lookup costs a remake, never an error or a wrong
+    image)."""
+    import sys
+
+    def loader(n_workers):
+        ds = create_dataset(dict(TRAIN_SET, n_images=24))
+        ds.CACHE_IMAGES = 2
+        return create_worker_loader(ds, {"batch_size": 4, "n_workers": n_workers, "seed": 1})
+
+    serial, threads = loader(0), loader(16)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(3):
+            for a, b in zip(list(serial), list(threads), strict=True):
+                assert a["HR_path"] == b["HR_path"] and np.array_equal(a["HR"], b["HR"])
+    finally:
+        sys.setswitchinterval(interval)
 
 
 @pytest.mark.parametrize("name", ["test_ESRGAN_CEM.json", "test_RRDB_PSNR.json", "test_explorable.json"])

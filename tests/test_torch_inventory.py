@@ -27,6 +27,9 @@ RENAMED = {
     "5.5 device-side uint8 eval fetch": ("esr_tpu_torch.ops.color", "to_uint8"),
     # manifest.json + G.pth, not StableHLO + orbax: the serving artifact's documented divergence
     "serving: AOT StableHLO export": ("esr_tpu_torch.export", "export_servable"),
+    # names that exist only with the feature (the JAX labels name the classes that carry it)
+    "5.3 async checkpointing": ("esr_tpu_torch.models.base_model", "CheckpointWriter"),
+    "2.14 logger": ("esr_tpu_torch.utils.logger", "open_tb_writer"),
 }
 NOT_APPLICABLE = {
     "perf: MXU-lane batch fold": "fold is a TPU MXU-lane layout (batch folded into channels); the port runs "
@@ -47,6 +50,7 @@ EXTRA = {
     "probe: folded VGG19 extractor": "fold is a TPU MXU-lane layout; the question of vgg_fold_probe does not "
                                      "arise without it",
     "serving: model-code-free loader of the artifact": ("esr_tpu_torch.export", "load_servable"),
+    "loader: n_workers decode workers (create_grain_loader)": ("esr_tpu_torch.data", "create_worker_loader"),
 }
 
 

@@ -2,9 +2,10 @@
 run equals 3 steps + ``--auto_resume`` + 3 (weights, optimiser states and
 the logged losses bit for bit: the step's random numbers are a function of
 (seed, step) and the loader replays its position); SIGTERM finishes the step
-and saves; steps_per_dispatch 2 (chunks of 2 between the print steps) gives
-the same trajectory; the zero-batch error; ``train_metrics.csv``; validation and the checkpoints the eval CLI
-loads; the SR trainer. Tiny size: nf 8, nb 1, gc 4, HR 32, batch 2.
+and saves; both again with ``async_checkpoint: true``; steps_per_dispatch 2
+(chunks of 2 between the print steps) gives the same trajectory; the
+zero-batch error; ``train_metrics.csv``; validation and the checkpoints the
+eval CLI loads; the SR trainer. Tiny size: nf 8, nb 1, gc 4, HR 32, batch 2.
 """
 
 import csv
@@ -123,6 +124,49 @@ def test_train_cli_sigterm_saves_and_resumes(straight, tmp_path, monkeypatch):
     ptrain.main(["-opt", _write(tmp_path, _opt(tmp_path)), "--device", "cpu", "--auto_resume"])
     _same_state(_state(tmp_path, 6), _state(straight, 6))
     assert signal.getsignal(signal.SIGTERM) is not None
+
+
+def test_train_cli_async_checkpoint_resume_equals_straight_run(straight, tmp_path):
+    """``async_checkpoint: true`` (checkpoints written on a background thread,
+    waited for at the end of the run): 3 steps, then --auto_resume to 6, is
+    the straight run, and its files are those of a synchronous run."""
+    for niter, flags in ((3, []), (6, ["--auto_resume"])):
+        opt = _opt(tmp_path, niter=niter)
+        opt["async_checkpoint"] = True
+        ptrain.main(["-opt", _write(tmp_path, opt), "--device", "cpu", *flags])
+    _same_state(_state(tmp_path, 6), _state(straight, 6))
+    assert _csv(tmp_path) == _csv(straight)
+    for name in ("3_G.pth", "6_D.pth", "latest_G.pth"):
+        got, want = (torch.load(os.path.join(_exp(r), "models", name), weights_only=True) for r in (tmp_path, straight))
+        assert got.keys() == want.keys() and all(torch.equal(v, want[k]) for k, v in got.items()), name
+
+
+def test_train_cli_sigterm_saves_and_resumes_async_checkpoint(straight, tmp_path, monkeypatch):
+    """The SIGTERM path with ``async_checkpoint: true``: the preemption save
+    is on disk when the CLI returns (it waits for the writes), loadable, and
+    --auto_resume completes the straight run's trajectory."""
+    from esr_tpu_torch.models.srragan_model import SRRaGANModel
+
+    orig = SRRaGANModel.optimize_parameters
+
+    def optimize(self, step):
+        orig(self, step)
+        if step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    opt = _opt(tmp_path)
+    opt["async_checkpoint"] = True
+    monkeypatch.setattr(SRRaGANModel, "optimize_parameters", optimize)
+    ptrain.main(["-opt", _write(tmp_path, opt), "--device", "cpu"])
+    assert sorted(os.listdir(os.path.join(_exp(tmp_path), "training_state"))) == ["2.state"]
+    assert sorted(os.listdir(os.path.join(_exp(tmp_path), "models"))) == ["latest_D.pth", "latest_G.pth"]
+    state = _state(tmp_path, 2)
+    assert state["iter"] == 2
+    latest = torch.load(os.path.join(_exp(tmp_path), "models", "latest_G.pth"), weights_only=True)
+    assert all(torch.equal(v, state["G"]["net"][k]) for k, v in latest.items())
+    monkeypatch.setattr(SRRaGANModel, "optimize_parameters", orig)
+    ptrain.main(["-opt", _write(tmp_path, opt), "--device", "cpu", "--auto_resume"])
+    _same_state(_state(tmp_path, 6), _state(straight, 6))
 
 
 def test_train_cli_chunked_dispatch_matches_per_step(straight, tmp_path):
