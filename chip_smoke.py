@@ -3459,14 +3459,24 @@ def old_layout(state: dict) -> dict:
     return out
 
 
+def device_work(prof, regions=()) -> list:
+    """A profile's device events (``key_averages``) less the user
+    annotations, which the profiler also lists on the device: ``regions``,
+    and every other ``record_function`` range (the port's spans inside
+    ``trace()``)."""
+    ev = prof.key_averages()
+    ranges = set(regions) | {e.key for e in ev if getattr(e, "is_user_annotation", False)}
+    return [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
+
+
 def host_split(prof, regions=()) -> dict:
     """Host milliseconds of a profile: CUDA runtime launch calls, the
     runtime's synchronising calls (waits), and aten ops' own CPU time; the
-    device's busy time and its kernel count (``regions``: annotate ranges,
-    which the profiler also lists on the device, left out)."""
+    device's busy time and its kernel count (``device_work``: annotate
+    ranges left out)."""
     ev = prof.key_averages()
     host = [e for e in ev if e.device_type != torch.autograd.DeviceType.CUDA]
-    dev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in regions]
+    dev = device_work(prof, regions)
     ms = lambda es: sum(e.self_cpu_time_total for e in es) / 1e3  # noqa: E731
     return {"launch_api_ms": ms(e for e in host if "LaunchKernel" in e.key),
             "launches": sum(e.count for e in host if "LaunchKernel" in e.key),
@@ -3521,9 +3531,11 @@ def scripts_trace(tmp: Path, fn, lr, z, card: str) -> dict:
           f"phase 12 trace.json: {rdb_regions} rdb5c_tc_kernel events launched in the 2 regions == {2 * 3 * NB} "
           f"({len(spans)} device spans; {len(rdb_all)} in the trace, 3 forwards; event categories "
           f"{sorted({str(e.get('cat')) for e in events})})")
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key not in names]
+    kernels = device_work(prof, names)
     split = host_split(prof, names)
+    check(not {e.key for e in kernels} & {"eval.forward", "graphs.replay", *names},
+          f"phase 12 trace: the port's spans (ranges inside trace()) are not counted as device work "
+          f"({len(kernels)} device keys)")
     print(f"phase 12 trace, 3 flagship forwards B2 x LR 64: the 2 in regions {wall_ms:.2f} ms of wall under the "
           f"profiler, device busy {split['device_busy_ms']:.3f} ms for the 3; device ms by kernel (3 forwards):",
           flush=True)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from esr_tpu_torch.ops.resize import imresize
+from esr_tpu_torch.utils.profiler import annotate
 
 __all__ = ["augment_codes", "dihedral_transform", "draw_z", "make_train_pipeline"]
 
@@ -116,7 +117,9 @@ def make_train_pipeline(scale: int = 4, use_flip: bool = True, use_rot: bool = T
         out = {"HR": hr, "LR": lr}
         if num_latent_channels:
             shape = (n * n_shards,) + tuple(lr.shape[1:-1]) + (num_latent_channels,)
-            out["Z"] = draw_z(gen, shape, z_kind)[rows].to(lr.device)
+            z = draw_z(gen, shape, z_kind)[rows]
+            with annotate("pipeline.upload", waits=True):  # a copy from pageable memory: it waits for the stream
+                out["Z"] = z.to(lr.device)
         return out
 
     return pipe

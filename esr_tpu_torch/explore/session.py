@@ -22,6 +22,13 @@ click.
 One deliberate divergence: the reference's ``match_histogram`` ignores the
 session's ``zmax`` (it never widens the Z box); here it takes the session's
 ceiling, as ``imprint`` does.
+
+Spans (``utils/profiler.annotate``): a tool call is ``explore.tool`` (its
+identifier: the session's count of tool calls), holding ``explore.history``,
+the Z optimizer's spans and ``explore.fetch`` (Z to the host; it waits); a
+render is ``explore.render`` (the same identifier), holding
+``explore.upload`` (LR and Z to the device; it waits), ``eval.forward`` and
+``explore.fetch`` (the SR to the host).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from esr_tpu_torch.explore import objectives as obj
 from esr_tpu_torch.explore.z_optimizer import ZOptimizer, bucket_crop
 from esr_tpu_torch.models.base_model import make_eval_forward
 from esr_tpu_torch.models.networks import normalize_rrdb_keys
+from esr_tpu_torch.utils.profiler import annotate
 
 __all__ = ["ExplorationSession"]
 
@@ -59,6 +67,7 @@ class ExplorationSession:
         self._history: list[np.ndarray] = []
         self._redo: list[np.ndarray] = []
         self._history_limit = history_limit
+        self._tools = 0  # tool calls so far: the identifier of their spans
         # progress_cb(done_steps, total_steps, losses_so_far): when set, tool
         # searches run chunked (the same steps) so a GUI can show progress
         self.progress_cb = progress_cb
@@ -141,7 +150,12 @@ class ExplorationSession:
     # -- core ops ----------------------------------------------------------
 
     def _sr(self, z: np.ndarray) -> np.ndarray:
-        return self._render(self._tensor(self.lr_img), self._tensor(z)).float().cpu().numpy()
+        with annotate("explore.render", self._tools):
+            with annotate("explore.upload", waits=True):
+                lr, z = self._tensor(self.lr_img), self._tensor(z)
+            sr = self._render(lr, z)
+            with annotate("explore.fetch", waits=True):
+                return sr.float().cpu().numpy()
 
     def current_sr(self, z: np.ndarray | None = None) -> np.ndarray:
         """The SR of the session's Z (cached until Z changes), or of ``z``."""
@@ -184,13 +198,17 @@ class ExplorationSession:
     def _run_tool(self, objective, adaptive: bool = False, z_range_max: float | None = None) -> np.ndarray:
         if self._mask is None:
             self._mask = np.ones(self.hr_shape, np.float32)
-        self._push_history()
-        z_opt, losses = self._optimizer(
-            self.lr_img, self.z, objective, mask_hr=self._mask, box_lr=self._box_lr,
-            progress_cb=self.progress_cb, n_chunks=self.progress_chunks if self.progress_cb else 1,
-            adaptive=adaptive, z_range_max=z_range_max,
-        )
-        self.z = z_opt.cpu().numpy()
+        self._tools += 1
+        with annotate("explore.tool", self._tools):
+            with annotate("explore.history"):
+                self._push_history()
+            z_opt, losses = self._optimizer(
+                self.lr_img, self.z, objective, mask_hr=self._mask, box_lr=self._box_lr,
+                progress_cb=self.progress_cb, n_chunks=self.progress_chunks if self.progress_cb else 1,
+                adaptive=adaptive, z_range_max=z_range_max,
+            )
+            with annotate("explore.fetch", waits=True):
+                self.z = z_opt.cpu().numpy()
         self._sr_cache = None
         return np.asarray(losses)
 

@@ -21,6 +21,15 @@ a bucketed square crop (:func:`bucket_crop`), and the search runs on that
 crop of LR, Z, the HR mask and the objective's HR-space images, then pastes
 the crop's Z back.
 
+Spans (``utils/profiler.annotate``): ``zopt.upload`` (the images and the
+objective to the device; it waits), ``zopt.crop``, ``zopt.lookup`` (the
+cache), ``zopt.search`` holding ``zopt.load`` (the images into the search's
+buffers, the round's bound), ``zopt.run`` (the scalar table and one
+``graphs.replay`` a step, or ``graphs.capture`` on a search's first run)
+and ``zopt.fetch`` (the losses to the host; it waits), and ``zopt.paste``.
+:data:`Z_STEPS` counts the Z steps run (a ``LaunchCounter``: a replay adds
+what its capture counted).
+
 One deliberate divergence: with ``max_rounds=None`` the reference sizes the
 adaptive search's round budget with ``log(lr_boost)`` and
 ``log(z_range_boost)``, which divide by zero at a boost of 1. Here a boost of
@@ -36,9 +45,13 @@ import torch
 
 from esr_tpu_torch.explore.objectives import Objective
 from esr_tpu_torch.models.base_model import Adam
+from esr_tpu_torch.ops.cuda.lib import LaunchCounter
 from esr_tpu_torch.utils.graphs import GraphedStep
+from esr_tpu_torch.utils.profiler import annotate
 
-__all__ = ["ZOptimizer", "ZSearch", "ZSearchCache", "bucket_crop", "optimize_z", "optimize_z_adaptive"]
+__all__ = ["Z_STEPS", "ZOptimizer", "ZSearch", "ZSearchCache", "bucket_crop", "optimize_z", "optimize_z_adaptive"]
+
+Z_STEPS = LaunchCounter("z_steps")
 
 _BUCKETS = (16, 32, 64, 128, 256)
 
@@ -113,6 +126,7 @@ class ZSearch:
         self.best_loss.fill_(math.inf)
 
     def _step(self) -> torch.Tensor:
+        Z_STEPS.count += 1
         loss, g = _loss_and_grad(self.forward, self.lr_img, self.z, self.mask, self.fn, self.aux)
         self.best_z.copy_(torch.where(loss < self.best_loss, self.z, self.best_z))
         self.best_loss.copy_(torch.minimum(loss, self.best_loss))
@@ -124,11 +138,12 @@ class ZSearch:
         """``n_steps`` Adam steps, each at ``lr_at(count of updates so far)``
         (computed on the host, uploaded at once); the step losses as a device
         tensor."""
-        table = self.opt.scalar_rows([self.opt.next_scalars(lr_at(self.opt.count)) for _ in range(n_steps)])
-        losses = self.z.new_empty((n_steps,))
-        for i in range(n_steps):
-            self.opt.scalars.copy_(table[i])
-            losses[i].copy_(self.step())
+        with annotate("zopt.run"):
+            table = self.opt.scalar_rows([self.opt.next_scalars(lr_at(self.opt.count)) for _ in range(n_steps)])
+            losses = self.z.new_empty((n_steps,))
+            for i in range(n_steps):
+                self.opt.scalars.copy_(table[i])
+                losses[i].copy_(self.step())
         return losses
 
 
@@ -141,17 +156,18 @@ class ZSearchCache:
     def __init__(self):
         self._searches: dict = {}
 
-    def get(self, forward, lr_img, z, mask, fn, aux: dict) -> ZSearch:
+    def find(self, forward, lr_img, z, mask, fn, aux: dict) -> tuple[ZSearch, bool]:
+        """The search for these shapes and objective, and whether it was made
+        here from these images (else the caller loads them: :meth:`ZSearch.load`)."""
         key = (id(forward), tuple(lr_img.shape), tuple(z.shape), tuple(mask.shape), fn,
                *((k, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (k, v)
                  for k, v in sorted(aux.items())))
         search = self._searches.get(key)
-        if search is None:
-            pool = next((s.step.pool for s in self._searches.values() if s.step.pool is not None), None)
-            search = self._searches[key] = ZSearch(forward, lr_img, z, mask, fn, aux, pool)
-        else:
-            search.load(lr_img, z, mask, aux)
-        return search
+        if search is not None:
+            return search, False
+        pool = next((s.step.pool for s in self._searches.values() if s.step.pool is not None), None)
+        search = self._searches[key] = ZSearch(forward, lr_img, z, mask, fn, aux, pool)
+        return search, True
 
     def clear(self) -> None:
         self._searches.clear()
@@ -171,19 +187,26 @@ def optimize_z(forward, lr_img, z0, mask_hr, objective, n_steps: int = 100, lr: 
     each chunk's end. ``cache``: where the captured search is kept for the
     next call (a new one each call when None)."""
     fn, aux = _as_fn_aux(objective)
-    search = (cache or ZSearchCache()).get(forward, lr_img, z0, mask_hr, fn, aux)
-    search.set_round(z_range)
-    lr_at = _decayed(lr, lr_decay, n_steps)
-    n_chunks = 1 if progress_cb is None and n_chunks <= 1 else max(1, min(int(n_chunks), n_steps))
-    bounds = np.linspace(0, n_steps, n_chunks + 1).astype(int)
-    losses = []
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        if hi == lo:
-            continue
-        losses.append(search.run(int(hi - lo), lr_at).cpu().numpy())
-        if progress_cb is not None:
-            progress_cb(int(hi), int(n_steps), np.concatenate(losses))
-    return search.z.clone(), np.concatenate(losses) if losses else np.zeros((0,), np.float32)
+    with annotate("zopt.lookup"):
+        search, made = (cache or ZSearchCache()).find(forward, lr_img, z0, mask_hr, fn, aux)
+    with annotate("zopt.search"):
+        with annotate("zopt.load"):
+            if not made:
+                search.load(lr_img, z0, mask_hr, aux)
+            search.set_round(z_range)
+        lr_at = _decayed(lr, lr_decay, n_steps)
+        n_chunks = 1 if progress_cb is None and n_chunks <= 1 else max(1, min(int(n_chunks), n_steps))
+        bounds = np.linspace(0, n_steps, n_chunks + 1).astype(int)
+        losses = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            if hi == lo:
+                continue
+            run = search.run(int(hi - lo), lr_at)
+            with annotate("zopt.fetch", waits=True):
+                losses.append(run.cpu().numpy())
+            if progress_cb is not None:
+                progress_cb(int(hi), int(n_steps), np.concatenate(losses))
+        return search.z.clone(), np.concatenate(losses) if losses else np.zeros((0,), np.float32)
 
 
 def _ladder_rounds(cur: float, top: float, boost: float) -> int:
@@ -208,47 +231,56 @@ def optimize_z_adaptive(forward, lr_img, z0, mask_hr, objective, n_steps: int = 
     ``{"lr", "z_range", "first", "last", "rel_improvement", "best"}`` (the last
     with ``"stop"``: why the search ended). ``cache`` as in :func:`optimize_z`."""
     fn, aux = _as_fn_aux(objective)
-    search = (cache or ZSearchCache()).get(forward, lr_img, z0, mask_hr, fn, aux)
-    # z_range 0 / None: unbounded (the round still clips, against inf)
-    cur_lr = float(lr)
-    cur_zr = float(z_range) if z_range else float("inf")
-    zr_max = float(z_range_max) if z_range_max else cur_zr
-    if max_rounds is None:
-        # the initial round, the two ladders and one settle round at full escalation
-        max_rounds = 1 + _ladder_rounds(cur_lr, lr_max, lr_boost) + _ladder_rounds(cur_zr, zr_max, z_range_boost) + 1
-    best_z, best_loss = search.z.clone(), float("inf")
-    all_losses, rounds = [], []
-    total = max_rounds * n_steps
-    stop_reason = None
-    for r in range(max_rounds):
-        search.set_round(cur_zr if math.isfinite(cur_zr) else None)
-        round_lr = float(np.float32(cur_lr))
-        losses = search.run(int(n_steps), lambda count: round_lr).cpu().numpy()
-        all_losses.append(losses)
-        rb_loss = float(search.best_loss)
-        if rb_loss < best_loss:
-            best_z, best_loss = search.best_z.clone(), rb_loss
-        first, last = float(losses[0]), float(losses[-1])
-        rel = (first - last) / (abs(first) + 1e-12)
-        rounds.append({"lr": cur_lr, "z_range": cur_zr, "first": first, "last": last,
-                       "rel_improvement": rel, "best": best_loss})
-        if progress_cb is not None:
-            progress_cb((r + 1) * n_steps, total, np.concatenate(all_losses))
-        if rel < plateau_rel:
-            if lr_boost > 1.0 and cur_lr < lr_max * (1 - 1e-6):
-                cur_lr = min(cur_lr * lr_boost, lr_max)
-            elif z_range_boost > 1.0 and cur_zr < zr_max * (1 - 1e-6):
-                # the LR ladder is done: widen the latent box
-                cur_zr = min(cur_zr * z_range_boost, zr_max)
-            else:
-                stop_reason = "insensitive-at-max-escalation"
-                break
-    if rounds:
-        if stop_reason is None:
-            stop_reason = ("plateaued-at-round-budget" if rounds[-1]["rel_improvement"] < plateau_rel
-                           else "improving-at-round-budget")
-        rounds[-1]["stop"] = stop_reason
-    return best_z, np.concatenate(all_losses), rounds
+    with annotate("zopt.lookup"):
+        search, made = (cache or ZSearchCache()).find(forward, lr_img, z0, mask_hr, fn, aux)
+    with annotate("zopt.search"):
+        if not made:
+            with annotate("zopt.load"):
+                search.load(lr_img, z0, mask_hr, aux)
+        # z_range 0 / None: unbounded (the round still clips, against inf)
+        cur_lr = float(lr)
+        cur_zr = float(z_range) if z_range else float("inf")
+        zr_max = float(z_range_max) if z_range_max else cur_zr
+        if max_rounds is None:
+            # the initial round, the two ladders and one settle round at full escalation
+            max_rounds = (1 + _ladder_rounds(cur_lr, lr_max, lr_boost) + _ladder_rounds(cur_zr, zr_max, z_range_boost)
+                          + 1)
+        best_z, best_loss = search.z.clone(), float("inf")
+        all_losses, rounds = [], []
+        total = max_rounds * n_steps
+        stop_reason = None
+        for r in range(max_rounds):
+            with annotate("zopt.load"):
+                search.set_round(cur_zr if math.isfinite(cur_zr) else None)
+            round_lr = float(np.float32(cur_lr))
+            run = search.run(int(n_steps), lambda count: round_lr)
+            with annotate("zopt.fetch", waits=True):
+                losses = run.cpu().numpy()
+                rb_loss = float(search.best_loss)
+            all_losses.append(losses)
+            if rb_loss < best_loss:
+                best_z, best_loss = search.best_z.clone(), rb_loss
+            first, last = float(losses[0]), float(losses[-1])
+            rel = (first - last) / (abs(first) + 1e-12)
+            rounds.append({"lr": cur_lr, "z_range": cur_zr, "first": first, "last": last,
+                           "rel_improvement": rel, "best": best_loss})
+            if progress_cb is not None:
+                progress_cb((r + 1) * n_steps, total, np.concatenate(all_losses))
+            if rel < plateau_rel:
+                if lr_boost > 1.0 and cur_lr < lr_max * (1 - 1e-6):
+                    cur_lr = min(cur_lr * lr_boost, lr_max)
+                elif z_range_boost > 1.0 and cur_zr < zr_max * (1 - 1e-6):
+                    # the LR ladder is done: widen the latent box
+                    cur_zr = min(cur_zr * z_range_boost, zr_max)
+                else:
+                    stop_reason = "insensitive-at-max-escalation"
+                    break
+        if rounds:
+            if stop_reason is None:
+                stop_reason = ("plateaued-at-round-budget" if rounds[-1]["rel_improvement"] < plateau_rel
+                               else "improving-at-round-budget")
+            rounds[-1]["stop"] = stop_reason
+        return best_z, np.concatenate(all_losses), rounds
 
 
 class ZOptimizer:
@@ -279,17 +311,18 @@ class ZOptimizer:
         enables the bucketed crop. Returns (the full Z map on the device, the
         loss trace)."""
         dev = self.device
-        lr_img = torch.as_tensor(np.asarray(lr_img, np.float32) if not isinstance(lr_img, torch.Tensor) else lr_img,
-                                 device=dev)
-        z = torch.as_tensor(np.asarray(z, np.float32) if not isinstance(z, torch.Tensor) else z, device=dev)
-        n, h, w, _ = lr_img.shape
-        s = self.scale
-        if mask_hr is None:
-            mask_hr = np.ones((h * s, w * s), np.float32)
-        mask_hr = torch.as_tensor(np.asarray(mask_hr, np.float32) if not isinstance(mask_hr, torch.Tensor)
-                                  else mask_hr, dtype=torch.float32, device=dev)
-        if isinstance(objective, Objective):
-            objective = objective.to(dev)
+        with annotate("zopt.upload", waits=True):  # synchronising copies from pageable memory
+            lr_img = torch.as_tensor(np.asarray(lr_img, np.float32) if not isinstance(lr_img, torch.Tensor)
+                                     else lr_img, device=dev)
+            z = torch.as_tensor(np.asarray(z, np.float32) if not isinstance(z, torch.Tensor) else z, device=dev)
+            n, h, w, _ = lr_img.shape
+            s = self.scale
+            if mask_hr is None:
+                mask_hr = np.ones((h * s, w * s), np.float32)
+            mask_hr = torch.as_tensor(np.asarray(mask_hr, np.float32) if not isinstance(mask_hr, torch.Tensor)
+                                      else mask_hr, dtype=torch.float32, device=dev)
+            if isinstance(objective, Objective):
+                objective = objective.to(dev)
         self.last_rounds = None
 
         def search(lr_i, z_i, m_i, objective_i):
@@ -304,15 +337,17 @@ class ZOptimizer:
                               n_chunks=n_chunks, cache=self.searches)
 
         if self.crop_to_region and box_lr is not None:
-            y, x, size = bucket_crop(box_lr, h, w, s)
-            lr_c = lr_img[:, y : y + size, x : x + size]
-            z_c = z[:, y : y + size, x : x + size]
-            m_c = mask_hr[y * s : (y + size) * s, x * s : (x + size) * s]
-            if isinstance(objective, Objective):
-                # HR-space constants (imprint target, anchors) track the crop
-                objective = objective.crop_hr(y * s, x * s, size * s)
+            with annotate("zopt.crop"):
+                y, x, size = bucket_crop(box_lr, h, w, s)
+                lr_c = lr_img[:, y : y + size, x : x + size]
+                z_c = z[:, y : y + size, x : x + size]
+                m_c = mask_hr[y * s : (y + size) * s, x * s : (x + size) * s]
+                if isinstance(objective, Objective):
+                    # HR-space constants (imprint target, anchors) track the crop
+                    objective = objective.crop_hr(y * s, x * s, size * s)
             z_opt_c, losses = search(lr_c, z_c, m_c, objective)
-            z_opt = z.clone()
-            z_opt[:, y : y + size, x : x + size] = z_opt_c
+            with annotate("zopt.paste"):
+                z_opt = z.clone()
+                z_opt[:, y : y + size, x : x + size] = z_opt_c
             return z_opt, losses
         return search(lr_img, z, mask_hr, objective)

@@ -43,6 +43,7 @@ from esr_tpu_torch.ops.ensemble import make_self_ensemble
 from esr_tpu_torch.parallel import comm
 from esr_tpu_torch.parallel.dp import BatchComm, GradSync, StepParallel
 from esr_tpu_torch.utils.graphs import StepGraphs
+from esr_tpu_torch.utils.profiler import annotate
 
 __all__ = [
     "Adam",
@@ -319,13 +320,15 @@ class EvalForward:
     the one its graphs were captured at and drops them when it has moved
     (``prepare_kernels`` / ``release_kernels`` since). Elsewhere (the CPU,
     several ranks, a sharded ``apply_fn``, ``graphs=False``) every call runs
-    eagerly."""
+    eagerly. A call is the span ``eval.forward`` (its identifier: the call's
+    count), holding the graph's spans and ``eval.clone``."""
 
     def __init__(self, g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None, graphs: bool = True):
         self.g = g
         self.device = next(g.parameters()).device
         g.prepare_kernels()
         self.generation = g.layout_generation
+        self.calls = 0
         apply_raw = apply_fn or g
         apply_raw = make_self_ensemble(apply_raw) if self_ensemble else apply_raw
 
@@ -355,10 +358,14 @@ class EvalForward:
         for name, t in (("lr", lr), ("z", z)):
             if t is not None and t.device != self.device:
                 raise ValueError(f"{name} is on {t.device}, the generator on {self.device}")
-        if not self.graphs.enabled:
-            return self._run(None, lr, z)
-        self._sync_layouts()
-        return self.graphs.run(None, {"lr": lr, "z": z}).clone()
+        self.calls += 1
+        with annotate("eval.forward", self.calls):
+            if not self.graphs.enabled:
+                return self._run(None, lr, z)
+            self._sync_layouts()
+            out = self.graphs.run(None, {"lr": lr, "z": z})
+            with annotate("eval.clone"):
+                return out.clone()
 
 
 def make_eval_forward(g: RRDBNet, cem=None, self_ensemble: bool = False, apply_fn=None,
@@ -670,13 +677,15 @@ class BaseModel:
         for _, _, rows in prepared:
             for opt, row in rows:
                 rows_of.setdefault(opt, []).append(row)
-        slots = {opt: iter(opt.scalar_rows(rows)) for opt, rows in rows_of.items()}
-        if self.device.type == "cuda":
-            for name, v in prepared[0][1].items():
-                if isinstance(v, torch.Tensor) and v.device.type == "cpu":
-                    up = torch.stack([inputs[name] for _, inputs, _ in prepared]).to(self.device, non_blocking=True)
-                    for (_, inputs, _), t in zip(prepared, up):
-                        inputs[name] = t
+        with annotate("train.stage"):
+            slots = {opt: iter(opt.scalar_rows(rows)) for opt, rows in rows_of.items()}
+            if self.device.type == "cuda":
+                for name, v in prepared[0][1].items():
+                    if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+                        up = torch.stack([inputs[name] for _, inputs, _ in prepared]).to(self.device,
+                                                                                         non_blocking=True)
+                        for (_, inputs, _), t in zip(prepared, up):
+                            inputs[name] = t
         metrics: dict = {}
         for key, inputs, rows in prepared:
             for opt, _ in rows:
@@ -688,21 +697,23 @@ class BaseModel:
         """The loader batch as the train step takes it, on the device: the HR
         crops, or ``{'HR', 'LR'}`` when ``dataroot_LR`` is configured (paired
         LR, never synthesised)."""
-        hr = torch.as_tensor(np.asarray(data["HR"])).to(self.device, non_blocking=True)
-        if not getattr(self, "_paired_lr", False):
-            return hr
-        if data.get("LR") is None:
-            raise ValueError("dataroot_LR is configured (paired-LR training) but the batch carries "
-                             "no LR array — check the dataset/loader")
-        return {"HR": hr, "LR": torch.as_tensor(np.asarray(data["LR"])).to(self.device)}
+        with annotate("train.upload", waits=True):  # a pageable copy can wait for the card to reach it
+            hr = torch.as_tensor(np.asarray(data["HR"])).to(self.device, non_blocking=True)
+            if not getattr(self, "_paired_lr", False):
+                return hr
+            if data.get("LR") is None:
+                raise ValueError("dataroot_LR is configured (paired-LR training) but the batch carries "
+                                 "no LR array — check the dataset/loader")
+            return {"HR": hr, "LR": torch.as_tensor(np.asarray(data["LR"])).to(self.device)}
 
     def get_current_losses(self) -> dict:
         """The last step's metrics as host floats, fetched in one copy."""
         items = list(self._losses.items())
         if not items:
             return {}
-        packed = torch.stack([torch.as_tensor(v, dtype=torch.float32).reshape(-1)[-1].to(self.device)
-                              for _, v in items]).cpu().tolist()
+        with annotate("train.losses", waits=True):
+            packed = torch.stack([torch.as_tensor(v, dtype=torch.float32).reshape(-1)[-1].to(self.device)
+                                  for _, v in items]).cpu().tolist()
         return {k: float(v) for (k, _), v in zip(items, packed)}
 
     def update_learning_rate(self) -> None:

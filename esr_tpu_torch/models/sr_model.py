@@ -39,6 +39,7 @@ from esr_tpu_torch.models.base_model import (
 from esr_tpu_torch.models.networks import define_G
 from esr_tpu_torch.ops.metrics import psnr_torch
 from esr_tpu_torch.parallel.dp import StepParallel
+from esr_tpu_torch.utils.profiler import annotate
 
 __all__ = ["SRModel", "make_sr_train_step"]
 
@@ -56,10 +57,12 @@ def make_sr_train_step(g, pipeline, g_opt: Adam, lr_schedule, pixel_criterion: s
     g_fwd = par.g_apply or g
 
     def prepare(hr_batch, gen: torch.Generator):
-        # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
-        batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
-        return None, {"lr": batch["LR"], "hr": batch["HR"], "z": batch.get("Z")}, [
-            (g_opt, g_opt.next_scalars(lr_schedule(g_opt.count)))]
+        with annotate("train.pipeline"):
+            # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
+            batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
+        with annotate("train.scalars"):
+            return None, {"lr": batch["LR"], "hr": batch["HR"], "z": batch.get("Z")}, [
+                (g_opt, g_opt.next_scalars(lr_schedule(g_opt.count)))]
 
     def core(key, lr, hr, z) -> dict:  # noqa: ARG001
         with torch.enable_grad():
@@ -136,9 +139,11 @@ class SRModel(BaseModel):
 
     def optimize_parameters(self, step: int) -> None:
         """Train step ``step`` on the fed batch (on CUDA in one process, a
-        CUDA graph's replay: ``BaseModel._run_steps``)."""
+        CUDA graph's replay: ``BaseModel._run_steps``); the span
+        ``train.step``, its identifier the step."""
         self.step = step
-        self._losses = self._run_steps([self._prepare_step(self._prep_batch(self._data), step)])
+        with annotate("train.step", step):
+            self._losses = self._run_steps([self._prepare_step(self._prep_batch(self._data), step)])
 
     def optimize_parameters_chunk(self, first_step: int, chunk: dict) -> None:
         """Train steps ``first_step`` .. ``first_step + k - 1`` on the k
@@ -147,11 +152,13 @@ class SRModel(BaseModel):
         k device parts back to back (on CUDA, k replays of the step's graph
         with the step scalars uploaded once). The trajectory of k
         ``optimize_parameters`` calls; ``get_current_losses`` then reports the
-        last step's metrics."""
-        batches = self._prep_batch(chunk)
-        k = int(np.asarray(chunk["HR"]).shape[0])
-        pick = (lambda i: {n: v[i] for n, v in batches.items()}) if isinstance(batches, dict) else batches.__getitem__
-        self._losses = self._run_steps([self._prepare_step(pick(i), first_step + i) for i in range(k)])
+        last step's metrics. One ``train.step`` span, its identifier the first step."""
+        with annotate("train.step", first_step):
+            batches = self._prep_batch(chunk)
+            k = int(np.asarray(chunk["HR"]).shape[0])
+            pick = ((lambda i: {n: v[i] for n, v in batches.items()}) if isinstance(batches, dict)
+                    else batches.__getitem__)
+            self._losses = self._run_steps([self._prepare_step(pick(i), first_step + i) for i in range(k)])
         self.step = first_step + k - 1
 
     def test(self, z: np.ndarray | torch.Tensor | None = None) -> None:

@@ -44,6 +44,7 @@ from esr_tpu_torch.models.networks import define_D, define_F
 from esr_tpu_torch.models.sr_model import SRModel, _pipeline
 from esr_tpu_torch.ops.metrics import psnr_torch
 from esr_tpu_torch.parallel.dp import StepParallel
+from esr_tpu_torch.utils.profiler import annotate
 
 __all__ = ["SRRaGANModel", "make_gan_train_step"]
 
@@ -111,18 +112,20 @@ def make_gan_train_step(g, d, f, cem, pipeline, cfg: dict, g_opt: Adam, d_opt: A
         return loss, aux, sr
 
     def prepare(hr_batch, gen: torch.Generator, step: int, gp_eps=None):
-        # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
-        batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
-        if w_gp and gp_eps is None:
-            i, n_shards = par.shard
-            n = batch["HR"].shape[0]
-            gp_eps = torch.rand((n * n_shards, 1, 1, 1), generator=gen)[i * n : (i + 1) * n]
-        # G first, against the pre-update D (steps are 1-based; strict >)
-        do_g = step % d_ratio == 0 and step > d_init
-        rows = [(g_opt, g_opt.next_scalars(g_lr_schedule(step)))] if do_g else []
-        rows.append((d_opt, d_opt.next_scalars(d_lr_schedule(d_opt.count))))
-        inputs = {"lr": batch["LR"], "hr": batch["HR"], "z": batch.get("Z"), "gp_eps": gp_eps if w_gp else None}
-        return do_g, inputs, rows
+        with annotate("train.pipeline"):
+            # a pipeline sees the shard only under data parallelism (a test's stand-in takes none)
+            batch = pipeline(hr_batch, gen) if par.shard == (0, 1) else pipeline(hr_batch, gen, shard=par.shard)
+        with annotate("train.scalars"):
+            if w_gp and gp_eps is None:
+                i, n_shards = par.shard
+                n = batch["HR"].shape[0]
+                gp_eps = torch.rand((n * n_shards, 1, 1, 1), generator=gen)[i * n : (i + 1) * n]
+            # G first, against the pre-update D (steps are 1-based; strict >)
+            do_g = step % d_ratio == 0 and step > d_init
+            rows = [(g_opt, g_opt.next_scalars(g_lr_schedule(step)))] if do_g else []
+            rows.append((d_opt, d_opt.next_scalars(d_lr_schedule(d_opt.count))))
+            inputs = {"lr": batch["LR"], "hr": batch["HR"], "z": batch.get("Z"), "gp_eps": gp_eps if w_gp else None}
+            return do_g, inputs, rows
 
     def core(do_g: bool, lr, hr, z, gp_eps) -> dict:
         if cem is not None:

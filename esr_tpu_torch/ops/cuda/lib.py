@@ -52,9 +52,11 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 class LaunchCounter:
     """Counts the launches of one kernel route (the wrapper adds one per
-    launch), or the weight layouts built for a kernel. Every counter made is
-    listed in :data:`LaunchCounter.all` (a CUDA graph's replay adds what its
-    capture counted: ``utils/graphs.py``)."""
+    launch), the weight layouts built for a kernel, or the steps of a graphed
+    loop (``explore/z_optimizer.Z_STEPS``). Every counter made is listed in
+    :data:`LaunchCounter.all` (a CUDA graph's replay adds what its capture
+    counted: ``utils/graphs.py``; a root span records their deltas:
+    ``utils/profiler.py``)."""
 
     all: list["LaunchCounter"] = []
 

@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from esr_tpu_torch.utils.profiler import annotate
+
 __all__ = ["cubic_kernel", "imresize", "imresize_np", "resize_matrix"]
 
 
@@ -118,8 +120,9 @@ def imresize(
         img = img[..., None]
     h, w = img.shape[-3], img.shape[-2]
     out_h, out_w = _out_shape(h, w, scale, out_shape)
-    mh = torch.from_numpy(resize_matrix(h, out_h, antialias)).to(img.device)
-    mw = torch.from_numpy(resize_matrix(w, out_w, antialias)).to(img.device)
+    mh, mw = resize_matrix(h, out_h, antialias), resize_matrix(w, out_w, antialias)
+    with annotate("resize.upload", waits=True):  # copies from pageable memory: they wait for the stream
+        mh, mw = torch.from_numpy(mh).to(img.device), torch.from_numpy(mw).to(img.device)
     x = torch.einsum("oh,...hwc->...owc", mh, img.float())
     x = torch.einsum("ow,...hwc->...hoc", mw, x)
     x = x.to(img.dtype) if img.is_floating_point() else x

@@ -26,6 +26,12 @@ step read as they do eagerly.
 A capture that fails raises with the reason; nothing falls back to eager. On
 the CPU (and wherever graphs are off: several ranks) the same step runs
 eagerly, the same code.
+
+Spans (``utils/profiler.annotate``): ``graphs.copy_in`` (``StepGraphs.run``'s
+copies into the static buffers), ``graphs.replay`` (a replay and its counter
+deltas; it waits: the launch of a graph of thousands of kernels, a GAN step's
+or a Z step's, blocks while the card drains its queue) and
+``graphs.capture`` (the warm-up and the capture); an eager call has none.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import time
 import torch
 
 from esr_tpu_torch.ops.cuda.lib import LaunchCounter
+from esr_tpu_torch.utils.profiler import annotate
 
 __all__ = ["GraphedStep", "StepGraphs"]
 
@@ -64,10 +71,12 @@ class GraphedStep:
         if not self.enabled:
             return self.fn()
         if self.graph is None:
-            return self._warm_up_and_capture()
-        self.graph.replay()
-        for counter, d in self.deltas:
-            counter.count += d
+            with annotate("graphs.capture"):
+                return self._warm_up_and_capture()
+        with annotate("graphs.replay", waits=True):  # the launch blocks while the card drains its queue
+            self.graph.replay()
+            for counter, d in self.deltas:
+                counter.count += d
         return self.out
 
     def _warm_up_and_capture(self):
@@ -117,19 +126,21 @@ class StepGraphs:
     def run(self, key, inputs: dict):
         if not self.enabled:
             return self.fn(key, **inputs)
-        full = (key, *((k, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (k, v)
-                       for k, v in sorted(inputs.items())))
-        entry = self._steps.get(full)
-        if entry is None:
-            static = {k: v.to(self.device, copy=True) if isinstance(v, torch.Tensor) else v
-                      for k, v in inputs.items()}
-            fn = self.fn  # not self: no reference cycle keeps a dropped graph's pool alive
-            step = GraphedStep(lambda: fn(key, **static), self.device, f"{self.name} [{key}]", pool=self._pool)
-            self._steps[full] = entry = (step, static)
-        else:
-            for k, v in inputs.items():
-                if isinstance(v, torch.Tensor):
-                    entry[1][k].copy_(v, non_blocking=True)
+        with annotate("graphs.copy_in"):
+            full = (key, *((k, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else (k, v)
+                           for k, v in sorted(inputs.items())))
+            entry = self._steps.get(full)
+            if entry is None:
+                static = {k: v.to(self.device, copy=True) if isinstance(v, torch.Tensor) else v
+                          for k, v in inputs.items()}
+                fn = self.fn  # not self: no reference cycle keeps a dropped graph's pool alive
+                step = GraphedStep(lambda: fn(key, **static), self.device, f"{self.name} [{key}]",
+                                   pool=self._pool)
+                self._steps[full] = entry = (step, static)
+            else:
+                for k, v in inputs.items():
+                    if isinstance(v, torch.Tensor):
+                        entry[1][k].copy_(v, non_blocking=True)
         out = entry[0]()
         self._pool = entry[0].pool
         return out

@@ -866,11 +866,12 @@ def test_cuda_gan_step_graph_equals_eager(cuda, tmp_path):
 def test_cuda_z_search_graph_equals_eager(cuda):
     """A 6-step Z search through a frozen nb-1 flagship-width generator
     (prebuilt layouts, CEM) replayed as a CUDA graph against the same search
-    eagerly: trace, Z and best Z bit for bit, 3 / 4 / 2 launches a step, and
-    a second search on the same buffers replays without capturing again."""
+    eagerly: trace, Z and best Z bit for bit, 3 / 4 / 2 launches a step, one
+    ``z_steps`` count a step, and a second search on the same buffers
+    replays without capturing again."""
     from esr_tpu_torch.cem import CEMConf, make_cem
     from esr_tpu_torch.explore import objectives as PO
-    from esr_tpu_torch.explore.z_optimizer import ZSearch
+    from esr_tpu_torch.explore.z_optimizer import Z_STEPS, ZSearch
     from esr_tpu_torch.models import define_G
 
     g = define_G(_nb2_options(".", network_G={"nf": 64, "nb": 1, "gc": 32, "num_latent_channels": 1}),
@@ -893,10 +894,11 @@ def test_cuda_z_search_graph_equals_eager(cuda):
             search = ZSearch(forward, lr, z0, mask, obj.fn, obj.aux)
             search.step.enabled = graphed
             search.set_round(1.0)
-            before = [c.count for c in _COUNTERS]
+            before, steps = [c.count for c in _COUNTERS], Z_STEPS.count
             losses = search.run(6, lambda count: 0.1)
             torch.cuda.synchronize()
             assert [c.count - n for c, n in zip(_COUNTERS, before)] == [18, 24, 12]
+            assert Z_STEPS.count - steps == 6
             out.append((losses.clone(), search.z.clone(), search.best_z.clone(), search))
         (lg, zg, bg, sg), (le, ze, be, _) = out
         assert torch.equal(lg, le) and torch.equal(zg, ze) and torch.equal(bg, be)
