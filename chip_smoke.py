@@ -7,7 +7,7 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: torch / CUDA versions, compute capability, card name and
    power limit; TF32 off for every f32 comparison;
 2. build the hand-written CUDA kernels (nvcc, sm_90a) from the checkout
-   (ptxas: no spills in the 3 ``rdb5c_tc_kernel`` instances, the 18
+   (ptxas: no spills in the 4 ``rdb5c_tc_kernel`` instances, the 18
    ``conv_tc_kernel`` and the 8 ``conv_f32_kernel`` instances, no wgmma
    serialization; the main RDB instance's ptxas line equal to the one it had
    before the other widths became instances);
@@ -24,7 +24,9 @@ Phases (any failure exits non-zero and prints no result):
    and 64 -> 576 on a ragged grid; B16 x 128^2 128 -> 128 in both modes) and
    the bf16 RDB at the other widths on the RDB kernel's other instances (nf
    8 / gc 4 and 16 / 8 on a ragged grid; 16 / 8, 32 / 16 and 128 / 64 at
-   B16 x 128^2), each timed beside bound and plain;
+   B16 x 128^2), each timed beside bound and plain, and both nf 64 / gc 32
+   tiles at the small grids B1 x 64^2 and B16 x 32^2 (bit for bit one
+   answer; the tile rule's pick counted on ``rdb5c_small``) beside the bound;
    time each kernel with its weight layout built once (as the forward runs
    it), its plain version and the library call with CUDA events, per conv
    site (one ``{"kernels": [...]}`` JSON line);
@@ -606,8 +608,8 @@ def phase_kernels() -> list[dict]:
     before = rdb_conv.LAUNCHES.count
     hinted = fused_rdb5c_tiled(xr.bfloat16(), p, strip=12, wtile=8)
     check(rdb_conv.LAUNCHES.count == before + 1 and torch.equal(hinted, fused_rdb5c(xr.bfloat16(), p)),
-          "rdb5c bf16 tile 12x8 is a schedule hint: the tensor-core kernel runs its 16x16 tiles, one launch, "
-          "bit for bit the 16x16 answer")
+          "rdb5c bf16 tile 12x8 is a schedule hint: the tensor-core kernel runs the tile its grid takes, one "
+          "launch, bit for bit the unhinted answer")
     rdb5c_edge_checks(p)
     flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * B * LR * LR
     nbytes = 2 * xb.numel() * 2 + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items())
@@ -618,11 +620,11 @@ def phase_kernels() -> list[dict]:
                             2 * xm.numel() * 4 + sum(v.numel() * 4 for v in p.values()))]
     rows.append({
         "name": "rdb5c", "route": "cuda",
-        "source": "esr_tpu_torch/ops/cuda/csrc/rdb5c.cuh (rdb5c_tc_kernel<NF, GC, TILE>, three instances; f32: five "
+        "source": "esr_tpu_torch/ops/cuda/csrc/rdb5c.cuh (rdb5c_tc_kernel<NF, GC, TILE>, four instances; f32: five "
                   "conv_f32.cuh launches)",
         "replaces": "esr_tpu/ops/pallas/rdb_conv.py:163 (fused_rdb5c), :215 (fused_rdb5c_tiled)",
         "tpu_kernel": "K1 fused_rdb5c + K2 fused_rdb5c_tiled",
-        "shape": "x (16,128,128,64) bf16, nf 64 gc 32 (instance 64 / 32 / 16; the others: bf16_widths)",
+        "shape": "x (16,128,128,64) bf16, nf 64 gc 32 (instance 64 / 32 / 16; 64 / 32 / 8: small_grids; the others: bf16_widths)",
         "max_abs_err": max(bf16_errs), "f32_simt_max_abs_err": max(f32_errs),
         "ms": cuda_ms(lambda: rdb5c_launch(xb, kw5)),
         "plain_ms": cuda_ms(lambda: rdb5c_reference(xb, p)),
@@ -738,6 +740,7 @@ def phase_kernels() -> list[dict]:
     conv_edge_checks()
     conv_wide_checks(rows)
     bf16_widths(rows)
+    rdb_small_grids(rows)
     rows.append(f32_route_row(rows))
     return rows
 
@@ -820,6 +823,55 @@ def bf16_widths(rows: list[dict]) -> None:
     for s in rdb_row["bf16_widths"]:
         print(f"  bf16 {s['kernel']:<28s} {s['shape']:<40s} kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, "
               f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}, {100 * s['bound_ms'] / s['ms']:.1f}%)", flush=True)
+
+
+def rdb_small_grids(rows: list[dict]) -> None:
+    """The flagship RDB (nf 64 / gc 32) at grids too small for 16 x 16 tiles
+    to fill the card: B1 x 64^2 (the editor's Z step crop, 16 tiles) and B16
+    x 32^2 (the GAN step's G forward, 64 tiles; 256 of 8 x 8 are two waves,
+    and the rule keeps 16 x 16). Each tile of the nf 64 / gc 32 instances
+    (``rdb_conv._launch``) within phase 3's band of the f32 plain version and
+    equal bit for bit to the 16 x 16 tile's answer, timed as 20 launches in a
+    CUDA graph (as the Z step and the GAN step replay them) beside the bound
+    and the plain version; ``rdb5c_launch`` runs the tile ``rdb5c_tile``
+    picks there and counts it on ``rdb5c_small``. Listed under the rdb5c row
+    (``small_grids``)."""
+    from esr_tpu_torch.ops.cuda.conv_bench import graph_ms
+
+    rdb_row = next(r for r in rows if r["name"] == "rdb5c")
+    rdb_row["small_grids"] = []
+    tiles = [t for nf, gc, t in rdb_conv.INSTANCES if (nf, gc) == (NF, GC)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = rdb_params(400)
+    for i, shape in enumerate(((1, 64, 64), (B, 32, 32))):
+        xb = gen(shape + (NF,), 410 + i).bfloat16()
+        kw = rdb5c_kernel_weights(p, torch.bfloat16, xb.device)
+        ref = rdb5c_reference(xb.float(), p)
+        tol = 2.0 * max_err(rdb5c_reference(xb, p), ref)
+        rule = rdb_conv.rdb5c_tile(NF, GC, *shape, sms)
+        before = rdb_conv.LAUNCHES_SMALL.count
+        picked = rdb5c_launch(xb, kw)
+        check(rdb_conv.LAUNCHES_SMALL.count - before == int(rule < tiles[0]),
+              f"rdb5c {shape}: the rule's tile {rule} on {sms} SMs, counted on rdb5c_small iff below {tiles[0]}")
+        first, plain_ms = None, cuda_ms(lambda: rdb5c_reference(xb, p))
+        flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * math.prod(shape)
+        b_ms, b_by = bound(flops, 2 * 2 * xb.numel() + sum(v.numel() * (2 if k[0] == "w" else 4) for k, v in p.items()))
+        for tile in tiles:
+            got = rdb_conv._launch(xb, kw, tile)
+            first = got if first is None else first
+            e = max_err(got, ref)
+            check(e <= tol and torch.equal(got, first) and (tile != rule or torch.equal(got, picked)),
+                  f"rdb5c_tc_kernel<{NF}, {GC}, {tile}> {shape}: max err {e:.3g} <= {tol:.3g}, bit for bit the "
+                  f"{tiles[0]} x {tiles[0]} tile's answer")
+            rdb_row["small_grids"].append({
+                "kernel": f"rdb5c_tc_kernel<{NF}, {GC}, {tile}>", "shape": f"x {shape + (NF,)} bf16",
+                "rule": tile == rule, "max_abs_err": e, "band": tol,
+                "ms": graph_ms(lambda t=tile: rdb_conv._launch(xb, kw, t)), "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by})
+    for r in rdb_row["small_grids"]:
+        print(f"  bf16 {r['kernel']:<28s} {r['shape']:<32s} kernel {r['ms']:.4f} ms (graphed){' [rule]' * r['rule']}, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%)", flush=True)
 
 
 CONV_COUNTERS = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values(),
@@ -2106,7 +2158,10 @@ def phase_train(tmp: Path) -> dict[str, dict]:
             px = B * (TRAIN_HR // SCALE) ** 2
             flops = 2 * 9 * (sum((NF + k * GC) * GC for k in range(4)) + (NF + 4 * GC) * NF) * px
             b_ms, b_by = bound(flops, 2 * px * NF * 2)
-            print(f"rdb5c at the train shape x (16,32,32,64) bf16 (64 tiles per launch): {per:.4f} ms per launch, "
+            tile = rdb_conv.rdb5c_tile(NF, GC, B, TRAIN_HR // SCALE, TRAIN_HR // SCALE,
+                                       torch.cuda.get_device_properties(0).multi_processor_count)
+            print(f"rdb5c at the train shape x ({B},{TRAIN_HR // SCALE},{TRAIN_HR // SCALE},{NF}) bf16 ({tile} x {tile} "
+                  f"tiles): {per:.4f} ms per launch, "
                   f"bound {b_ms:.4f} ms ({b_by}), {n // 2} launches per step", flush=True)
             launches["_rdb5c_train_ms"] = {"ms": per, "bound_ms": b_ms, "bound_by": b_by}
 

@@ -3,7 +3,7 @@ sites, at SRResNet's two 64 -> 256 upconvs and at 128 -> 128 in both modes,
 and the fused RDB kernel; in bf16, or with ``--f32`` the f32 route (the
 flagship's six sites, Cin 256 and the RDB as five f32 conv launches).
 
-    python -m esr_tpu_torch.ops.cuda.conv_bench [--f32 | --widths | --forward]
+    python -m esr_tpu_torch.ops.cuda.conv_bench [--f32 | --widths | --forward | --tiles]
 
 Each conv site (B16, as ``chip_smoke.py`` phase 3) runs through
 ``conv_launch``, the RDB (B16 x 128 x 128 x 64, nf 64, gc 32) through
@@ -16,7 +16,11 @@ library call and bound). ``--widths`` times the bf16 RDB at the other
 widths of ``WIDTHS`` on B16 x 128 x 128 x nf instead (5 launches a window,
 3 windows), ``--forward`` the CEM-wrapped flagship eval forward at B16 x LR
 128 (``make_eval_forward``, seed-0 weights; 2 calls a window, 5 windows)
-and one forward's launches.
+and one forward's launches. ``--tiles`` times each nf 64 / gc 32 tile of the
+bf16 RDB at the grids of ``TILE_SHAPES`` (20 launches captured in a CUDA
+graph, as the graphed forwards and Z steps run them, so that no host time
+between launches counts; median of 5 replays) beside the tile
+``rdb5c_tile`` picks.
 Needs an NVIDIA GPU.
 """
 
@@ -44,6 +48,10 @@ F32_SITES = SITES[:6] + (("cin256", 128, 256, 64, 3),)
 # (nf, gc) of the bf16 RDBs other than the flagship's 64 / 32: the JAX
 # package's kernel test's width, and one width of each other instance
 WIDTHS = ((16, 8), (32, 16), (128, 64))
+# (n, h, w) of the RDB at nf 64 / gc 32 for --tiles: the editor's Z step crop
+# and render, serving's B2 x LR 64, the GAN step's G forward, B4 x 64^2 and the
+# eval batch
+TILE_SHAPES = ((1, 64, 64), (1, 128, 128), (2, 64, 64), (16, 32, 32), (4, 64, 64), (16, 128, 128))
 
 
 def launch_ms(fn, reps: int = 20, windows: int = 5) -> float:
@@ -60,6 +68,53 @@ def launch_ms(fn, reps: int = 20, windows: int = 5) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, windows: int = 5) -> float:
+    """ms per call of ``fn``, ``reps`` calls captured in one CUDA graph,
+    median of ``windows`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
+
+
+def bench_tiles(g: torch.Generator) -> list[str]:
+    """ms a launch of each nf 64 / gc 32 tile at each grid, and the rule's tile."""
+    from esr_tpu_torch.ops.cuda import rdb_conv
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = rdb5c_kernel_weights(rdb_params(64, 32, g), torch.bfloat16, torch.device("cuda"))
+    tiles = [t for nf, gc, t in rdb_conv.INSTANCES if (nf, gc) == (64, 32)]
+    out = []
+    for shape in TILE_SHAPES:
+        x = torch.randn(*shape, 64, device="cuda", generator=g).bfloat16()
+        first = rdb_conv._launch(x, kw, tiles[0])
+        ms = []
+        for t in tiles:  # each tile's time, and how far its answer is from the largest tile's
+            off = (rdb_conv._launch(x, kw, t).float() - first.float()).abs().max().item()
+            ms.append(f"t{t} {graph_ms(lambda t=t: rdb_conv._launch(x, kw, t)):.4f}")
+            if off:
+                ms.append(f"(off {off:.3g})")
+        out.append(f"rdb5c {'x'.join(map(str, shape))} {' '.join(ms)} rule t{rdb_conv.rdb5c_tile(64, 32, *shape, sms)}")
+    return out
 
 
 def rdb_params(nf: int, gc: int, g: torch.Generator) -> dict:
@@ -109,12 +164,13 @@ def main() -> None:
     what.add_argument("--f32", action="store_true", help="time the f32 route instead of the bf16 kernels")
     what.add_argument("--widths", action="store_true", help="time the bf16 RDB at the widths of WIDTHS")
     what.add_argument("--forward", action="store_true", help="time the flagship eval forward")
+    what.add_argument("--tiles", action="store_true", help="time each nf 64 / gc 32 RDB tile at small grids")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_bench: needs an NVIDIA GPU")
     g = torch.Generator("cuda").manual_seed(0)
-    if args.widths or args.forward:
-        out = bench_widths(g) if args.widths else bench_forward()
+    if args.widths or args.forward or args.tiles:
+        out = bench_widths(g) if args.widths else bench_forward() if args.forward else bench_tiles(g)
         print(f"BENCH {torch.cuda.get_device_name(0)} | " + " | ".join(out), flush=True)
         return
     dtype = torch.float32 if args.f32 else torch.bfloat16

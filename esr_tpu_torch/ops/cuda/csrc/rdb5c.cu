@@ -47,8 +47,8 @@ int launch(const void* x, void* out, const void* wimg, const void* const* b, int
 }  // namespace
 
 // X(nf, gc, tile) for each instance of the kernel (rdb_conv.py's INSTANCES
-// lists the same three).
-#define ESR_RDB_INSTANCES(X) X(32, 16, 16) X(64, 32, 16) X(128, 64, 8)
+// lists the same four; <64, 32, 8> is the small-grid tile of nf 64 / gc 32).
+#define ESR_RDB_INSTANCES(X) X(32, 16, 16) X(64, 32, 16) X(64, 32, 8) X(128, 64, 8)
 
 extern "C" {
 
@@ -87,7 +87,8 @@ size_t esr_rdb5c_weight_image_bytes(int nf, int gc, int tile) {
 
 const char* esr_error_string(int err) {
   if (err == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda.so.1";
-  if (err == kErrShape) return "no rdb5c_tc_kernel instance of these nf, gc and tile (32/16/16, 64/32/16, 128/64/8)";
+  if (err == kErrShape)
+    return "no rdb5c_tc_kernel instance of these nf, gc and tile (32/16/16, 64/32/16, 64/32/8, 128/64/8)";
   if (err <= kErrEncodeBase) return "cuTensorMapEncodeTiled refused the input's tensor map";
   return cudaGetErrorString((cudaError_t)err);
 }

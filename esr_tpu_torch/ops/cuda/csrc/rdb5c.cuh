@@ -63,6 +63,14 @@
 //  - <128, 64, 8>, nf <= 128 and gc <= 64: 168 KB + 48 KB (16 KB stages, the
 //    size of one conv-5 k-block). A 16 x 16 tile's windows would take 392 KB;
 //    at 8 x 8 the halo is 3.4x the tile's own work.
+// And one instance for small grids, <64, 32, 8> (86 KB of windows + 24 KB of
+// ring). A launch runs at most one block a SM, so a grid of fewer 16 x 16
+// tiles than SMs (B1 x 64^2: 16 tiles for 132 SMs) takes a whole tile's time
+// (~116k clocks) on a few SMs; four times as many 8 x 8 tiles take ~70k each,
+// as their convs hold 1-2 M-tiles a warpgroup, where the 16 x 16 tile's hold
+// 2-5 (it reads the same weights and shared memory per M-tile). rdb_conv.py
+// picks the tile per launch from the grid and the SM count; both read the same
+// weight image.
 #pragma once
 
 #include "common.cuh"
@@ -109,7 +117,7 @@ __device__ __forceinline__ int rdb_chunk(int p, int q) {
 // bytes [kStage t, kStage (t + 1)) and goes to ring slot t % 3. A 16-deep
 // k-step never straddles a source feature (NF and GC are multiples of 16) and
 // a k-block never straddles a stage. At <64, 32, 16> no padding is needed:
-// 59 stages of 8 KB.
+// 59 stages of 8 KB. The image does not depend on TILE.
 // ---------------------------------------------------------------------------
 
 template <int NF, int GC, int TILE>
@@ -145,6 +153,12 @@ struct Rdb {
   // Conv k's output edge (k < 5: x_k's window; 5: the tile) and 64-pixel M-tiles.
   __host__ __device__ static constexpr int out_edge(int k) { return k < 5 ? edge(k) : TILE; }
   __host__ __device__ static constexpr int mtiles(int k) { return (out_edge(k) * out_edge(k) + 63) / 64; }
+  // The fewest M-tiles a warpgroup holds of a conv it does not split by cout:
+  // at <64, 32, 8> two (convs 3 and 4 have 3 and 2, so one is all padding
+  // rows), as ptxas serialises the wgmmas of a warpgroup with one M-tile at N
+  // = 32 (C7513), which costs more than the padding (on an H100: 46 against
+  // 42 us a tile).
+  static constexpr int kMinMT = NF == 64 && TILE == 8 ? 2 : 1;
 
   static constexpr uint32_t kWBytes = wbase(6);
   static constexpr int kStages = kWBytes / kStage;
@@ -190,7 +204,7 @@ __device__ __forceinline__ void rdb_release(uint64_t* empty, int stage) {
 // kRdbGroups) at all cout_K channels, or (SPLIT) M-tile 0 at channels
 // [g N, (g + 1) N) of cout_K = G N. The implicit GEMM, then its epilogue (K <
 // 5: bias, lrelu, zero outside the image, bf16 into x_K's window; K = 5: x +
-// 0.2 (acc + b5) to global).
+// 0.2 (acc + b5) to global, at the warpgroup's channels from n0).
 template <class R, int K, int MT, bool SPLIT>
 __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* sm, RdbRing& ring,
                                             int g, int n, int y0, int x0) {
@@ -318,7 +332,8 @@ __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* s
                                                   2 * (lane & 3));
 #pragma unroll
         for (int jn = 0; jn < N / 8; ++jn) {
-          const uint32_t xv = *reinterpret_cast<const uint32_t*>(xrow + ((jn ^ rdb_key<R::kXC>(xw)) << 4));
+          const uint32_t xv =
+              *reinterpret_cast<const uint32_t*>(xrow + ((((n0 % 64) / 8 + jn) ^ rdb_key<R::kXC>(xw)) << 4));
           const float v0 = __uint_as_float(xv << 16) + 0.2f * (acc[i][4 * jn + 2 * hf] + bv[jn][0]);
           const float v1 =
               __uint_as_float(xv & 0xffff0000u) + 0.2f * (acc[i][4 * jn + 2 * hf + 1] + bv[jn][1]);
@@ -330,8 +345,8 @@ __device__ __forceinline__ void rdb_tc_conv(const RdbTcArgs& a, unsigned char* s
 }
 
 // Conv K for warpgroup g: M-tiles g, g + G, .. (the first M-tiles % G groups
-// take one more), or, for a conv of fewer M-tiles than groups, its one M-tile
-// at the group's share of cout.
+// take one more; at least kMinMT), or, for a conv of fewer M-tiles than
+// groups, its one M-tile at the group's share of cout.
 template <class R, int K>
 __device__ __forceinline__ void rdb_tc_conv_group(const RdbTcArgs& a, unsigned char* sm, RdbRing& ring,
                                                   int g, int n, int y0, int x0) {
@@ -340,9 +355,9 @@ __device__ __forceinline__ void rdb_tc_conv_group(const RdbTcArgs& a, unsigned c
     static_assert(R::mtiles(K) == 1 && R::cout(K) % (8 * kRdbGroups) == 0, "one M-tile, split by cout");
     rdb_tc_conv<R, K, 1, true>(a, sm, ring, g, n, y0, x0);
   } else if (REM > 0 && g < REM) {
-    rdb_tc_conv<R, K, LO + (REM > 0), false>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv<R, K, (LO + (REM > 0) > R::kMinMT ? LO + (REM > 0) : R::kMinMT), false>(a, sm, ring, g, n, y0, x0);
   } else {
-    rdb_tc_conv<R, K, LO, false>(a, sm, ring, g, n, y0, x0);
+    rdb_tc_conv<R, K, (LO > R::kMinMT ? LO : R::kMinMT), false>(a, sm, ring, g, n, y0, x0);
   }
   named_barrier(1, kRdbConsumers);  // x_K is complete before conv K + 1 reads it
 }

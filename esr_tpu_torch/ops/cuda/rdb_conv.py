@@ -5,30 +5,34 @@ Port of ``esr_tpu/ops/pallas/rdb_conv.py``: ``fused_rdb5c`` and
 ``fused_rdb5c_tiled`` keep their signatures and reach the kernels by dtype.
 bf16 runs the tensor-core kernel of ``csrc/rdb5c.cuh``, one launch a block,
 in one of its instances (:data:`INSTANCES`: nf / gc / tile 32 / 16 / 16, 64
-/ 32 / 16, the main path, and 128 / 64 / 8). A width runs on the narrowest
-instance that holds it, zero-padded to it: zero weights and bias in the
-padded channels give x_k = lrelu(0) = 0 there, the later convs read them
-through zero weights, and x is padded with zero channels and the output cut
-back, so the function is the same. A bf16 RDB wider than nf 128 or gc 64
+/ 32 / 16, the main path, 64 / 32 / 8 and 128 / 64 / 8). A width runs on the
+narrowest instance that holds it, zero-padded to it: zero weights and bias
+in the padded channels give x_k = lrelu(0) = 0 there, the later convs read
+them through zero weights, and x is padded with zero channels and the output
+cut back, so the function is the same. A bf16 RDB wider than nf 128 or gc 64
 raises ``ValueError`` on the card. f32 runs the block as five launches of
 the f32 conv kernel (``csrc/conv_f32.cuh``, :func:`_rdb5c_f32`), at any
-width: conv k reads x and x_1..x_{k-1} from two sources, so the dense
-concat is never built, and writes x_k into its channels of one scratch
-tensor; conv 5 adds the residual. Each dtype counts one launch a block
-under its own name (:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`). The ``strip``
-x ``wtile`` tile is a schedule hint, as on the TPU, since tiling changes no
-output pixel: each kernel runs its own tiles whatever is asked. The kernels
-read their weights in their own layout (:func:`rdb5c_kernel_weights`;
-bf16: :func:`rdb5c_weight_image` of the padded weights; f32:
-:class:`Rdb5cF32Weights`): the wrappers build it per call, a module can
-build it once and call :func:`rdb5c_launch`. Tensors are NHWC and weights
-HWIO, as in the JAX package. A CPU tensor takes :func:`rdb5c_reference`, at
-any width; a CUDA tensor launches a kernel or raises. The kernels are
-forward-only, like the Pallas one.
+width: conv k reads x and x_1..x_{k-1} from two sources, so the dense concat
+is never built, and writes x_k into its channels of one scratch tensor; conv
+5 adds the residual. Each dtype counts one launch a block under its own name
+(:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`). At nf 64 / gc 32 each launch
+takes the tile of least modelled time for its grid and the card's SMs
+(:func:`rdb5c_tile`): 16 x 16, or 8 x 8 where 16 x 16 tiles would leave most
+SMs idle (B1-2 x 64^2; :data:`LAUNCHES_SMALL` counts those); both read one
+weight image. The ``strip`` x ``wtile`` tile is a schedule hint, as on the
+TPU, since tiling changes no output pixel: the kernels choose their own. The
+kernels read their weights in their own layout
+(:func:`rdb5c_kernel_weights`; bf16: :func:`rdb5c_weight_image` of the
+padded weights; f32: :class:`Rdb5cF32Weights`): the wrappers build it per
+call, a module can build it once and call :func:`rdb5c_launch`. Tensors are
+NHWC and weights HWIO, as in the JAX package. A CPU tensor takes
+:func:`rdb5c_reference`, at any width; a CUDA tensor launches a kernel or
+raises. The kernels are forward-only, like the Pallas one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -41,7 +45,9 @@ __all__ = [
     "INSTANCES",
     "LAUNCHES",
     "LAUNCHES_SIMT",
+    "LAUNCHES_SMALL",
     "LAYOUTS",
+    "TILE_US",
     "Rdb5cF32Weights",
     "Rdb5cKernelWeights",
     "fused_rdb5c",
@@ -51,20 +57,29 @@ __all__ = [
     "rdb5c_launch",
     "rdb5c_params_from_module",
     "rdb5c_reference",
+    "rdb5c_tile",
     "rdb5c_weight_image",
 ]
 
-# launches, one a block: the bf16 tensor-core kernel (every instance) and the
+# launches, one a block: the bf16 tensor-core kernel (every instance), those
+# of them at a smaller tile than their width's largest (rdb5c_tile), and the
 # f32 route (five f32 conv launches a block, on the FP32 units); and the
 # weight layouts built
 LAUNCHES = lib.LaunchCounter("rdb5c")
+LAUNCHES_SMALL = lib.LaunchCounter("rdb5c_small")
 LAUNCHES_SIMT = {"f32": lib.LaunchCounter("rdb5c_simt_f32")}
 LAYOUTS = lib.LaunchCounter("rdb5c_kernel_weights")
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# the bf16 kernel's instances (nf, gc, tile), narrowest first, as csrc/rdb5c.cu
-# lists them
-INSTANCES = ((32, 16, 16), (64, 32, 16), (128, 64, 8))
+# the bf16 kernel's instances (nf, gc, tile), narrowest first and, at one
+# width, the largest tile first, as csrc/rdb5c.cu lists them
+INSTANCES = ((32, 16, 16), (64, 32, 16), (64, 32, 8), (128, 64, 8))
+# us a launch of one wave, one tile a block, of the instances that share a
+# width (B1 x 64^2: 16 and 64 tiles; ``conv_bench --tiles``, 20 launches in a
+# CUDA graph, on an H100 80GB HBM3 at 700 W): the model rdb5c_tile minimises.
+# Two waves of 8 x 8 tiles (B1 x 128^2) measured 81-83 us against 67 for one of
+# 16 x 16, as the model has it
+TILE_US = {(64, 32, 16): 66.3, (64, 32, 8): 41.9}
 
 
 def rdb5c_reference(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -118,7 +133,9 @@ class Rdb5cKernelWeights(NamedTuple):
     bs: tuple[torch.Tensor, ...]  # f32 biases, zero-padded like the weights
     nf: int
     gc: int
-    instance: tuple[int, int, int]  # (nf, gc, tile) of the kernel instance that runs it
+    # (nf, gc, tile): the instance widths it is padded to and their largest
+    # tile; a launch runs the tile rdb5c_tile picks at those widths
+    instance: tuple[int, int, int]
 
 
 class Rdb5cF32Weights(NamedTuple):
@@ -133,12 +150,30 @@ class Rdb5cF32Weights(NamedTuple):
 
 def rdb5c_instance(nf: int, gc: int) -> tuple[int, int, int]:
     """The narrowest bf16 kernel instance (nf, gc, tile) that holds an RDB
-    of these widths; ``ValueError`` past the widest."""
+    of these widths, at its largest tile; ``ValueError`` past the widest."""
     for inst in INSTANCES:
         if nf <= inst[0] and gc <= inst[1]:
             return inst
     raise ValueError(f"fused_rdb5c: the bf16 kernel takes nf up to {INSTANCES[-1][0]} and gc up to "
                      f"{INSTANCES[-1][1]}, got nf={nf}, gc={gc} (f32 and the CPU take any width)")
+
+
+def rdb5c_tile(nf: int, gc: int, n: int, h: int, w: int, sms: int) -> int:
+    """The output tile of a bf16 launch at instance widths (nf, gc) on an
+    (n, h, w) input with ``sms`` SMs: of the instances at those widths, the
+    one of least modelled time, waves x :data:`TILE_US`, where a wave is
+    ``sms`` tiles (the launch is persistent, and every instance runs one
+    block a SM: its 384 threads hold the SM's registers). Ties go to the
+    larger tile, listed first."""
+    tiles = [t for f, g, t in INSTANCES if (f, g) == (nf, gc)]
+    if len(tiles) == 1:
+        return tiles[0]
+    return min(tiles, key=lambda t: -(-n * -(-h // t) * -(-w // t) // sms) * TILE_US[(nf, gc, t)])
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rdb5c_weight_image(params: dict) -> torch.Tensor:
@@ -233,10 +268,17 @@ def rdb5c_launch(
         out = _rdb5c_f32(x.contiguous(), kw, kpack_conv.conv_f32_launch)
         LAUNCHES_SIMT["f32"].count += 1
         return out
+    nf, gc, _ = kw.instance
+    n, h, w, _ = x.shape
+    return _launch(x, kw, rdb5c_tile(nf, gc, n, h, w, _sm_count(x.device.index)))
+
+
+def _launch(x: torch.Tensor, kw: Rdb5cKernelWeights, tile: int) -> torch.Tensor:
+    """The bf16 kernel at its instance (kw's widths, ``tile``) on ``x``."""
     so = lib.load("rdb5c")
-    nf, gc, tile = kw.instance
+    nf, gc, _ = kw.instance
     if kw.image.numel() * 2 != so.esr_rdb5c_weight_image_bytes(nf, gc, tile):
-        raise ValueError(f"fused_rdb5c: the weight image does not have instance {kw.instance}'s size")
+        raise ValueError(f"fused_rdb5c: the weight image does not have instance {(nf, gc, tile)}'s size")
     if nf != kw.nf:
         x = F.pad(x, (0, nf - kw.nf))
     x = lib.aligned16(x)
@@ -246,6 +288,7 @@ def rdb5c_launch(
                        n, h, w, nf, gc, tile, lib.stream(x))
     lib.check(so, err, "rdb5c launch")
     LAUNCHES.count += 1
+    LAUNCHES_SMALL.count += tile != kw.instance[2]
     return out if nf == kw.nf else out[..., : kw.nf].contiguous()
 
 

@@ -174,7 +174,7 @@ def test_cuda_rdb5c_bf16_any_tile_within_band(cuda):
     """The bf16 tensor-core kernel through both wrappers within twice the bf16
     plain version's error against the f32 plain version on the same bf16
     inputs; another tile is a hint: the tensor-core route runs it (one launch
-    counted there) and gives the 16 x 16 answer bit for bit."""
+    counted there) and gives the answer of its own tile bit for bit."""
     p = _rdb_params(64, 32, cuda)
     x = torch.randn(2, 21, 37, 64, device=cuda).bfloat16()
     ref = rdb_conv.rdb5c_reference(x.float(), p)
@@ -213,6 +213,44 @@ def test_cuda_rdb5c_tc_prepared_within_band(cuda, shape):
     err = (got.float() - ref).abs().max().item()
     assert err <= 2 * plain_err, (err, plain_err)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 64, 64), (1, 37, 53), (2, 64, 64), (16, 32, 32)],
+                         ids=["b1-64", "b1-ragged", "b2-64", "b16-32"])
+def test_cuda_rdb5c_small_grid_runs_the_small_tile(cuda, shape):
+    """rdb5c_launch runs the tile rdb5c_tile picks for the grid: one launch
+    counted on ``rdb5c``, and one on ``rdb5c_small`` when that is 8 x 8
+    (B1-2 x 64^2; at B16 x 32^2 two waves of 8 x 8 tiles lose to one of 16
+    x 16). rdb5c_tc_kernel<64, 32, 8>'s answer is the 16 x 16 tile's bit for
+    bit (each output pixel sums the same k-steps in the same order in f32 and
+    rounds the same x_1..x_4 to bf16; only the halo recompute differs),
+    within the bf16 band of the f32 plain version. B16 x 128^2 runs 16 x 16
+    and counts nothing on ``rdb5c_small``."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    p = _rdb_params(64, 32, cuda, seed=sum(shape))
+    x = torch.randn(*shape, 64, device=cuda, generator=g).bfloat16()
+    kw = rdb_conv.rdb5c_kernel_weights(p, torch.bfloat16, cuda)
+    tile = rdb_conv.rdb5c_tile(64, 32, *shape, sms)
+    assert tile == (16 if shape[0] == 16 else 8)
+    before = (rdb_conv.LAUNCHES.count, rdb_conv.LAUNCHES_SMALL.count)
+    with torch.no_grad():
+        got = rdb_conv.rdb5c_launch(x, kw)
+        torch.cuda.synchronize()
+        assert (rdb_conv.LAUNCHES.count - before[0], rdb_conv.LAUNCHES_SMALL.count - before[1]) == (1, int(tile == 8))
+        small, large = rdb_conv._launch(x, kw, 8), rdb_conv._launch(x, kw, 16)
+    assert torch.equal(small, large) and torch.equal(got, small)
+    ref = rdb_conv.rdb5c_reference(x.float(), p)
+    plain_err = (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
+    err = (small.float() - ref).abs().max().item()
+    assert err <= 2 * plain_err, (err, plain_err)
+    big = torch.randn(16, 128, 128, 64, device=cuda, generator=g).bfloat16()
+    before = (rdb_conv.LAUNCHES.count, rdb_conv.LAUNCHES_SMALL.count)
+    with torch.no_grad():
+        rdb_conv.rdb5c_launch(big, kw)
+    torch.cuda.synchronize()
+    assert (rdb_conv.LAUNCHES.count - before[0], rdb_conv.LAUNCHES_SMALL.count - before[1]) == (1, 0)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,7 @@ The kernel, ``rdb5c_tc_kernel<NF, GC, TILE>``, runs only on the card
 (tests/test_torch_cuda.py, chip_smoke.py). What surrounds it is index
 arithmetic, mirrored here in Python from the CUDA source and checked without
 a GPU, for each of its instances (``rdb_conv.INSTANCES``: 32 / 16 / 16, 64 /
-32 / 16, 128 / 64 / 8):
+32 / 16, 64 / 32 / 8, 128 / 64 / 8):
 
 - the weight image that ``rdb5c_weight_image`` builds decodes back to every
   HWIO ``w1..w5`` slice through the kernel's wgmma descriptor addressing
@@ -12,12 +12,13 @@ a GPU, for each of its instances (``rdb_conv.INSTANCES``: 32 / 16 / 16, 64 /
 - the producer's stage schedule (59 stages of 8 KB at 64 / 32, in order) is
   the one the consumers' k-steps read, each (conv, source, tap) once, each
   k-block inside one ring slot, each stage released once after its last
-  read;
+  read; 64 / 32 / 16 and 64 / 32 / 8 read one weight image;
 - the M-tiles of the consumer warpgroups (or, for a conv of one M-tile, the
   warpgroups' shares of its cout) cover every (pixel, channel) of each
   shrinking window exactly once, in the A rows and in the accumulators;
 - a bf16 width takes the narrowest instance that holds it, zero-padded to
-  it, and a width past the widest raises;
+  it, and a width past the widest raises; at nf 64 / gc 32 a launch runs the
+  tile ``rdb_conv.rdb5c_tile`` picks from its grid and the SM count;
 - an f32 emulation of the kernel's persistent tile walk (TMA window with zero
   fill and the TMA's swizzle, weight ring, one GEMM per k-step with A by the
   swizzled ldmatrix rows, image-edge re-zeroing, residual) equals
@@ -42,6 +43,7 @@ torch.set_num_threads(1)
 ATOL = 1e-5
 PALLAS_ATOL = 2e-4
 MAIN = (64, 32, 16)
+SMALL = (64, 32, 8)  # the small-grid tile of the main widths
 SLOTS = 3  # kRdbSlots
 GROUPS = 2  # kRdbGroups: consumer warpgroups
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use
@@ -59,6 +61,7 @@ class Inst:
 
     def __init__(self, nf, gc, tile):
         self.nf, self.gc, self.tile, self.win = nf, gc, tile, tile + 10
+        self.min_mt = 2 if (nf, tile) == (64, 8) else 1  # kMinMT: M-tiles a warpgroup holds at least
         self.stage = max(8192, 128 * nf)
         self.plane = _align(self.win**2 * 128, 1024) if nf > 64 else self.win**2 * nf * 2
         self.w_bytes = self.wbase(6)
@@ -125,16 +128,18 @@ class Inst:
     def group_work(self, k, g):
         """Warpgroup g's share of conv k: [(M-tile, first channel, channels)].
         M-tiles g, g + GROUPS, .. (the first M-tiles % GROUPS groups take one
-        more) at every channel; a conv of fewer M-tiles than groups: its one
-        M-tile at the group's slice of cout."""
+        more; at least min_mt, past the last M-tile all padding) at every
+        channel; a conv of fewer M-tiles than groups: its one M-tile at the
+        group's slice of cout."""
         if self.mtiles(k) < GROUPS:
             n = self.cout(k) // GROUPS
             return [(0, g * n, n)]
         lo, rem = divmod(self.mtiles(k), GROUPS)
-        return [(GROUPS * i + g, 0, self.cout(k)) for i in range(lo + (g < rem))]
+        return [(GROUPS * i + g, 0, self.cout(k)) for i in range(max(lo + (g < rem), self.min_mt))]
 
 
 INSTS = [Inst(*i) for i in rdb_conv.INSTANCES]
+OTHERS = [i for i in INSTS if (i.nf, i.gc, i.tile) != MAIN]
 
 
 def _swz(p, q, ch):
@@ -187,7 +192,7 @@ def test_weight_image_decodes_to_hwio():
     _check_weight_image(Inst(*MAIN))
 
 
-@pytest.mark.parametrize("inst", INSTS[::2], ids=repr)
+@pytest.mark.parametrize("inst", OTHERS, ids=repr)
 def test_weight_image_decodes_to_hwio_at_other_instances(inst):
     _check_weight_image(inst)
 
@@ -218,7 +223,9 @@ def _check_weight_image(inst):
     assert not img[~read].any()  # only padding is never read, and it is zero
     assert read.sum().item() == sum(9 * inst.cin(k) * inst.cout(k) for k in range(1, 6))
     bf = rdb_conv.rdb5c_kernel_weights(p, torch.bfloat16, torch.device("cpu"))
-    assert bf.instance == (inst.nf, inst.gc, inst.tile) and bf.image.dtype == torch.bfloat16
+    # the instance's widths at their largest tile (64 / 32 / 8 reads 64 / 32 / 16's image)
+    assert bf.instance == (inst.nf, inst.gc, max(t for f, g, t in rdb_conv.INSTANCES if (f, g) == (inst.nf, inst.gc)))
+    assert bf.image.dtype == torch.bfloat16
     assert torch.equal(bf.image.float(), rdb_conv.rdb5c_weight_image(
         {k: v.bfloat16().float() for k, v in p.items()}))
 
@@ -227,7 +234,7 @@ def test_stage_schedule_producer_equals_consumers():
     _check_stage_schedule(Inst(*MAIN))
 
 
-@pytest.mark.parametrize("inst", INSTS[::2], ids=repr)
+@pytest.mark.parametrize("inst", OTHERS, ids=repr)
 def test_stage_schedule_producer_equals_consumers_at_other_instances(inst):
     _check_stage_schedule(inst)
 
@@ -277,7 +284,8 @@ def test_mtiles_cover_each_pixel_once(inst, k):
     """The consumer warpgroups' work: the A rows (warp w, lane l: row 16 w +
     l % 16) and the accumulators (rows 16 w + l / 4 + 8 hf, channels n0 + 8
     jn + 2 (l % 4) + e) cover every (pixel, channel) of conv k's output
-    region once. Each warpgroup has work; M-tiles differ by at most one."""
+    region once. Each warpgroup has work, at least ``min_mt`` M-tiles when
+    it does not split cout; M-tiles differ by at most one."""
     npx, n = inst.out_edge(k) ** 2, inst.cout(k)
     cells = []
     for g in range(GROUPS):
@@ -293,6 +301,7 @@ def test_mtiles_cover_each_pixel_once(inst, k):
                         p = mi * 64 + 16 * w4 + lane // 4 + 8 * hf
                         cells += [(p, n0 + 8 * jn + 2 * (lane % 4) + e) for jn in range(ncols // 8) for e in range(2)]
         assert len(set(rows)) == len(rows)
+        assert len(work) >= inst.min_mt or work[0][2] < n  # at least min_mt M-tiles, or a share of cout
     live = sorted(c for c in cells if c[0] < npx)
     assert live == [(p, c) for p in range(npx) for c in range(n)]
     counts = [len(inst.group_work(k, g)) for g in range(GROUPS)]
@@ -355,6 +364,80 @@ def test_bf16_width_past_the_widest_instance_raises(nf, gc):
     assert isinstance(rdb_conv.rdb5c_kernel_weights(p, torch.float32, torch.device("cpu")), rdb_conv.Rdb5cF32Weights)
 
 
+# -- the tile of a launch -------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def test_one_weight_image_serves_both_tiles():
+    """64 / 32 / 16 and 64 / 32 / 8 address the image alike (stage size,
+    k-block offsets, stages, bytes), so the one image a generator builds per
+    RDB runs on either tile."""
+    main, small = Inst(*MAIN), Inst(*SMALL)
+    assert (main.stage, main.w_bytes, main.n_stages) == (small.stage, small.w_bytes, small.n_stages)
+    for k in range(1, 6):
+        assert list(main.k_steps(k)) == list(small.k_steps(k))
+    assert small.feat_off(5) - small.feat_off(0) == 86016  # the small tile's windows
+
+
+# (n, h, w) of a launch at nf 64 / gc 32 on the H100's 132 SMs, and the tile
+# the rule gives it
+TILE_CASES = [((16, 128, 128), 16, "eval-b16-lr128"), ((1, 64, 64), 8, "click-z-step-b1-64"),
+              ((16, 32, 32), 16, "train-g-b16-32"), ((1, 128, 128), 16, "click-render-b1-128"),
+              ((2, 64, 64), 8, "serve-b2-64-last-small"), ((3, 64, 64), 16, "b3-64-first-large"),
+              ((1, 37, 53), 8, "b1-ragged"), ((0, 64, 64), 16, "empty-tie")]
+
+
+@pytest.mark.parametrize("shape,tile", [c[:2] for c in TILE_CASES], ids=[c[2] for c in TILE_CASES])
+def test_tile_rule_by_shape(shape, tile):
+    """At the benchmark cells' shapes, serving's buckets and either side of
+    the batch where the choice flips: the tile of least modelled time
+    (waves of 132 tiles x the measured us a tile: one wave of 8 x 8 tiles
+    beats one of 16 x 16, two do not), 16 x 16 on a tie; the other widths
+    keep their one tile at any shape."""
+    assert rdb_conv.rdb5c_tile(64, 32, *shape, H100_SMS) == tile
+    assert rdb_conv.rdb5c_tile(32, 16, *shape, H100_SMS) == 16
+    assert rdb_conv.rdb5c_tile(128, 64, *shape, H100_SMS) == 8
+
+
+def test_tile_rule_ties_go_to_the_large_tile(monkeypatch):
+    """Equal modelled times keep 16 x 16: 32 tiles in one wave at 60 us
+    against 128 in two at 30."""
+    monkeypatch.setattr(rdb_conv, "TILE_US", {MAIN: 60.0, SMALL: 30.0})
+    assert rdb_conv.rdb5c_tile(64, 32, 2, 64, 64, 64) == 16
+    assert rdb_conv.rdb5c_tile(64, 32, 1, 64, 64, 64) == 8
+
+
+@pytest.mark.parametrize("nf,gc,shape,tile", [(64, 32, (1, 64, 64), 8), (64, 32, (16, 128, 128), 16),
+                                              (48, 24, (2, 37, 53), 8), (32, 16, (1, 64, 64), 16)],
+                         ids=["64-32-b1-64", "64-32-b16-128", "48-24-ragged", "32-16-b1-64"])
+def test_launch_runs_the_rules_tile_and_counts_it(monkeypatch, nf, gc, shape, tile):
+    """rdb5c_launch passes the kernel the rule's tile for the input's shape
+    and the card's SM count (a stand-in library records it), counts one
+    launch on ``rdb5c``, and one on ``rdb5c_small`` when the tile is smaller
+    than its widths' largest."""
+    calls = []
+
+    class Lib:
+        def esr_rdb5c_weight_image_bytes(self, nf_, gc_, tile_):
+            return Inst(nf_, gc_, tile_).w_bytes
+
+        def esr_rdb5c(self, *args):
+            calls.append(args[-4:-1])  # (nf, gc, tile)
+            return 0
+
+    monkeypatch.setattr(rdb_conv.lib, "load", lambda name: Lib())
+    monkeypatch.setattr(rdb_conv, "_require_cuda", lambda x: None)
+    monkeypatch.setattr(rdb_conv, "_sm_count", lambda index: H100_SMS)
+    kw = rdb_conv.rdb5c_kernel_weights(_width_params(nf, gc, 5), torch.bfloat16, torch.device("cpu"))
+    before = (rdb_conv.LAUNCHES.count, rdb_conv.LAUNCHES_SMALL.count)
+    out = rdb_conv.rdb5c_launch(torch.zeros(*shape, nf, dtype=torch.bfloat16), kw)
+    assert out.shape == (*shape, nf)
+    assert calls == [(*kw.instance[:2], tile)]
+    counted = (rdb_conv.LAUNCHES.count - before[0], rdb_conv.LAUNCHES_SMALL.count - before[1])
+    assert counted == (1, int(tile < kw.instance[2]))
+
+
 # -- the kernel's work, emulated ---------------------------------------------------
 
 
@@ -411,22 +494,30 @@ def _conv(inst, smem, ring, img, k):
 
 
 def _epilogue(inst, smem, out, rows, cols, acc, bias, k, n, y0, x0, rezero=True):
+    """One column slice's epilogue, addressed as the kernel addresses it from
+    the slice's first channel n0 (jn: the 8-channel group in the slice):
+    x_k's chunk jn (convs 1-4 are never split by cout); x's plane n0 / 64 and
+    its chunk n0 % 64 / 8 + jn."""
     _, h, w, _ = out.shape
     o = inst.out_edge(k)
     live = rows < o * o
     p, v = rows[live][:, None], acc[live] + bias[cols]
     col = cols[None, :]
+    n0 = int(cols[0])
+    jn, e = (col - n0) // 8, (col - n0) % 8
     r, c = p // o, p % o
     if k < 5:
         gy, gx = y0 - 5 + k + r, x0 - 5 + k + c
         v = torch.where(v >= 0, v, 0.2 * v)
         if rezero:  # SAME padding of the next conv: zero outside the image
             v = torch.where((gy >= 0) & (gy < h) & (gx >= 0) & (gx < w), v, 0.0)
-        smem[(inst.chunk_byte(k, p, col // 8) + (col % 8) * 2) // 2] = v
+        assert n0 == 0
+        smem[(inst.feat_off(k) + _swz(p, jn, inst.chunks(k)) * 16 + e * 2) // 2] = v
     else:
         gy, gx = y0 + r, x0 + c
         xw = (r + 5) * inst.win + c + 5
-        xv = smem[(inst.chunk_byte(0, xw, col // 8) + (col % 8) * 2) // 2]
+        plane = inst.feat_off(0) + (n0 // 64) * inst.plane
+        xv = smem[(plane + _swz(xw, n0 % 64 // 8 + jn, min(inst.chunks(0), 8)) * 16 + e * 2) // 2]
         keep = ((gy < h) & (gx < w))[:, 0]
         out[n, gy[keep], gx[keep], col] = (xv + 0.2 * v)[keep]
 
@@ -460,7 +551,9 @@ WALKS = [(MAIN, (2, 37, 53), 5, "ragged"), (MAIN, (1, 16, 40), 2, "b1"), (MAIN, 
          ((32, 16, 16), (2, 21, 35), 3, "32-16-16-ragged"), ((32, 16, 16), (1, 16, 40), 2, "32-16-16-b1"),
          ((32, 16, 16), (1, 5, 7), 1, "32-16-16-smaller-than-a-tile"),
          ((128, 64, 8), (2, 11, 13), 3, "128-64-8-ragged"), ((128, 64, 8), (1, 8, 20), 2, "128-64-8-b1"),
-         ((128, 64, 8), (1, 5, 7), 1, "128-64-8-smaller-than-a-tile")]
+         ((128, 64, 8), (1, 5, 7), 1, "128-64-8-smaller-than-a-tile"),
+         (SMALL, (2, 13, 19), 5, "64-32-8-ragged"), (SMALL, (1, 24, 24), 4, "64-32-8-b1-whole-tiles"),
+         (SMALL, (1, 5, 7), 1, "64-32-8-smaller-than-a-tile")]
 
 
 @pytest.mark.parametrize("inst,shape,grid", [w[:3] for w in WALKS], ids=[w[3] for w in WALKS])
@@ -477,7 +570,7 @@ def test_emulation_sees_the_image_edge_rezeroing():
     _check_rezeroing(Inst(*MAIN))
 
 
-@pytest.mark.parametrize("inst", INSTS[::2], ids=repr)
+@pytest.mark.parametrize("inst", OTHERS, ids=repr)
 def test_emulation_sees_the_image_edge_rezeroing_at_other_instances(inst):
     _check_rezeroing(inst)
 

@@ -1,6 +1,6 @@
 """Build variants of the port's CUDA kernels and time them in turns on one GPU.
 
-    python tools/kernel_variants.py SPEC.json ORDER [--test-k EXPR] [--kernel NAME] [--f32] [--profile]
+    python tools/kernel_variants.py SPEC.json ORDER [--test-k EXPR] [--kernel NAME] [--f32 | --tiles] [--profile]
 
 SPEC.json maps a variant name to a list of ``[file, old, new]`` text
 replacements in the package (``old`` must occur exactly once; the specs of
@@ -15,12 +15,13 @@ temporary directory; they are built two at a time (nvcc, one per source), then:
   ``rdb5c``); ``x_`` variants are timing probes that compute wrong results
   on purpose, and are not tested;
 - ``python -m esr_tpu_torch.ops.cuda.conv_bench`` (with ``--f32``: its f32
-  route) runs in each directory in ORDER (comma-separated names, e.g.
-  ``a,b,b,a``), so that versions are compared inside one process tree on one
-  card;
+  route; ``--tiles``: the RDB's tiles at small grids) runs in each directory
+  in ORDER (comma-separated names, e.g. ``a,b,b,a``), so that versions are
+  compared inside one process tree on one card;
 - with ``--profile``, variants whose source defines ``esr_rdb5c_prof`` (see
   ``tools/rdb5c_variants/profile.json``) print the median clock cycles of
-  each conv's MMA loop, epilogue and barrier in a tile, per warpgroup.
+  each conv's MMA loop, epilogue and barrier in a tile, per warpgroup, at
+  each ``NxHxW:TILE`` of ``--profile-at`` (nf 64 / gc 32).
 
 Needs an NVIDIA GPU with nvcc.
 """
@@ -41,28 +42,33 @@ BUILDS_AT_ONCE = 2
 PROFILE = """
 import ctypes, sys
 import numpy as np, torch
-from esr_tpu_torch.ops.cuda import lib
-from esr_tpu_torch.ops.cuda.rdb_conv import rdb5c_kernel_weights, rdb5c_launch
+from esr_tpu_torch.ops.cuda import lib, rdb_conv
+from esr_tpu_torch.ops.cuda.rdb_conv import rdb5c_kernel_weights
 g = torch.Generator("cuda").manual_seed(0)
-x = torch.randn(16, 128, 128, 64, device="cuda", generator=g).bfloat16()
 p = {}
 for k in range(1, 6):
     cin, cout = 64 + 32 * (k - 1), 64 if k == 5 else 32
     p[f"w{k}"] = torch.randn(3, 3, cin, cout, device="cuda", generator=g) * (2.0 / (9 * cin)) ** 0.5
     p[f"b{k}"] = torch.zeros(cout, device="cuda")
-kw = rdb5c_kernel_weights(p, torch.bfloat16, x.device)
-for _ in range(5):
-    rdb5c_launch(x, kw)
-torch.cuda.synchronize()
+kw = rdb5c_kernel_weights(p, torch.bfloat16, torch.device("cuda"))
 so = ctypes.CDLL(str(lib._lib_path("rdb5c")))
 so.esr_rdb5c_prof.argtypes = [ctypes.c_void_p]
-buf = np.zeros((132, 2, 16), dtype=np.int64)
-assert so.esr_rdb5c_prof(buf.ctypes.data) == 0
-med = np.median(buf - buf[:, :, :1], axis=0)
 names = [f"c{k} {w}" for k in range(1, 6) for w in ("mma", "epilogue", "barrier")]
-for grp in range(2):
-    steps = [f"{n} {med[grp, i + 1] - med[grp, i]:.0f}" for i, n in enumerate(names)]
-    print(f"PROFILE group {grp}: tile {med[grp, 15]:.0f} clk | " + " | ".join(steps), flush=True)
+for case in sys.argv[1:]:  # NxHxW:TILE
+    shape, tile = case.split(":")
+    n, h, w = map(int, shape.split("x"))
+    tile = int(tile)
+    x = torch.randn(n, h, w, 64, device="cuda", generator=g).bfloat16()
+    for _ in range(5):
+        rdb_conv._launch(x, kw, tile)
+    torch.cuda.synchronize()
+    buf = np.zeros((132, 2, 16), dtype=np.int64)
+    assert so.esr_rdb5c_prof(buf.ctypes.data) == 0
+    blocks = min(132, n * -(-h // tile) * -(-w // tile))
+    med = np.median(buf[:blocks] - buf[:blocks, :, :1], axis=0)
+    for grp in range(2):
+        steps = [f"{nm} {med[grp, i + 1] - med[grp, i]:.0f}" for i, nm in enumerate(names)]
+        print(f"PROFILE {case} group {grp}: tile {med[grp, 15]:.0f} clk | " + " | ".join(steps), flush=True)
 """
 
 
@@ -95,7 +101,9 @@ def main() -> None:
     ap.add_argument("--test-k", default="rdb5c")
     ap.add_argument("--kernel", default="rdb5c_tc_kernel", help="the kernel whose ptxas lines are printed")
     ap.add_argument("--f32", action="store_true", help="time conv_bench's f32 route")
+    ap.add_argument("--tiles", action="store_true", help="time conv_bench's RDB tiles at small grids")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile-at", default="16x128x128:16", help="comma-separated NxHxW:TILE to profile")
     args = ap.parse_args()
     spec = json.loads(Path(args.spec).read_text())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -131,13 +139,15 @@ def main() -> None:
         for n in args.order.split(","):
             if n not in dirs or not ok[n]:  # x_ variants: built; the others: tested
                 continue
-            r = subprocess.run([sys.executable, "-m", "esr_tpu_torch.ops.cuda.conv_bench"] + ["--f32"] * args.f32,
+            mode = ["--f32"] * args.f32 + ["--tiles"] * args.tiles
+            r = subprocess.run([sys.executable, "-m", "esr_tpu_torch.ops.cuda.conv_bench"] + mode,
                                cwd=dirs[n], capture_output=True, text=True, timeout=600)
             print(f"== bench {n}:", r.stdout.strip()[-1200:], r.stderr[-1500:] if r.returncode else "", flush=True)
         if args.profile:
             for n, d in dirs.items():
                 if ok[n] and "esr_rdb5c_prof" in (d / "esr_tpu_torch/ops/cuda/csrc/rdb5c.cu").read_text():
-                    r = subprocess.run([sys.executable, "-c", PROFILE], cwd=d, capture_output=True, text=True,
+                    r = subprocess.run([sys.executable, "-c", PROFILE, *args.profile_at.split(",")], cwd=d,
+                                       capture_output=True, text=True,
                                        timeout=600)
                     print(f"== profile {n}:", r.stdout.strip(), r.stderr[-1500:] if r.returncode else "", flush=True)
 
