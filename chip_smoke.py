@@ -7,7 +7,7 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: torch / CUDA versions, compute capability, card name and
    power limit; TF32 off for every f32 comparison;
 2. build the hand-written CUDA kernels (nvcc, sm_90a) from the checkout
-   (ptxas: no spills in the 4 ``rdb5c_tc_kernel`` instances, the 18
+   (ptxas: no spills in the 4 ``rdb5c_tc_kernel`` instances, the 20
    ``conv_tc_kernel`` and the 8 ``conv_f32_kernel`` instances, no wgmma
    serialization; the main RDB instance's ptxas line equal to the one it had
    before the other widths became instances);
@@ -193,6 +193,17 @@ Phases (any failure exits non-zero and prints no result):
    step, Z step, eval forward (but a trainer's validation) and KernelGAN
    iteration of the earlier phases is a graph replay too (the first of each
    shape captures it); phase 11's ranks run eagerly.
+14. SwinIR-M x4 (real, nearest+conv; 6 RSTBs of 6 Swin blocks, C 180, 6
+   heads, window 8) at the ``swinir_eval_div2k_b4`` cell's shape, B4 x LR
+   339 x 510 (padded 344 x 512), seeded with the benchmark's gains, through
+   ``define_G`` and ``make_eval_forward`` as a CUDA graph: one replay's
+   launches (36 ``window_attn`` / 11 conv3x3 / 2 parity, no RDB), its answer
+   against the f32 plain reference (``esr_bench/reference/swinir.py``, TF32
+   off) within the cell's limits; ``window_attn_kernel`` on qkv (4, 344,
+   512, 540) at shifts 0 and 4 and the Cin 129-192 ``conv_tc_kernel``
+   instances (180 -> 180, and 180 -> 64 with LeakyReLU 0.01) against their
+   plain versions, timed beside them and bounded from the inputs (the
+   ``window_attn`` and ``conv3x3_cin192`` rows of the kernels line).
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after; phase 11 in each rank). The last line is
@@ -241,7 +252,7 @@ from esr_tpu_torch.models.blocks import pixel_shuffle, upsample_nearest
 from esr_tpu_torch.models.srragan_model import make_gan_train_step
 from esr_tpu_torch.ops import tensor2img
 from esr_tpu_torch.ops.cuda import autograd as kernel_grads
-from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv
+from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv, window_attn
 from esr_tpu_torch.ops.cuda.kpack_conv import (
     conv3x3_reference,
     conv_kernel_weights,
@@ -538,7 +549,7 @@ def phase_build() -> None:
             tc = [i for i, ln in enumerate(report) if "Function properties" in ln and "conv_tc_kernel" in ln]
             spilled = [report[i + 1].strip() for i in tc if "0 bytes spill stores" not in report[i + 1]]
             serialized = [ln for ln in report if "are serialized" in ln and "conv_tc_kernel" in ln]
-            check(len(tc) == 18 and not spilled and not serialized,
+            check(len(tc) == 20 and not spilled and not serialized,
                   f"ptxas conv_tc_kernel: {len(tc)} instances, spilling {spilled}; wgmma serialization "
                   f"warnings: {len(serialized)}")
             # the f32 route: N 8 / 16 / 32 / 64 in both modes, nothing in local memory
@@ -2988,7 +2999,7 @@ PAR_HALOS = (32, 16)
 PAR_TRAIN_HALO = 4  # train_spatial at LR 32: windows of 24 of the 32 rows
 TP_CONV_BOUND = 2.0**-6  # eval_tp: a row-parallel conv's sum against the f32 conv, relative max error
 PAR_LABEL = "2 ranks on one H100 over gloo"
-ZERO_BY_DESIGN.update({p: ("rdb5c",) for p in ("eval_tp", "train_tp")})
+ZERO_BY_DESIGN.update({p: ("rdb5c",) for p in ("eval_tp", "train_tp", "swinir")})
 
 
 def par_eval_options(tmp: Path, pth: str, name: str, nb: int | None = None, datasets=None, **extra) -> dict:
@@ -4211,6 +4222,139 @@ def phase_dispatch(tmp: Path, pth: str, card: str, bands: dict) -> dict[str, dic
     return paths
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+SWINIR_CELL = REPO / "esr_bench" / "workloads" / "swinir_eval_div2k_b4.json"
+SWINIR_PER_FORWARD = {"window_attn": 36, "conv3x3": 11, "upsample2x_conv3x3": 2}
+
+
+def swinir_attention_row(n: int, hp: int, wp: int) -> dict:
+    """``window_attn_kernel`` at the SwinIR cell's padded shape, both shifts,
+    against the f32 plain version on the same bf16 qkv: within twice the bf16
+    plain version's own error and under 2% of the output's largest value
+    (the card tests' band), one launch counted; ms beside the bf16 plain
+    version, and the bound from the inputs (q, k, v read and the output
+    written once in bf16; 4 x 64 x 180 FLOP a token)."""
+    heads, ws, c = 6, 8, 180
+    errs = []
+    for shift in (0, 4):
+        g = torch.Generator(device="cuda").manual_seed(140 + shift)
+        qkv = torch.randn(n, hp, wp, 3 * c, device="cuda", generator=g).bfloat16()
+        bias = torch.randn(heads, ws * ws, ws * ws, device="cuda", generator=g)
+        before = window_attn.LAUNCHES.count
+        got = window_attn.window_attention(qkv, bias, heads, ws, shift)
+        ran = window_attn.LAUNCHES.count == before + 1
+        want = window_attn.window_attention_reference(qkv.float(), bias, heads, ws, shift)
+        own = max_err(window_attn.window_attention_reference(qkv, bias, heads, ws, shift), want)
+        e = max_err(got, want) if got.shape == want.shape else math.inf
+        tol = min(2.0 * own, 0.02 * want.abs().max().item())
+        check(ran and e <= tol, f"phase 14 window_attn {tuple(qkv.shape)} shift {shift}: max err {e:.3g} <= {tol:.3g} "
+              f"(bf16 plain {own:.3g}), one launch counted {ran}")
+        errs.append(e)
+        del want
+    tokens = n * hp * wp
+    b_ms, b_by = bound(4.0 * ws * ws * c * tokens, 2.0 * 4 * c * tokens)
+    return {
+        "name": "window_attn", "route": "cuda", "source": "esr_tpu_torch/ops/cuda/csrc/window_attn.cu (window_attn_kernel)",
+        "replaces": None, "tpu_kernel": None,
+        "shape": f"qkv ({n},{hp},{wp},540) bf16, 6 heads of 30, window 8, shift 4 (0 checked too)",
+        "max_abs_err": max(errs),
+        "ms": cuda_ms(lambda: window_attn.window_attention(qkv, bias, heads, ws, 4)),
+        "plain_ms": cuda_ms(lambda: window_attn.window_attention_reference(qkv, bias, heads, ws, 4), reps=3, windows=3),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "launches_per_forward": 36,
+    }
+
+
+def swinir_conv_row(n: int, hp: int, wp: int) -> dict:
+    """``conv_tc_kernel``'s Cin 129-192 instances (three K chunks, weights
+    streamed) at the SwinIR cell's padded shape: 180 -> 180 (the RSTB convs
+    and conv_after_body) and 180 -> 64 with LeakyReLU(0.01)
+    (conv_before_upsample), each within the conv bf16 band of the f32 plain
+    version, one launch counted; times beside the plain version and
+    ``F.conv2d`` (channels_last)."""
+    per_site, errs = [], []
+    for i, (site, cout, act) in enumerate((("layers.i.conv", 180, False), ("conv_before_upsample", 64, True))):
+        x = gen((n, hp, wp, 180), 141 + i).bfloat16()
+        w = gen((3, 3, 180, cout), 143 + i, math.sqrt(2.0 / (9 * 180)))
+        bias = gen((cout,), 145 + i, 0.1)
+        kw = conv_kernel_weights(w, bias, torch.bfloat16, x.device)
+        before = kpack_conv.LAUNCHES.count
+        got = conv_launch(x, kw, act, 0.01)
+        ran = kpack_conv.LAUNCHES.count == before + 1
+        ref = conv3x3_reference(x.float(), w, bias, act, 0.01)
+        plain_err = max_err(conv3x3_reference(x, w, bias, act, 0.01), ref)
+        tol = conv_bf16_band(ref, plain_err)
+        e = max_err(got, ref) if got.shape == ref.shape else math.inf
+        check(ran and e <= tol, f"phase 14 conv bf16 tensor cores {site} {tuple(x.shape)} 180->{cout}"
+              + (" lrelu 0.01" if act else "") + f": max err {e:.3g} <= {tol:.3g} (plain {plain_err:.3g}), "
+              f"one launch counted {ran}")
+        errs.append(e)
+        del ref
+        wb, xc, bb = w.permute(3, 2, 0, 1).bfloat16(), x.permute(0, 3, 1, 2), bias.bfloat16()
+        b_ms, b_by = bound(2 * 9 * 180 * cout * n * hp * wp, 2 * n * hp * wp * (180 + cout) + 2 * w.numel())
+        per_site.append({
+            "site": site, "shape": f"B{n} {hp}x{wp} 180->{cout}" + (" lrelu 0.01" if act else ""),
+            "ms": cuda_ms(lambda: conv_launch(x, kw, act, 0.01)),
+            "plain_ms": cuda_ms(lambda: conv3x3_reference(x, w, bias, act, 0.01)),
+            "library_ms": cuda_ms(lambda: F.conv2d(xc, wb, bb, padding=1)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    return conv_row(
+        per_site, name="conv3x3_cin192", source="esr_tpu_torch/ops/cuda/csrc/conv3x3.cuh (conv_tc_kernel, "
+        "Cin 129-192: KC 3, weights streamed)", replaces=None, tpu_kernel=None,
+        shape=f"B{n} {hp}x{wp} bf16: 180->180 and 180->64 lrelu 0.01 (times summed over the two)",
+        max_abs_err=max(errs), launches_per_forward=8,
+    )
+
+
+def phase_swinir() -> tuple[list[dict], dict]:
+    """SwinIR-M x4 (real, nearest+conv) at the swinir_eval_div2k_b4 cell's
+    shape, B4 x LR 339 x 510 (padded 344 x 512), built by ``define_G`` with
+    the benchmark's weight gains and run through ``make_eval_forward`` as a
+    CUDA graph: one replay's launches (36 / 11 / 2, counted just around it),
+    its answer against the f32 plain reference (``esr_bench/reference``,
+    TF32 off) within the cell's limits; then the attention kernel and the
+    Cin 180 convs at that shape (the ``window_attn`` and ``conv3x3_cin192``
+    rows). Returns the rows and the replay's launches."""
+    from esr_bench.reference import Cem, exact
+    from esr_bench.reference import swinir as ref_swinir
+    from esr_bench.traffic.eval import compare
+    from test_torch_swinir import M, seeded_state
+
+    n, h, w = 4, 339, 510
+    hp, wp = 344, 512
+    limits = json.loads(SWINIR_CELL.read_text())["limits"]
+    sd = seeded_state(M, seed=14, device="cuda")
+    g = define_G(M, device="cuda")
+    g.load_state_dict(sd, strict=True)
+    fwd = make_eval_forward(g, make_cem(CEMConf(scale=SCALE), device="cuda"))
+    lr = torch.rand(n, h, w, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(14))
+    fwd(lr)  # captures the graph
+    counters = (window_attn.LAUNCHES, *COUNTERS)
+    torch.cuda.synchronize()
+    before = {c.name: c.count for c in counters}
+    out = fwd(lr)
+    torch.cuda.synchronize()
+    counts = {c.name: c.count - before[c.name] for c in counters}
+    check(all(counts[k] == v for k, v in SWINIR_PER_FORWARD.items()) and counts["rdb5c"] == 0,
+          f"phase 14 SwinIR-M B{n} x {h}x{w} graph replay: launches {counts}, want {SWINIR_PER_FORWARD}")
+    cem = Cem(SCALE, torch.device("cuda"))
+    with exact(), torch.no_grad():
+        want = cem.project(ref_swinir.generator(sd, M, lr), lr)
+    rel, residual = compare(cem, out, want, lr)
+    check(out.shape == want.shape and max(rel) <= limits["sr_rel_err"] and residual <= limits["cem_residual"],
+          f"phase 14 SwinIR-M answer vs the f32 reference: relative L2 of the detail {max(rel):.4f} <= "
+          f"{limits['sr_rel_err']}, CEM residual {residual:.3g} <= {limits['cem_residual']}")
+    del fwd, g, sd, out, want
+    release_memory()
+    rows = [swinir_attention_row(n, hp, wp), swinir_conv_row(n, hp, wp)]
+    for r in rows:  # the conv3x3 counter does not tell Cin 180 from the others: 8 of its 11
+        r["launches"] = counts["window_attn" if r["name"] == "window_attn" else "conv3x3"]
+        r["launches_by_path"] = {"swinir": r["launches"]}
+    release_memory()
+    return rows, {k: counts[k] for k in ("rdb5c", "conv3x3", "upsample2x_conv3x3")}
+
+
 def main() -> int:
     env = phase_environment()
     phase_build()
@@ -4235,9 +4379,14 @@ def main() -> int:
         script_paths, f32_paths = phase_scripts(tmp, pth, env["card"])
         by_path.update(script_paths)
         by_path.update(phase_dispatch(tmp, pth, env["card"], bands))
+    release_memory()
+    swinir_rows, by_path["swinir"] = phase_swinir()
+    rows += swinir_rows
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:
+        if r["name"] in ("window_attn", "conv3x3_cin192"):  # counted on phase 14's path alone
+            continue
         if r["name"] == "conv_f32":  # the f32 route's main path is the f32 forward (phase 5)
             counts = {k: v for k, v in f32_forward["launches"].items() if k in F32_PER_FORWARD}
             r.update(launches=counts["conv_f32_kernel"], launches_by_path={"f32_forward": counts, **f32_paths},

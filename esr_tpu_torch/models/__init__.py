@@ -1,4 +1,4 @@
-from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, SRResNet, VGG19FeatureExtractor
+from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, SRResNet, SwinIR, VGG19FeatureExtractor
 from esr_tpu_torch.models.base_model import BaseModel, make_eval_forward
 from esr_tpu_torch.models.networks import (
     define_D,
@@ -7,6 +7,7 @@ from esr_tpu_torch.models.networks import (
     discriminator_state_dict_from_jax,
     kernelgan_state_dict_from_jax,
     normalize_rrdb_keys,
+    normalize_swinir_keys,
     rrdb_options_from_state,
     srresnet_state_dict_from_jax,
     state_dict_from_jax,

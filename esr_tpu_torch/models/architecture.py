@@ -8,6 +8,12 @@
 - ``SRResNet``: conv_first -> nb conv-ReLU-conv residual blocks (no BN) ->
   trunk conv (+residual) -> conv + pixel-shuffle stages -> HR conv -> last
   conv; the same Z-map input as RRDBNet.
+- ``SwinIR``: SwinIR (Liang et al. 2021) with the real-world x4
+  ``nearest+conv`` upsampler: conv_first -> patch LayerNorm -> residual
+  Swin transformer blocks (RSTB: Swin blocks of shifted-window attention and
+  an MLP, then a 3x3 conv, + identity) -> LayerNorm -> conv_after_body
+  (+residual) -> conv_before_upsample + LeakyReLU(0.01) -> two nearest-2x
+  + conv stages -> HR conv -> last conv; no Z input.
 - ``DiscriminatorVGG128``: the VGG-style 10-conv strided stack (BatchNorm
   after all but the first conv, LeakyReLU 0.2) and two linear heads -> one
   logit.
@@ -31,12 +37,14 @@ from esr_tpu_torch.models.blocks import (
     Conv1x1,
     ConvLRelu,
     FusedUpsampleConvLRelu,
+    LayerNorm,
     ResidualBlockNoBN,
+    SwinBlock,
     pixel_shuffle,
     upsample_nearest,
 )
 
-__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "RRDBNet", "SRResNet", "VGG19FeatureExtractor"]
+__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "RRDBNet", "SRResNet", "SwinIR", "VGG19FeatureExtractor"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -191,6 +199,101 @@ class SRResNet(_Generator):
         for i, r in enumerate(_up_factors(self.scale)):
             fea = pixel_shuffle(getattr(self, f"upconv{i + 1}")(fea), r)
         return self.conv_last(self.HRconv(fea)).float()
+
+
+class _RSTB(nn.Module):
+    """SwinIR's residual Swin transformer block (``resi_connection='1conv'``):
+    ``conv(blocks(t)) + t``, the blocks at shifts 0, ws / 2, 0, ...; keys
+    ``residual_group.blocks.{i}.*`` and ``conv``."""
+
+    def __init__(self, dim: int, depth: int, heads: int, ws: int, mlp_ratio: float, generator: torch.Generator):
+        super().__init__()
+        self.residual_group = nn.Module()
+        self.residual_group.blocks = nn.ModuleList(
+            SwinBlock(dim, heads, ws, 0 if i % 2 == 0 else ws // 2, mlp_ratio, generator) for i in range(depth))
+        self.conv = ConvLRelu(dim, dim, act=False, generator=generator)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        u = t
+        for blk in self.residual_group.blocks:
+            u = blk(u)
+        return self.conv(u) + t
+
+
+class SwinIR(_Generator):
+    """NHWC SwinIR generator (``which_model_G: SwinIR``), the released
+    real-world x4 model's layout (``upsampler='nearest+conv'``,
+    ``resi_connection='1conv'``) and state_dict keys (``conv_first``,
+    ``patch_embed.norm``, ``layers.{l}.residual_group.blocks.{i}.{norm1,
+    attn.relative_position_bias_table, attn.qkv, attn.proj, norm2, mlp.fc1,
+    mlp.fc2}``, ``layers.{l}.conv``, ``norm``, ``conv_after_body``,
+    ``conv_before_upsample.0``, ``conv_up1``, ``conv_up2``, ``conv_hr``,
+    ``conv_last``; ``networks.normalize_swinir_keys`` reads a released file).
+
+    The LR is reflect-padded to multiples of the window and the output
+    cropped back; tokens stay NHWC (a token is a pixel) in ``dtype``, the
+    residual stream too; LayerNorm statistics and the softmax are f32. On
+    the card in bf16: every 3x3 conv on ``conv_tc_kernel`` (the 180-channel
+    ones on its Cin 129-192 instances, the two 2x stages in its 2x2 parity
+    mode, as ``RRDBNet``'s), every attention on the ``window_attn`` kernel,
+    the linears as bf16 GEMMs through torch. No Z input
+    (``num_latent_channels`` 0)."""
+
+    MEAN = (0.4488, 0.4371, 0.4040)
+    NUM_FEAT = 64
+
+    def __init__(self, in_chans: int = 3, embed_dim: int = 180, depths=(6,) * 6, num_heads=(6,) * 6,
+                 window_size: int = 8, mlp_ratio: float = 2.0, upscale: int = 4, img_range: float = 1.0,
+                 upsampler: str = "nearest+conv", resi_connection: str = "1conv",
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        if upsampler != "nearest+conv" or resi_connection != "1conv" or upscale != 4:
+            raise NotImplementedError(f"SwinIR: upsampler {upsampler!r}, resi_connection {resi_connection!r}, x"
+                                      f"{upscale}; the port has the real-world x4 'nearest+conv' / '1conv' model")
+        self.num_latent_channels = 0
+        self.scale = upscale
+        self.dtype = dtype
+        self.window_size = window_size
+        self.img_range = float(img_range)
+        self.register_buffer("mean", torch.tensor(self.MEAN if in_chans == 3 else (0.0,) * in_chans),
+                             persistent=False)
+        g = torch.Generator().manual_seed(seed)
+        nf = self.NUM_FEAT
+        self.conv_first = ConvLRelu(in_chans, embed_dim, act=False, generator=g)
+        self.patch_embed = nn.Module()
+        self.patch_embed.norm = LayerNorm(embed_dim)
+        self.layers = nn.ModuleList(
+            _RSTB(embed_dim, d, h, window_size, mlp_ratio, g) for d, h in zip(depths, num_heads))
+        self.norm = LayerNorm(embed_dim)
+        self.conv_after_body = ConvLRelu(embed_dim, embed_dim, act=False, generator=g)
+        self.conv_before_upsample = nn.ModuleList([ConvLRelu(embed_dim, nf, act=True, slope=0.01, generator=g)])
+        self.conv_up1 = FusedUpsampleConvLRelu(nf, nf, act=True, generator=g)
+        self.conv_up2 = FusedUpsampleConvLRelu(nf, nf, act=True, generator=g)
+        self.conv_hr = ConvLRelu(nf, nf, act=True, generator=g)
+        self.conv_last = ConvLRelu(nf, in_chans, act=False, generator=g)
+
+    def _kernel_modules(self) -> list[nn.Module]:
+        """The convs, the attentions (their dense biases) and the linears and
+        norms (their weights in the compute dtype)."""
+        return [m for m in self.modules() if m is not self and hasattr(m, "prepare_kernel")]
+
+    def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
+        """lr: (N, H, W, in_chans) in [0, 1] -> (N, 4H, 4W, in_chans) f32."""
+        if z is not None:
+            raise ValueError("SwinIR takes no Z map")
+        _, h, w, _ = lr.shape
+        ws = self.window_size
+        x = F.pad(lr.permute(0, 3, 1, 2), (0, (ws - w % ws) % ws, 0, (ws - h % ws) % ws), mode="reflect")
+        x = ((x.permute(0, 2, 3, 1) - self.mean) * self.img_range).to(self.dtype)
+        fea = self.conv_first(x)
+        t = self.patch_embed.norm(fea)
+        for layer in self.layers:
+            t = layer(t)
+        fea = self.conv_after_body(self.norm(t)) + fea
+        y = self.conv_up2(self.conv_up1(self.conv_before_upsample[0](fea)))
+        out = self.conv_last(self.conv_hr(y)).float() / self.img_range + self.mean
+        s = self.scale
+        return out if out.shape[1:3] == (s * h, s * w) else out[:, : s * h, : s * w].contiguous()
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):

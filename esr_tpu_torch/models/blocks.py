@@ -33,15 +33,20 @@ from esr_tpu_torch.ops.cuda.rdb_conv import (
     rdb5c_launch,
     rdb5c_params_from_module,
 )
+from esr_tpu_torch.ops.cuda.window_attn import relative_bias, window_attention
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3
 
 __all__ = [
     "Conv1x1",
     "ConvLRelu",
     "FusedUpsampleConvLRelu",
+    "LayerNorm",
+    "Linear",
     "RRDB",
     "ResidualBlockNoBN",
     "ResidualDenseBlock5C",
+    "SwinBlock",
+    "WindowAttention",
     "kaiming_scaled",
     "lrelu",
     "pixel_shuffle",
@@ -70,15 +75,17 @@ def _frozen_layout(module: nn.Module):
 
 
 class ConvLRelu(nn.Module):
-    """SAME 3x3 conv + bias, then optional lrelu_0.2 (``kpack_conv3x3``)."""
+    """SAME 3x3 conv + bias, then optional LeakyReLU of ``slope``
+    (``kpack_conv3x3``; 0.2, or 0.01 where the kernel's epilogue takes it)."""
 
     ksize = 3  # the conv3x3 kernel's mode
     kernel_weights = None  # the kernel's weight layout, from prepare_kernel
 
     def __init__(self, in_ch: int, features: int, act: bool = True, init_scale: float = 1.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, slope: float = 0.2):
         super().__init__()
         self.act = act
+        self.slope = slope
         self.weight = nn.Parameter(kaiming_scaled((features, in_ch, 3, 3), init_scale, generator))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -95,10 +102,12 @@ class ConvLRelu(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not torch.is_grad_enabled():
             if self.kernel_weights is not None:
-                return conv_launch(x, self.kernel_weights, self.act)
+                return conv_launch(x, self.kernel_weights, self.act, self.slope)
         elif x.is_cuda:
+            if self.act and self.slope != 0.2:
+                raise ValueError(f"ConvLRelu: the differentiable conv takes LeakyReLU(0.2) only, not {self.slope}")
             return conv3x3_fn(x, self.hwio(), self.bias, self.act, _frozen_layout(self))
-        return kpack_conv3x3(x, self.hwio(), self.bias, self.act)
+        return kpack_conv3x3(x, self.hwio(), self.bias, self.act, self.slope)
 
 
 class FusedUpsampleConvLRelu(ConvLRelu):
@@ -189,6 +198,117 @@ class RRDB(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + 0.2 * self.RDB3(self.RDB2(self.RDB1(x)))
+
+
+class _CastWeights(nn.Module):
+    """``weight`` and ``bias`` (f32 parameters) used in the input's dtype;
+    ``prepare_kernel`` keeps them cast to the compute dtype, so that a
+    graphed forward does not cast them at each call."""
+
+    kernel_weights = None  # (weight, bias) in the compute dtype, from prepare_kernel
+
+    def prepare_kernel(self, dtype: torch.dtype) -> None:
+        """Cast once (on the card; none on the CPU, as the convs' layouts)."""
+        self.kernel_weights = (
+            (self.weight.detach().to(dtype), self.bias.detach().to(dtype)) if self.weight.is_cuda else None)
+
+    def _weights(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        kw = self.kernel_weights
+        if kw is not None and not torch.is_grad_enabled() and kw[0].dtype == x.dtype:
+            return kw
+        return self.weight.to(x.dtype), self.bias.to(x.dtype)
+
+
+class Linear(_CastWeights):
+    """A token-wise linear layer ``x W^T + b`` (``nn.Linear``'s keys) in the
+    input's dtype: a GEMM through torch (cuBLAS on the card), as ``Conv1x1``."""
+
+    def __init__(self, in_features: int, out_features: int, generator: torch.Generator | None = None):
+        super().__init__()
+        std = 0.02  # the released SwinIR's trunc_normal_(std=.02)
+        self.weight = nn.Parameter(torch.randn((out_features, in_features), generator=generator) * std)
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *self._weights(x))
+
+
+class LayerNorm(_CastWeights):
+    """LayerNorm over the channels (eps 1e-5, ``nn.LayerNorm``'s keys) in the
+    input's dtype; torch computes the statistics in f32 for bf16 input."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], *self._weights(x), self.eps)
+
+
+class WindowAttention(nn.Module):
+    """SwinIR's ``WindowAttention`` of one block, on the roll and the window
+    partition the block would make: ``qkv`` and ``proj`` linears and the
+    relative position bias table, under the released keys
+    (``relative_position_bias_table``, ``qkv``, ``proj``). The attention
+    itself is ``window_attention`` (the ``window_attn`` kernel on the card),
+    given the dense (heads, ws^2, ws^2) bias: built once by
+    ``prepare_kernel``, else from the table at each call."""
+
+    kernel_weights = None  # the dense f32 bias, from prepare_kernel
+
+    def __init__(self, dim: int, heads: int, ws: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.heads, self.ws = heads, ws
+        self.relative_position_bias_table = nn.Parameter(
+            torch.randn(((2 * ws - 1) ** 2, heads), generator=generator) * 0.02)
+        self.qkv = Linear(dim, 3 * dim, generator)
+        self.proj = Linear(dim, dim, generator)
+
+    def prepare_kernel(self, dtype: torch.dtype) -> None:  # noqa: ARG002 (the bias stays f32)
+        """The dense bias, once (on the card; none on the CPU)."""
+        table = self.relative_position_bias_table.detach()
+        self.kernel_weights = relative_bias(table, self.ws) if table.is_cuda else None
+
+    def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """``x``: the block's normalised tokens (B, Hp, Wp, C), Hp and Wp
+        multiples of the window; the attention's output after ``proj``, at
+        the tokens' own places."""
+        bias = self.kernel_weights if self.kernel_weights is not None else relative_bias(
+            self.relative_position_bias_table, self.ws)
+        return self.proj(window_attention(self.qkv(x), bias, self.heads, self.ws, shift))
+
+
+class _Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, generator)
+        self.fc2 = Linear(hidden, dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwinBlock(nn.Module):
+    """A Swin transformer block of SwinIR (``SwinTransformerBlock``, test
+    time: no dropout or drop-path), on (B, Hp, Wp, C) tokens:
+    ``u + attn(LN1(u))`` at cyclic shift ``shift``, then ``+ mlp(LN2(.))``
+    (fc1, GELU with erf, fc2). Keys ``norm1``, ``attn.*``, ``norm2``,
+    ``mlp.fc1``, ``mlp.fc2``."""
+
+    def __init__(self, dim: int, heads: int, ws: int, shift: int, mlp_ratio: float,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.shift = shift
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention(dim, heads, ws, generator)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = _Mlp(dim, int(dim * mlp_ratio), generator)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        u = u + self.attn(self.norm1(u), self.shift)
+        return u + self.mlp(self.norm2(u))
 
 
 def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -17,6 +17,7 @@ namespace esr {
 constexpr int kThreads = 256;  // threads per block
 
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : 0.2f * v; }
+__device__ __forceinline__ float lrelu(float v, float slope) { return v >= 0.f ? v : slope * v; }
 
 // ---------------------------------------------------------------------------
 // The bf16 tensor-core path. Feature windows live in shared memory pixel-major

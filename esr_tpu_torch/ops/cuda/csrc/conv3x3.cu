@@ -90,6 +90,7 @@ int launch_bf16_tc(const void* x, const void* wt, const void* bias, void* out, i
   // N = 64 writes whole slices (cout == cout_pad); N = 8 masks cout <= 8
   const bool n64 = cout_pad % 64 == 0 && cout == cout_pad && a.slices <= esr::kTcMaxSlices;
   if (!(n64 || (cout_pad == 8 && cout <= 8)) || cin > 64 * esr::kTcMaxChunks) return kErrShape;
+  if (act == 2 && kc != 3) return kErrShape;  // lrelu_0.01: the Cin 129-192 instances alone
 #define ESR_CONV_TC(NN, KK, CC, SL)                                                          \
   if ((NN == 64 ? n64 : cout_pad == 8) && cin_pad == (KK == 1 ? 16 : 64 * CC) && kc == CC && \
       sliced == SL)                                                                          \
@@ -104,6 +105,9 @@ int launch_bf16_tc(const void* x, const void* wt, const void* bias, void* out, i
   ESR_CONV_TC(8, 1, 1, false)
   ESR_CONV_TC(8, 4, 2, false)
 #undef ESR_CONV_TC
+  // Cin 129-192: 3x3, Cout a multiple of 64, Cin a multiple of 4 (streamed weights)
+  if (n64 && !up && kc == 3 && cin_pad == 192 && cin % 4 == 0)
+    return sliced ? launch_tc<64, 4, false, 3, true>(a, stream) : launch_tc<64, 4, false, 3, false>(a, stream);
   return kErrShape;
 }
 
@@ -113,10 +117,11 @@ extern "C" {
 
 // The bf16 tensor-core kernel. x: (n, h, w, cin) NHWC bf16; bias: f32
 // [cout] or null; out: (n, h, w, cout), or (n, 2h, 2w, cout) for ksize 2; wt
-// the weight image of conv_kernel_weights, cin_pad 16 (cin <= 16), 64 or 128
-// (64 per K chunk), cout_pad 8 (cout <= 8) or cout itself, a multiple of 64
-// up to 1024. Returns 0, a cudaError_t of the launch, or one of the negative
-// codes above.
+// the weight image of conv_kernel_weights, cin_pad 16 (cin <= 16), 64, 128 or
+// 192 (64 per K chunk; 192: 3x3, cout a multiple of 64, cin a multiple of 4),
+// cout_pad 8 (cout <= 8) or cout itself, a multiple of 64 up to 1024; act 0
+// (none), 1 (lrelu_0.2) or 2 (lrelu_0.01, cin_pad 192 only). Returns 0, a
+// cudaError_t of the launch, or one of the negative codes above.
 int esr_conv(const void* x, const void* wt, const void* bias, void* out, int n, int h, int w,
              int cin, int cin_pad, int cout, int cout_pad, int ksize, int act, void* stream) {
   return launch_bf16_tc(x, wt, bias, out, n, h, w, cin, cin_pad, cout, cout_pad, ksize, act,
@@ -175,7 +180,8 @@ const char* esr_error_string(int err) {
   if (err == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda.so.1";
   if (err == kErrShape)
     return "the tensor-core kernel takes cin up to 128 (cin_pad 16, 64 or 128) and cout <= 8 "
-           "(cout_pad 8) or cout == cout_pad, a multiple of 64 up to 1024";
+           "(cout_pad 8) or cout == cout_pad, a multiple of 64 up to 1024; or, in 3x3 mode, cin 129-192 "
+           "(a multiple of 4, cin_pad 192) and cout a multiple of 64; act 2 (lrelu_0.01) with cin_pad 192 only";
   if (err == kErrF32Shape)
     return "the f32 kernel takes n_width 8, 16, 32 or 64, ksize 3 or 2 (a residual in 3x3 mode only), "
            "cout >= 1, cin >= 1 and fewer than 2^31 blocks";

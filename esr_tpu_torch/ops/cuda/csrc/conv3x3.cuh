@@ -9,7 +9,8 @@
 //
 //   3x3:  out[n, i, j, o]           = b[o] + sum_{ty,tx,c} x[n, i+ty-1, j+tx-1, c] w[ty*3+tx, c, o]
 //   2x2:  out[n, 2i+a, 2j+b', o]    = b[o] + sum_{ty,tx,c} x[n, i+ty-1+a, j+tx-1+b', c] w[q, ty*2+tx, c, o]
-//         with parity q = 2a + b' and zero outside the image; optional lrelu_0.2.
+//         with parity q = 2a + b' and zero outside the image; optional lrelu_0.2
+//         (lrelu_0.01 as well where Cin is above 128).
 //
 // What bounds it, by width: a conv does 2 * 9 * Cin FLOP per output channel
 // and pixel (2 * 4 * Cin per parity in the 2x2 mode) against 2 * (Cin + Cout)
@@ -17,10 +18,11 @@
 // upsample convs) that is ~290 FLOP per byte, the card's balance point;
 // conv_first (Cin 4) and conv_last (Cout 3) are bound by bytes; 64 -> 256
 // (SRResNet's upconvs, pixel-shuffled after) and 128 -> 128 do 460 and 580
-// FLOP per byte, bound by the tensor cores.
+// FLOP per byte, bound by the tensor cores; so are SwinIR's 180 -> 180 (~900).
 //
 // This file holds the bf16 kernel, conv_tc_kernel (design below), on the
-// Hopper tensor cores: every bf16 conv with Cin up to 128 and Cout up to 1024.
+// Hopper tensor cores: every bf16 conv with Cin up to 128 and Cout up to 1024,
+// and 3x3 convs with Cin 129 to 192 and Cout a multiple of 64.
 // The f32 convs run conv_f32_kernel (conv_f32.cuh), on the FP32 units.
 #pragma once
 
@@ -90,8 +92,20 @@ __device__ __forceinline__ size_t conv_out_pixel(int n, int h, int w, int gy, in
 //   fits beside them, not two (223,528 bytes; 2x2: 131,072 and 207,144).
 //   So a KC = 2 kernel with one stage loads a chunk while nothing computes:
 //   its two warpgroups issue each chunk together (no turns) and release it,
-//   and the 2x2 mode loads a tile's chunks once per parity. Cin above 128 is
-//   refused: three chunks of 3x3 weights alone take 221,184 bytes.
+//   and the 2x2 mode loads a tile's chunks once per parity.
+// - Cin 129 to 192 (SwinIR's 180-channel convs; 3x3, Cout a multiple of 64):
+//   three chunks of 3x3 weights alone would take 221,184 bytes, so they are
+//   streamed, not held: a ring of two weight slots of one chunk (73,728
+//   bytes each) beside one window stage (223,560 bytes in all). The producer
+//   sends chunk c's weights (one bulk copy into slot w % 2 for the w-th
+//   window) ahead of its window, so a slot fills while the other's chunk
+//   computes; the consumers release a slot with its window. The weights
+//   come from L2 (every block of a slice reads the same 221 KB). A Cin that
+//   is not a multiple of 64 (180: a 360-byte pixel stride, which TMA cannot
+//   take) loads its windows with 8-byte cp.async copies that zero-fill
+//   outside the image and beyond Cin (Cin a multiple of 4). These instances
+//   also take lrelu_0.01 (act 2: SwinIR's conv_before_upsample), which the
+//   others do not, so that their code stays as it was.
 // Slices, K chunks and the stage count are template parameters: the 64 -> 64
 // instances (S = 1, one chunk, two stages) are the kernel without them.
 // ---------------------------------------------------------------------------
@@ -104,7 +118,8 @@ constexpr uint32_t kOutStg = kTile / 2 * kTile * 128;  // Cout 64: a warpgroup's
 constexpr int kStgPix = 8;                 // Cout <= 8: pixels per warp and store pass
 constexpr int kTcThreads = kThreads + 32;  // two consumer warpgroups + one producer warp
 constexpr uint32_t kSmemMax = 232448;      // dynamic shared memory a block can use
-constexpr int kTcMaxChunks = 2;            // Cin up to 128
+constexpr int kTcMaxChunks = 3;            // Cin up to 192
+constexpr int kTcResidentChunks = 2;       // above this, the weights are streamed
 constexpr int kTcMaxSlices = 16;           // Cout up to 1024
 
 struct ConvTcArgs {
@@ -119,18 +134,23 @@ struct ConvTcArgs {
 };
 
 // Shared memory of conv_tc_kernel<N, *, UP, KC, *>: 1024 bytes of alignment
-// slack, the block's weights (N = 64: one slice), the window stages (two
-// where they fit, else one), the epilogue staging (N = 64: two 8 x 16-pixel
-// tiles and a 128-byte dump row each; N = 8: 8 pixels per warp), five
-// mbarriers.
+// slack, the block's weights (N = 64: one slice; KC = 3: a ring of two
+// chunks), the window stages (two where they fit, else one), the epilogue
+// staging (N = 64: two 8 x 16-pixel tiles and a 128-byte dump row each; N =
+// 8: 8 pixels per warp), five mbarriers (KC = 3: nine).
+__host__ __device__ constexpr bool conv_tc_streams(int kc) { return kc > kTcResidentChunks; }
+__host__ __device__ constexpr uint32_t conv_tc_chunk_wbytes(int n_pad, bool up) {
+  return (up ? 2 * 4 : 9) * n_pad * 128;
+}
 __host__ __device__ constexpr uint32_t conv_tc_wbytes(int n_pad, bool up, int kc) {
-  return kc * (up ? 2 * 4 : 9) * n_pad * 128;
+  return (conv_tc_streams(kc) ? 2 : kc) * conv_tc_chunk_wbytes(n_pad, up);
 }
 __host__ __device__ constexpr uint32_t conv_tc_stg_bytes(int n_pad) {
   return n_pad == 64 ? 2 * (kOutStg + 128) : (kThreads / 32) * kStgPix * n_pad * 2;
 }
 __host__ __device__ constexpr uint32_t conv_tc_smem_with(int n_pad, bool up, int kc, int stages) {
-  return 1024 + conv_tc_wbytes(n_pad, up, kc) + stages * kWinStride + conv_tc_stg_bytes(n_pad) + 5 * 8;
+  return 1024 + conv_tc_wbytes(n_pad, up, kc) + stages * kWinStride + conv_tc_stg_bytes(n_pad) +
+         (conv_tc_streams(kc) ? 9 : 5) * 8;
 }
 __host__ __device__ constexpr int conv_tc_stages(int n_pad, bool up, int kc) {
   return conv_tc_smem_with(n_pad, up, kc, 2) <= kSmemMax ? 2 : 1;
@@ -161,13 +181,13 @@ __device__ __forceinline__ void conv_tn_issue(float (&acc)[kVirt / 2], uint32_t 
   wgmma_commit();
 }
 
-// Bias, lrelu and bf16 of the warpgroup's 144 virtual pixels into its staging
-// tile stg_s (8 rows x 16 pixels x 128 bytes, 16-byte chunks swizzled by
-// pixel as TMA reads them): the warp holds output channels 16 (warp % 4) ..
-// + 15 of every pixel, and stmatrix.trans writes them as pixel rows. Columns
-// 16 and 17 go to the dump row dump_s.
+// Bias, lrelu (of slope `slope`) and bf16 of the warpgroup's 144 virtual
+// pixels into its staging tile stg_s (8 rows x 16 pixels x 128 bytes, 16-byte
+// chunks swizzled by pixel as TMA reads them): the warp holds output channels
+// 16 (warp % 4) .. + 15 of every pixel, and stmatrix.trans writes them as
+// pixel rows. Columns 16 and 17 go to the dump row dump_s.
 __device__ __forceinline__ void conv_tn_stage(const float (&acc)[kVirt / 2], const float (&bv)[2],
-                                              bool act, uint32_t stg_s, uint32_t dump_s) {
+                                              bool act, float slope, uint32_t stg_s, uint32_t dump_s) {
   const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
   const int m = lane >> 3;  // this lane addresses row lane % 8 of matrix m
 #pragma unroll
@@ -178,8 +198,8 @@ __device__ __forceinline__ void conv_tn_stage(const float (&acc)[kVirt / 2], con
       const int j = jj + i / 2, hh = i % 2;
       float v0 = acc[4 * j + 2 * hh] + bv[hh], v1 = acc[4 * j + 2 * hh + 1] + bv[hh];
       if (act) {
-        v0 = lrelu(v0);
-        v1 = lrelu(v1);
+        v0 = lrelu(v0, slope);
+        v1 = lrelu(v1, slope);
       }
       r[i] = pack_bf16x2(v0, v1);
     }
@@ -289,6 +309,23 @@ __device__ __forceinline__ void conv_tc_load_window(unsigned char* dst, const Co
   }
 }
 
+// The same window for Cin 129-192 that TMA cannot take (Cin a multiple of
+// 4): each 16-byte chunk as two 8-byte cp.async copies that zero-fill
+// outside the image and beyond Cin; the warp waits for its copies, so the
+// stage is complete when it signals it.
+__device__ __forceinline__ void conv_tc_load_window_async(unsigned char* dst, const ConvTcArgs& a, int n,
+                                                          int y0, int x0, int lane, int c0) {
+  for (int i = lane; i < kWin * kWin * 16; i += 32) {
+    const int h = i & 1, q = (i >> 1) & 7, p = i >> 4, ch = c0 + q * 8 + h * 4;
+    const int gy = y0 - 1 + p / kWin, gx = x0 - 1 + p % kWin;
+    const bool live = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w && ch < a.cin;
+    const __nv_bfloat16* src = live ? a.x + (((size_t)n * a.h + gy) * a.w + gx) * a.cin + ch : a.x;
+    cp_async8_zfill(dst + swz(p, q, 8) * 2 + h * 8, src, live ? 8 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
 // Window w, counted in the order the producer loads them, sits in ring stage
 // ring_stage(w), whose full and empty mbarriers it passes in phase parity
 // ring_phase(w).
@@ -311,6 +348,9 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
   constexpr int kTaps = kKH * kKH;
   constexpr uint32_t kWBytes = conv_tc_wbytes(N, UP, KC);
   constexpr int kStages = conv_tc_stages(N, UP, KC);
+  constexpr bool kStream = conv_tc_streams(KC);  // weights through a ring of two chunk slots
+  constexpr uint32_t kChunkW = conv_tc_chunk_wbytes(N, UP);
+  static_assert(!kStream || (N == 64 && !UP), "streamed weights: 3x3, Cout a multiple of 64");
   // one window per tile serves its parities (KC = 1), else one per parity
   // and K chunk
   constexpr int kWinPerTile = KC == 1 ? 1 : kPar * KC;
@@ -321,9 +361,12 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
   uint64_t* bars = reinterpret_cast<uint64_t*>(stg_all + conv_tc_stg_bytes(N));
   // bars[0]: weights; bars[1 + s]: window stage s is full; bars[1 + kStages
   // + s]: the 8 consumer warps have read window stage s (their last wgmma or
-  // ldmatrix)
+  // ldmatrix); streamed weights: bars[5 + j] weight slot j is full, bars[7 +
+  // j] the 8 consumer warps are done with it
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
+  uint64_t* wfull = bars + 5;
+  uint64_t* wempty = bars + 7;
 
   // the warp index through a shuffle, so that the compiler knows it is the
   // same for the whole warp: wgmma in a path it thinks divergent is serialized
@@ -350,6 +393,12 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], kThreads / 32);
     }
+    if constexpr (kStream) {
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&wfull[i], 1);
+        mbar_init(&wempty[i], kThreads / 32);
+      }
+    }
     mbar_fence_init();
   }
   if (!a.use_tma) {  // channels the loads never write stay zero
@@ -361,11 +410,13 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
 
   if (warp == kThreads / 32) {  // the producer warp
     if (lane == 0) {
-      mbar_expect_tx(&bars[0], kWBytes);
-      const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(a.wt) + (size_t)(pa * n_slices + slice) * kWBytes;
-      for (uint32_t off = 0; off < kWBytes; off += 16384)
-        bulk_copy_g2s(wsm + off, src + off, min(16384u, kWBytes - off), &bars[0]);
+      if constexpr (!kStream) {
+        mbar_expect_tx(&bars[0], kWBytes);
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(a.wt) + (size_t)(pa * n_slices + slice) * kWBytes;
+        for (uint32_t off = 0; off < kWBytes; off += 16384)
+          bulk_copy_g2s(wsm + off, src + off, min(16384u, kWBytes - off), &bars[0]);
+      }
       if (a.use_tma) prefetch_tensor_map(&xmap);
     }
     const int live = KC == 1 ? (a.cin + 7) / 8 : 8;
@@ -376,6 +427,17 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
 #pragma unroll
       for (int k = 0; k < kWinPerTile; ++k, ++wi) {
         const int s = ring_stage<kStages>(wi), c0 = 64 * (k % KC);
+        if constexpr (kStream) {  // chunk k's weights into slot wi % 2, once its last reader is done
+          const int j = wi & 1;
+          if (wi >= 2) mbar_wait(&wempty[j], ((wi - 2) >> 1) & 1);
+          if (lane == 0) {
+            mbar_expect_tx(&wfull[j], kChunkW);
+            const unsigned char* src =
+                reinterpret_cast<const unsigned char*>(a.wt) + ((size_t)slice * KC + k) * kChunkW;
+            for (uint32_t off = 0; off < kChunkW; off += 16384)
+              bulk_copy_g2s(wsm + j * kChunkW + off, src + off, min(16384u, kChunkW - off), &wfull[j]);
+          }
+        }
         if (wi >= kStages) mbar_wait(&empty[s], ring_phase<kStages>(wi - kStages));
         if (a.use_tma) {
           if (lane == 0) {
@@ -383,7 +445,10 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
             tma_load_4d(win + s * kWinStride, &xmap, c0, x0 - 1, y0 - 1, n, &full[s]);
           }
         } else {
-          conv_tc_load_window(win + s * kWinStride, a, n, y0, x0, lane, c0, live);
+          if constexpr (kStream)
+            conv_tc_load_window_async(win + s * kWinStride, a, n, y0, x0, lane, c0);
+          else
+            conv_tc_load_window(win + s * kWinStride, a, n, y0, x0, lane, c0, live);
           fence_proxy_async();  // the wgmmas read the window through the async proxy
           __syncwarp();
           if (lane == 0) mbar_arrive(&full[s]);
@@ -397,7 +462,7 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
   // parity (pa, u % kPar); its K chunk c is window KC == 1 ? it : u * KC + c
   const int n_units = (a.n_tiles - t0 + t_step - 1) / t_step * kPar;
   const uint32_t w_s = smem_addr(wsm), win_s = smem_addr(win);
-  mbar_wait(&bars[0], 0);
+  if constexpr (!kStream) mbar_wait(&bars[0], 0);
 
   if constexpr (N == 64) {
     // this thread's accumulator rows: output channels 64 slice + 16 (warp % 4)
@@ -423,8 +488,12 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
       for (int c = 0; c < KC; ++c) {
         const int wi = KC == 1 ? it : u * KC + c, s = ring_stage<kStages>(wi);
         if (KC > 1 || pb == 0) mbar_wait(&full[s], ring_phase<kStages>(wi));
-        conv_tn_issue<KS, kKH>(acc, win_s + s * kWinStride, w_s + (c * kPar + pb) * kTaps * 64 * 128,
-                               g * kVirt, pa, pb, c > 0);
+        uint32_t w_c = w_s + (c * kPar + pb) * kTaps * 64 * 128;
+        if constexpr (kStream) {
+          mbar_wait(&wfull[wi & 1], (wi >> 1) & 1);
+          w_c = w_s + (wi & 1) * kChunkW;
+        }
+        conv_tn_issue<KS, kKH>(acc, win_s + s * kWinStride, w_c, g * kVirt, pa, pb, c > 0);
         if (KC == 1 && (g == 0 || u + 1 < n_units)) named_barrier_arrive(4 - g, 2 * 128);
         wgmma_wait<0>();
 #pragma unroll
@@ -432,11 +501,14 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
         if (KC > 1 || pb == kPar - 1) {  // the warp is done with the window
           __syncwarp();
           if (lane == 0) mbar_arrive(&empty[s]);
+          if constexpr (kStream) {
+            if (lane == 0) mbar_arrive(&wempty[wi & 1]);
+          }
         }
       }
       if (issuer) bulk_wait_read<0>();  // the previous TMA store has read the staging tile
       named_barrier(1 + g, 128);
-      conv_tn_stage(acc, bv, a.act, stg_s, dump_s);
+      conv_tn_stage(acc, bv, a.act, kStream && a.act == 2 ? 0.01f : 0.2f, stg_s, dump_s);
       fence_proxy_async();  // the TMA store reads the staging tile through the async proxy
       named_barrier(1 + g, 128);
       if (issuer) {

@@ -34,6 +34,16 @@ __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int 
                : "memory");
 }
 
+// 8 bytes from global src to shared dst (both 8-byte aligned),
+// asynchronously; src_bytes 0 writes zeros and reads nothing (src must still
+// be a valid address).
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // 16 bytes (both addresses 16-byte aligned), asynchronously, through L2 only.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(

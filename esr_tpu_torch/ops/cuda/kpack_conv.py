@@ -4,10 +4,12 @@ the fused nearest-2x upsample (``esr_tpu_torch/ops/fused.py``).
 
 Port of ``esr_tpu/ops/pallas/kpack_conv.py::kpack_conv3x3`` (NHWC x HWIO,
 f32 accumulation), with a fused bias + LeakyReLU(0.2) epilogue that the plain
-version computes too. A CPU tensor takes the plain version; a CUDA tensor
+version computes too (and LeakyReLU(0.01) where Cin is 129-192, SwinIR's
+conv_before_upsample). A CPU tensor takes the plain version; a CUDA tensor
 launches a kernel or raises. Two routes, by dtype: bf16 runs the
-tensor-core kernel (``csrc/conv3x3.cuh``; Cin up to 128, Cout up to 1024, a
-wider conv raises ``ValueError``); f32 runs the f32 kernel
+tensor-core kernel (``csrc/conv3x3.cuh``; Cin up to 128, Cout up to 1024,
+and 3x3 convs of Cin 129-192, a multiple of 4, with Cout above 8; a wider
+conv raises ``ValueError``); f32 runs the f32 kernel
 (``csrc/conv_f32.cuh``: full f32 FMAs on the FP32 units, any Cin and Cout),
 for evaluation that must be exact to float error. Each route counts its
 launches under its own name (:data:`LAUNCHES`, :data:`LAUNCHES_UP`,
@@ -44,6 +46,7 @@ __all__ = [
     "kpack_conv3x3",
     "parity_kernels",
     "sw128_rows",
+    "tc_takes",
     "wgmma_weight_image",
 ]
 
@@ -61,9 +64,14 @@ LAUNCHES_F32 = lib.LaunchCounter("conv_f32_kernel")
 LAYOUTS = lib.LaunchCounter("conv_kernel_weights")
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# the tensor-core kernel's widest Cin (two K chunks of 64: a third chunk's 3x3
-# weights alone would fill the block's shared memory) and Cout (16 slices of 64)
-_TC_MAX_CIN, _TC_MAX_COUT = 128, 1024
+# the tensor-core kernel's widest Cin (two K chunks of 64 held in shared
+# memory; a third chunk's 3x3 weights alone would fill it, so Cin 129-192
+# streams its weights, in 3x3 mode with Cout above 8 only) and Cout (16
+# slices of 64)
+_TC_MAX_CIN, _TC_MAX_CIN_STREAMED, _TC_MAX_COUT = 128, 192, 1024
+# the epilogue's LeakyReLU slopes, by the kernel's act code (0.01: the
+# streamed instances alone)
+_SLOPES = {0.2: 1, 0.01: 2}
 # the f32 kernel: input channels per K chunk, and the Cout slice widths of its
 # instances (a Cout of at most 8, 16 or 32 takes that width; wider ones
 # slices of 64)
@@ -71,19 +79,20 @@ _F32_KC = 8
 _F32_WIDTHS = (8, 16, 32, 64)
 
 
-def _epilogue(y: torch.Tensor, act: bool) -> torch.Tensor:
-    return F.leaky_relu(y, 0.2) if act else y
+def _epilogue(y: torch.Tensor, act: bool, slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(y, slope) if act else y
 
 
 def conv3x3_reference(
-    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, act: bool = False
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, act: bool = False,
+    slope: float = 0.2,
 ) -> torch.Tensor:
     """``F.conv2d`` SAME 3x3: x (B, H, W, Cin), kernel HWIO (3, 3, Cin, Cout),
-    computed in ``x.dtype``; optional bias, then optional lrelu_0.2."""
+    computed in ``x.dtype``; optional bias, then optional LeakyReLU of ``slope``."""
     dt = x.dtype
     b = None if bias is None else bias.to(dt)
     y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1).to(dt), b, padding=1)
-    return _epilogue(y, act).permute(0, 2, 3, 1)
+    return _epilogue(y, act, slope).permute(0, 2, 3, 1)
 
 
 def _collapse(w: torch.Tensor, parity: int, axis: int) -> torch.Tensor:
@@ -115,9 +124,18 @@ def sw128_rows(m: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, -2, idx.expand(*lead, r, 8, 8)).reshape(m.shape)
 
 
+def tc_takes(par: int, cin: int, cout: int) -> bool:
+    """Whether the tensor-core kernel takes a conv of ``par`` parities (1:
+    3x3, 4: the 2x2 mode), Cin and Cout: Cin up to 128 and Cout up to 1024,
+    or in 3x3 mode Cin 129-192 (a multiple of 4) with Cout 9-1024."""
+    if cout > _TC_MAX_COUT:
+        return False
+    return cin <= _TC_MAX_CIN or (par == 1 and cout > 8 and cin <= _TC_MAX_CIN_STREAMED and cin % 4 == 0)
+
+
 def wgmma_weight_image(wt: torch.Tensor) -> tuple[torch.Tensor, int, int]:
-    """Per-tap weights [parities, taps, Cin, Cout] (Cin <= 128, Cout <= 1024)
-    -> the tensor-core kernel's shared-memory image, with Cin_pad and
+    """Per-tap weights [parities, taps, Cin, Cout] (:func:`tc_takes`) -> the
+    tensor-core kernel's shared-memory image, with Cin_pad and
     Cout_pad. The image is [parity row][slice][K chunk][parity][tap][N][64],
     one K-major wgmma operand per (slice, K chunk, parity, tap): N = 8 rows
     (Cout <= 8, one slice: the B operand) or 64 (a slice of 64 output
@@ -127,9 +145,10 @@ def wgmma_weight_image(wt: torch.Tensor) -> tuple[torch.Tensor, int, int]:
     16 (Cin <= 16) or 64 per K chunk; Cout_pad is 8 or a multiple of 64.
     Keeps ``wt``'s dtype."""
     par, taps, cin, cout = wt.shape
-    if cin > _TC_MAX_CIN or cout > _TC_MAX_COUT:
+    if not tc_takes(par, cin, cout):
         raise ValueError(f"conv3x3: the tensor-core kernel takes Cin up to {_TC_MAX_CIN} and Cout up to "
-                         f"{_TC_MAX_COUT}, got {cin}, {cout}")
+                         f"{_TC_MAX_COUT} (3x3 mode: Cin up to {_TC_MAX_CIN_STREAMED}, a multiple of 4, with "
+                         f"Cout above 8), got {cin}, {cout} in {'3x3' if par == 1 else '2x2'} mode")
     kc = -(-cin // 64)
     n, slices = (8, 1) if cout <= 8 else (64, -(-cout // 64))
     cin_pad, cout_pad = (16 if cin <= 16 else 64 * kc), n * slices
@@ -207,20 +226,29 @@ def conv_kernel_weights(
 
 
 def kpack_conv3x3(
-    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, act: bool = False
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, act: bool = False,
+    slope: float = 0.2,
 ) -> torch.Tensor:
     """SAME 3x3 conv, NHWC x HWIO -> NHWC, f32 accumulation, optional bias and
-    lrelu_0.2 epilogue."""
+    LeakyReLU epilogue (``slope`` 0.2, or 0.01 where :func:`_fuses_slope`)."""
     if x.device.type == "cpu":
-        return conv3x3_reference(x, kernel, bias, act)
+        return conv3x3_reference(x, kernel, bias, act, slope)
     _require_cuda(x, "kpack_conv3x3")
     lib.forward_only("kpack_conv3x3", x, kernel, bias)
-    return conv_launch(x, conv_kernel_weights(kernel, bias, x.dtype, x.device), act)
+    return conv_launch(x, conv_kernel_weights(kernel, bias, x.dtype, x.device), act, slope)
 
 
-def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool) -> torch.Tensor:
+def _fuses_slope(kw: ConvKernelWeights, slope: float) -> bool:
+    """Whether the kernel's epilogue computes LeakyReLU(``slope``) for weights
+    ``kw``: 0.2 on every route, 0.01 on the tensor-core instances of Cin
+    129-192 alone (the others' code is kept as it was)."""
+    return slope == 0.2 or (slope == 0.01 and kw.route == "tc" and kw.cin_pad == 192)
+
+
+def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool, slope: float = 0.2) -> torch.Tensor:
     """Launch the kernel on CUDA tensor ``x`` (N, H, W, Cin) with weights in
-    its layout: (N, H, W, Cout) for ``kw.ksize`` 3, (N, 2H, 2W, Cout) for 2."""
+    its layout: (N, H, W, Cout) for ``kw.ksize`` 3, (N, 2H, 2W, Cout) for 2;
+    with ``act``, LeakyReLU(``slope``) where :func:`_fuses_slope` (else raises)."""
     what = "kpack_conv3x3" if kw.ksize == 3 else "upsample2x_conv3x3"
     _require_cuda(x, what)
     lib.forward_only(what, x)
@@ -229,6 +257,9 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool) -> torch.Tens
     if kw.wt.dtype != x.dtype or kw.wt.device != x.device:
         raise ValueError(f"{what}: weights in {kw.wt.dtype} on {kw.wt.device}, "
                          f"x in {x.dtype} on {x.device}")
+    if act and not _fuses_slope(kw, slope):
+        raise ValueError(f"{what}: the epilogue takes LeakyReLU(0.2), and LeakyReLU(0.01) on the tensor-core "
+                         f"route at Cin 129-192 only; got slope {slope} at Cin {kw.cin} on route {kw.route}")
     if kw.route == "f32":
         out = conv_f32_launch(x.contiguous(), kw, act)
         LAUNCHES_SIMT[(kw.ksize, "f32")].count += 1
@@ -244,7 +275,7 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool) -> torch.Tens
     x = lib.aligned16(x)
     err = so.esr_conv(
         lib.ptr(x), lib.ptr(kw.wt), lib.ptr(kw.bias), lib.ptr(out),
-        n, h, w, cin, kw.cin_pad, cout, kw.cout_pad, kw.ksize, int(act), lib.stream(x),
+        n, h, w, cin, kw.cin_pad, cout, kw.cout_pad, kw.ksize, _SLOPES[slope] if act else 0, lib.stream(x),
     )
     lib.check(so, err, f"{what} launch")
     (LAUNCHES if kw.ksize == 3 else LAUNCHES_UP).count += 1

@@ -44,6 +44,10 @@ _SIGNATURES = {
         "esr_conv": ([_VP] * 4 + [_I] * 9 + [_VP], _I),
         "esr_conv_f32": ([_VP, _I, _I] * 2 + [_VP] * 3 + [_I, _I, _VP, _I, _F] + [_I] * 7 + [_VP], _I),
     },
+    "window_attn": {
+        "esr_window_attn": ([_VP] * 3 + [_I] * 6 + [_F, _VP], _I),
+        "esr_window_attn_smem_bytes": ([_I] * 2, _SZ),
+    },
 }
 
 _lock = threading.Lock()

@@ -607,7 +607,7 @@ def test_cuda_conv_bf16_64_to_576_within_band(cuda):
 def test_cuda_conv_bf16_past_the_limit_raises(cuda):
     """A bf16 conv wider than the tensor-core kernel takes raises ValueError
     on the card too; no other route runs it."""
-    x, w, b = _wide_conv_case(cuda, (1, 8, 8), 192, 64)
+    x, w, b = _wide_conv_case(cuda, (1, 8, 8), 200, 64)
     with torch.no_grad(), pytest.raises(ValueError, match="Cin up to 128"):
         kpack_conv.kpack_conv3x3(x, w, b, True)
 

@@ -40,10 +40,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from esr_bench import harness, program  # noqa: E402
 
 # a cell kind's roots, each with the harness span that calls it; the first is one a unit
-ROOTS = {"eval": [("eval.forward", "forward")], "train": [("train.step", "optimize_parameters"), ("train.losses", "log")],
+ROOTS = {"eval": [("eval.forward", "forward")], "images": [("eval.forward", "forward")],
+         "train": [("train.step", "optimize_parameters"), ("train.losses", "log")],
          "clicks": [("explore.tool", "tool."), ("explore.render", "render")]}
 OCCASIONAL = {"train.losses"}  # not every unit has one: the losses are fetched every print_freq steps
-KERNELS = {"rdb5c_tc_kernel": ("rdb5c",), "conv_tc_kernel": ("conv3x3", "upsample2x_conv3x3")}  # name: counters
+KERNELS = {"rdb5c_tc_kernel": ("rdb5c",), "conv_tc_kernel": ("conv3x3", "upsample2x_conv3x3"),
+           "window_attn_kernel": ("window_attn",)}  # name: counters
 
 
 def split(kind: str, recorded: list, units: int) -> tuple[dict, dict]:
