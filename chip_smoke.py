@@ -197,13 +197,15 @@ Phases (any failure exits non-zero and prints no result):
    heads, window 8) at the ``swinir_eval_div2k_b4`` cell's shape, B4 x LR
    339 x 510 (padded 344 x 512), seeded with the benchmark's gains, through
    ``define_G`` and ``make_eval_forward`` as a CUDA graph: one replay's
-   launches (36 ``window_attn`` / 11 conv3x3 / 2 parity, no RDB), its answer
-   against the f32 plain reference (``esr_bench/reference/swinir.py``, TF32
-   off) within the cell's limits; ``window_attn_kernel`` on qkv (4, 344,
-   512, 540) at shifts 0 and 4 and the Cin 129-192 ``conv_tc_kernel``
-   instances (180 -> 180, and 180 -> 64 with LeakyReLU 0.01) against their
-   plain versions, timed beside them and bounded from the inputs (the
-   ``window_attn`` and ``conv3x3_cin192`` rows of the kernels line).
+   launches (36 ``window_attn`` / 11 conv3x3 / 2 parity / 74 ``layernorm``,
+   no RDB), its answer against the f32 plain reference
+   (``esr_bench/reference/swinir.py``, TF32 off) within the cell's limits;
+   ``window_attn_kernel`` on qkv (4, 344, 512, 540) at shifts 0 and 4, the
+   Cin 129-192 ``conv_tc_kernel`` instances (180 -> 180, and 180 -> 64 with
+   LeakyReLU 0.01) and ``layernorm_kernel`` on (4, 344, 512, 180) against
+   their plain versions, timed beside them and bounded from the inputs (the
+   ``window_attn``, ``conv3x3_cin192`` and ``layernorm`` rows of the kernels
+   line); ``layernorm_kernel`` at serving sizes no slower than torch's.
 
 Every phase counts the kernel launches of the path it drives (counters set
 to 0 just before, read just after; phase 11 in each rank). The last line is
@@ -252,7 +254,7 @@ from esr_tpu_torch.models.blocks import pixel_shuffle, upsample_nearest
 from esr_tpu_torch.models.srragan_model import make_gan_train_step
 from esr_tpu_torch.ops import tensor2img
 from esr_tpu_torch.ops.cuda import autograd as kernel_grads
-from esr_tpu_torch.ops.cuda import kpack_conv, lib, rdb_conv, window_attn
+from esr_tpu_torch.ops.cuda import kpack_conv, layernorm, lib, rdb_conv, window_attn
 from esr_tpu_torch.ops.cuda.kpack_conv import (
     conv3x3_reference,
     conv_kernel_weights,
@@ -556,6 +558,10 @@ def phase_build() -> None:
             f32 = [i for i, ln in enumerate(report) if "Function properties" in ln and "conv_f32_kernel" in ln]
             spilled = [report[i + 1].strip() for i in f32 if "0 bytes spill stores" not in report[i + 1]]
             check(len(f32) == 8 and not spilled, f"ptxas conv_f32_kernel: {len(f32)} instances, spilling {spilled}")
+        if name == "layernorm":  # nothing in local memory
+            ln = [report[i + 1].strip() for i, x in enumerate(report) if "Function properties" in x
+                  and "layernorm_kernel" in x]
+            check(len(ln) == 1 and "0 bytes spill stores" in ln[0], f"ptxas layernorm_kernel: {ln}")
     print(f"build: {secs:.1f} s (nvcc, all sources in parallel)", flush=True)
 
 
@@ -4225,7 +4231,7 @@ def phase_dispatch(tmp: Path, pth: str, card: str, bands: dict) -> dict[str, dic
 # -- phase 14 ------------------------------------------------------------------
 
 SWINIR_CELL = REPO / "esr_bench" / "workloads" / "swinir_eval_div2k_b4.json"
-SWINIR_PER_FORWARD = {"window_attn": 36, "conv3x3": 11, "upsample2x_conv3x3": 2}
+SWINIR_PER_FORWARD = {"window_attn": 36, "conv3x3": 11, "upsample2x_conv3x3": 2, "layernorm": 74}
 
 
 def swinir_attention_row(n: int, hp: int, wp: int) -> dict:
@@ -4307,15 +4313,68 @@ def swinir_conv_row(n: int, hp: int, wp: int) -> dict:
     )
 
 
+def swinir_layernorm_row(n: int, hp: int, wp: int) -> dict:
+    """``layernorm_kernel`` at the SwinIR cell's padded shape (704,512 tokens
+    of 180 channels at B4): within one bf16 ulp of the f32 reference's
+    rounding (``F.layer_norm`` on the bf16 input and weights upcast), as
+    torch's bf16 ``F.layer_norm`` is (the card tests' band), one launch
+    counted; ms beside the plain version and the library call (both
+    ``F.layer_norm`` in bf16), and the bound from the inputs (each token read
+    and written once in bf16); then, graphed, at serving sizes (B1 x 64^2
+    and 128^2 tokens), where it must be no slower than the library."""
+    from test_torch_layernorm import bf16_ulp
+
+    def over_one_ulp(got, ref):  # the card tests' band
+        return int(((got.float() - ref.float()).abs() > bf16_ulp(ref)).sum())
+
+    c, eps = 180, 1e-5
+    g = torch.Generator(device="cuda").manual_seed(147)
+    x = (torch.randn(n, hp, wp, c, device="cuda", generator=g) * 2 + 0.3).bfloat16()
+    w = (1 + 0.2 * torch.randn(c, device="cuda", generator=g)).bfloat16()
+    b = (0.1 * torch.randn(c, device="cuda", generator=g)).bfloat16()
+    before = layernorm.LAUNCHES.count
+    got = layernorm.layer_norm(x, w, b, eps)
+    ran = layernorm.LAUNCHES.count == before + 1
+    ref = F.layer_norm(x.float(), (c,), w.float(), b.float(), eps).bfloat16()
+    over, lib_over = over_one_ulp(got, ref), over_one_ulp(F.layer_norm(x, (c,), w, b, eps), ref)
+    check(ran and over == 0 and lib_over == 0, f"phase 14 layernorm {tuple(x.shape)}: {over} values more than one "
+          f"bf16 ulp from the f32 reference's rounding (torch's bf16 F.layer_norm: {lib_over}), one launch counted {ran}")
+    tokens = n * hp * wp
+    b_ms, b_by = bound(8.0 * c * tokens, 2.0 * 2 * c * tokens)
+    row = {
+        "name": "layernorm", "route": "cuda", "source": "esr_tpu_torch/ops/cuda/csrc/layernorm.cu (layernorm_kernel)",
+        "replaces": None, "tpu_kernel": None, "shape": f"x ({n},{hp},{wp},{c}) bf16, w and b ({c},) bf16",
+        "max_abs_err": max_err(got, ref),
+        "ms": cuda_ms(lambda: layernorm.layer_norm(x, w, b, eps)),
+        "plain_ms": cuda_ms(lambda: layernorm.layer_norm_reference(x, w, b, eps)),
+        "library_ms": cuda_ms(lambda: F.layer_norm(x, (c,), w, b, eps)),
+        "bound_ms": b_ms, "bound_by": b_by, "launches_per_forward": 74,
+    }
+    del x, got, ref
+    from esr_tpu_torch.ops.cuda.conv_bench import graph_ms
+
+    serving = {}  # device time: the launches in a CUDA graph, as a served forward runs them
+    for side in (64, 128):
+        xs = (torch.randn(1, side, side, c, device="cuda", generator=g) * 2 + 0.3).bfloat16()
+        ms = graph_ms(lambda: layernorm.layer_norm(xs, w, b, eps), reps=50)
+        lib_ms = graph_ms(lambda: F.layer_norm(xs, (c,), w, b, eps), reps=50)
+        serving[f"1x{side}x{side}"] = {"ms": ms, "library_ms": lib_ms}
+        check(ms <= lib_ms, f"phase 14 layernorm at serving size (1,{side},{side},{c}): {ms:.4f} ms <= torch's "
+              f"{lib_ms:.4f} ms")
+    row["serving"] = serving
+    return row
+
+
 def phase_swinir() -> tuple[list[dict], dict]:
     """SwinIR-M x4 (real, nearest+conv) at the swinir_eval_div2k_b4 cell's
     shape, B4 x LR 339 x 510 (padded 344 x 512), built by ``define_G`` with
     the benchmark's weight gains and run through ``make_eval_forward`` as a
-    CUDA graph: one replay's launches (36 / 11 / 2, counted just around it),
+    CUDA graph: one replay's launches (36 / 11 / 2 / 74, counted just around it),
     its answer against the f32 plain reference (``esr_bench/reference``,
-    TF32 off) within the cell's limits; then the attention kernel and the
-    Cin 180 convs at that shape (the ``window_attn`` and ``conv3x3_cin192``
-    rows). Returns the rows and the replay's launches."""
+    TF32 off) within the cell's limits; then the attention kernel, the Cin
+    180 convs and the LayerNorm kernel at that shape (the ``window_attn``,
+    ``conv3x3_cin192`` and ``layernorm`` rows). Returns the rows and the
+    replay's launches."""
     from esr_bench.reference import Cem, exact
     from esr_bench.reference import swinir as ref_swinir
     from esr_bench.traffic.eval import compare
@@ -4330,7 +4389,7 @@ def phase_swinir() -> tuple[list[dict], dict]:
     fwd = make_eval_forward(g, make_cem(CEMConf(scale=SCALE), device="cuda"))
     lr = torch.rand(n, h, w, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(14))
     fwd(lr)  # captures the graph
-    counters = (window_attn.LAUNCHES, *COUNTERS)
+    counters = (window_attn.LAUNCHES, layernorm.LAUNCHES, *COUNTERS)
     torch.cuda.synchronize()
     before = {c.name: c.count for c in counters}
     out = fwd(lr)
@@ -4347,9 +4406,9 @@ def phase_swinir() -> tuple[list[dict], dict]:
           f"{limits['sr_rel_err']}, CEM residual {residual:.3g} <= {limits['cem_residual']}")
     del fwd, g, sd, out, want
     release_memory()
-    rows = [swinir_attention_row(n, hp, wp), swinir_conv_row(n, hp, wp)]
+    rows = [swinir_attention_row(n, hp, wp), swinir_conv_row(n, hp, wp), swinir_layernorm_row(n, hp, wp)]
     for r in rows:  # the conv3x3 counter does not tell Cin 180 from the others: 8 of its 11
-        r["launches"] = counts["window_attn" if r["name"] == "window_attn" else "conv3x3"]
+        r["launches"] = counts["conv3x3" if r["name"] == "conv3x3_cin192" else r["name"]]
         r["launches_by_path"] = {"swinir": r["launches"]}
     release_memory()
     return rows, {k: counts[k] for k in ("rdb5c", "conv3x3", "upsample2x_conv3x3")}
@@ -4385,7 +4444,7 @@ def main() -> int:
     rdb_train = train_paths.pop("_rdb5c_train_ms", None)
     by_path.update(train_paths)
     for r in rows:
-        if r["name"] in ("window_attn", "conv3x3_cin192"):  # counted on phase 14's path alone
+        if r["name"] in ("window_attn", "conv3x3_cin192", "layernorm"):  # counted on phase 14's path alone
             continue
         if r["name"] == "conv_f32":  # the f32 route's main path is the f32 forward (phase 5)
             counts = {k: v for k, v in f32_forward["launches"].items() if k in F32_PER_FORWARD}

@@ -27,6 +27,7 @@ from torch import nn
 
 from esr_tpu_torch.ops.cuda.autograd import conv3x3_fn, rdb5c_fn, upsample2x_conv3x3_fn
 from esr_tpu_torch.ops.cuda.kpack_conv import conv_kernel_weights, conv_launch, kpack_conv3x3
+from esr_tpu_torch.ops.cuda.layernorm import layer_norm
 from esr_tpu_torch.ops.cuda.rdb_conv import (
     fused_rdb5c,
     rdb5c_kernel_weights,
@@ -235,7 +236,8 @@ class Linear(_CastWeights):
 
 class LayerNorm(_CastWeights):
     """LayerNorm over the channels (eps 1e-5, ``nn.LayerNorm``'s keys) in the
-    input's dtype; torch computes the statistics in f32 for bf16 input."""
+    input's dtype, the statistics in f32 for bf16 input: ``layer_norm`` (the
+    ``layernorm`` kernel on the card, ``F.layer_norm`` on the CPU)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -244,7 +246,7 @@ class LayerNorm(_CastWeights):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[-1:], *self._weights(x), self.eps)
+        return layer_norm(x, *self._weights(x), self.eps)
 
 
 class WindowAttention(nn.Module):

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_VP, _I, _SZ, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_float
+_VP, _I, _LL, _SZ, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t, ctypes.c_float
 # C signatures of the kernels' entry points, by library
 _SIGNATURES = {
     "rdb5c": {
@@ -47,6 +47,9 @@ _SIGNATURES = {
     "window_attn": {
         "esr_window_attn": ([_VP] * 3 + [_I] * 6 + [_F, _VP], _I),
         "esr_window_attn_smem_bytes": ([_I] * 2, _SZ),
+    },
+    "layernorm": {
+        "esr_layernorm": ([_VP] * 4 + [_LL, _I, _F, _I, _VP], _I),
     },
 }
 

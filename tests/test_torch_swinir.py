@@ -24,7 +24,7 @@ from esr_bench.reference.cem import Cem
 from esr_tpu_torch.cem import CEMConf, make_cem
 from esr_tpu_torch.models import make_eval_forward
 from esr_tpu_torch.models.networks import define_G, normalize_swinir_keys
-from esr_tpu_torch.ops.cuda import kpack_conv, window_attn
+from esr_tpu_torch.ops.cuda import kpack_conv, layernorm, window_attn
 
 TOY = {"scale": 4, "bf16": False, "network_G": {
     "which_model_G": "SwinIR", "upscale": 4, "in_chans": 3, "img_size": 64, "window_size": 4, "img_range": 1.0,
@@ -294,8 +294,8 @@ def test_cuda_conv_cin180_on_tensor_cores(cuda, cout, act):
 @pytest.mark.cuda
 def test_cuda_swinir_m_eval_forward_runs_on_the_kernels(cuda):
     """SwinIR-M at its published widths and depth behind the CEM, as a CUDA
-    graph: 36 window_attn launches a forward, 11 conv3x3 and 2 parity
-    launches; the answer within 10% (relative L2, the detail over the
+    graph: 36 window_attn launches a forward, 11 conv3x3, 2 parity and 74
+    layernorm launches; the answer within 10% (relative L2, the detail over the
     consistent upscale) of the f32 reference, and consistent."""
     from esr_bench.traffic.eval import compare
 
@@ -305,11 +305,11 @@ def test_cuda_swinir_m_eval_forward_runs_on_the_kernels(cuda):
     fwd = make_eval_forward(g, make_cem(CEMConf(scale=4), device=cuda))
     lr = torch.rand(1, 45, 62, 3, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
     fwd(lr)
-    counters = (window_attn.LAUNCHES, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP)
+    counters = (window_attn.LAUNCHES, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, layernorm.LAUNCHES)
     before = [c.count for c in counters]
     out = fwd(lr)
     torch.cuda.synchronize()
-    assert [c.count - b for c, b in zip(counters, before)] == [36, 11, 2]
+    assert [c.count - b for c, b in zip(counters, before)] == [36, 11, 2, 74]
     cem = Cem(4, cuda)
     with torch.no_grad():
         want = cem.project(ref_swinir.generator(sd, M, lr), lr)

@@ -45,7 +45,7 @@ ROOTS = {"eval": [("eval.forward", "forward")], "images": [("eval.forward", "for
          "clicks": [("explore.tool", "tool."), ("explore.render", "render")]}
 OCCASIONAL = {"train.losses"}  # not every unit has one: the losses are fetched every print_freq steps
 KERNELS = {"rdb5c_tc_kernel": ("rdb5c",), "conv_tc_kernel": ("conv3x3", "upsample2x_conv3x3"),
-           "window_attn_kernel": ("window_attn",)}  # name: counters
+           "window_attn_kernel": ("window_attn",), "layernorm_kernel": ("layernorm",)}  # name: counters
 
 
 def split(kind: str, recorded: list, units: int) -> tuple[dict, dict]:
