@@ -13,8 +13,9 @@ conv raises ``ValueError``); f32 runs the f32 kernel
 (``csrc/conv_f32.cuh``: full f32 FMAs on the FP32 units, any Cin and Cout),
 for evaluation that must be exact to float error. Each route counts its
 launches under its own name (:data:`LAUNCHES`, :data:`LAUNCHES_UP`,
-:data:`LAUNCHES_SIMT`), and :data:`LAUNCHES_F32` counts every launch of the
-f32 kernel, those of the f32 RDB too. The kernels read their weights in
+:data:`LAUNCHES_F32_3X3`, :data:`LAUNCHES_F32_2X2`), and
+:data:`LAUNCHES_F32` counts every launch of the f32 kernel, those of the
+f32 RDB too. The kernels read their weights in
 their own layout (:func:`conv_kernel_weights`): the wrappers build it per
 call, a module can build it once and call :func:`conv_launch`. The f32 kernel also reads two
 concatenated inputs and writes at a channel offset with a residual
@@ -33,7 +34,8 @@ from esr_tpu_torch.ops.cuda import lib
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_F32",
-    "LAUNCHES_SIMT",
+    "LAUNCHES_F32_2X2",
+    "LAUNCHES_F32_3X3",
     "LAUNCHES_UP",
     "LAYOUTS",
     "ConvKernelWeights",
@@ -51,15 +53,13 @@ __all__ = [
 ]
 
 # launches by route and mode: the tensor-core kernel (bf16) in 3x3 and 2x2
-# mode, the f32 route (FP32 units, "SIMT") by mode; every launch of the f32
+# mode, the f32 route (FP32 units) by mode; every launch of the f32
 # kernel, whoever calls it (a conv on the f32 route is one, an f32 RDB five);
 # and the weight layouts built
 LAUNCHES = lib.LaunchCounter("conv3x3")
 LAUNCHES_UP = lib.LaunchCounter("upsample2x_conv3x3")
-LAUNCHES_SIMT = {
-    (ksize, "f32"): lib.LaunchCounter(f"{name}_simt_f32")
-    for ksize, name in ((3, "conv3x3"), (2, "upsample2x_conv3x3"))
-}
+LAUNCHES_F32_3X3 = lib.LaunchCounter("conv3x3_f32")
+LAUNCHES_F32_2X2 = lib.LaunchCounter("upsample2x_conv3x3_f32")
 LAUNCHES_F32 = lib.LaunchCounter("conv_f32_kernel")
 LAYOUTS = lib.LaunchCounter("conv_kernel_weights")
 
@@ -262,7 +262,7 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool, slope: float 
                          f"route at Cin 129-192 only; got slope {slope} at Cin {kw.cin} on route {kw.route}")
     if kw.route == "f32":
         out = conv_f32_launch(x.contiguous(), kw, act)
-        LAUNCHES_SIMT[(kw.ksize, "f32")].count += 1
+        (LAUNCHES_F32_3X3 if kw.ksize == 3 else LAUNCHES_F32_2X2).count += 1
         return out
     so = lib.load("conv3x3")
     n, h, w, cin = x.shape

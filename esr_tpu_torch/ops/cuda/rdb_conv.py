@@ -15,7 +15,7 @@ the f32 conv kernel (``csrc/conv_f32.cuh``, :func:`_rdb5c_f32`), at any
 width: conv k reads x and x_1..x_{k-1} from two sources, so the dense concat
 is never built, and writes x_k into its channels of one scratch tensor; conv
 5 adds the residual. Each dtype counts one launch a block under its own name
-(:data:`LAUNCHES`, :data:`LAUNCHES_SIMT`). At nf 64 / gc 32 each launch
+(:data:`LAUNCHES`, :data:`LAUNCHES_F32`). At nf 64 / gc 32 each launch
 takes the tile of least modelled time for its grid and the card's SMs
 (:func:`rdb5c_tile`): 16 x 16, or 8 x 8 where 16 x 16 tiles would leave most
 SMs idle (B1-2 x 64^2; :data:`LAUNCHES_SMALL` counts those); both read one
@@ -44,7 +44,7 @@ from esr_tpu_torch.ops.cuda.kpack_conv import ConvKernelWeights, sw128_rows
 __all__ = [
     "INSTANCES",
     "LAUNCHES",
-    "LAUNCHES_SIMT",
+    "LAUNCHES_F32",
     "LAUNCHES_SMALL",
     "LAYOUTS",
     "TILE_US",
@@ -67,7 +67,7 @@ __all__ = [
 # weight layouts built
 LAUNCHES = lib.LaunchCounter("rdb5c")
 LAUNCHES_SMALL = lib.LaunchCounter("rdb5c_small")
-LAUNCHES_SIMT = {"f32": lib.LaunchCounter("rdb5c_simt_f32")}
+LAUNCHES_F32 = lib.LaunchCounter("rdb5c_f32")
 LAYOUTS = lib.LaunchCounter("rdb5c_kernel_weights")
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -123,7 +123,7 @@ def fused_rdb5c_tiled(
         return rdb5c_reference(x, params)
     _require_cuda(x)
     lib.forward_only("fused_rdb5c", x, *params.values())
-    return rdb5c_launch(x, rdb5c_kernel_weights(params, x.dtype, x.device), strip, wtile)
+    return rdb5c_launch(x, rdb5c_kernel_weights(params, x.dtype, x.device))
 
 
 class Rdb5cKernelWeights(NamedTuple):
@@ -251,11 +251,9 @@ def rdb5c_kernel_weights(
     return Rdb5cKernelWeights(rdb5c_weight_image(ws).contiguous(), tuple(b.contiguous() for b in bs), nf, gc, inst)
 
 
-def rdb5c_launch(
-    x: torch.Tensor, kw: Rdb5cKernelWeights | Rdb5cF32Weights, strip: int | None = None, wtile: int | None = None
-) -> torch.Tensor:
+def rdb5c_launch(x: torch.Tensor, kw: Rdb5cKernelWeights | Rdb5cF32Weights) -> torch.Tensor:
     """Launch the kernel on CUDA tensor ``x`` (N, H, W, nf) with weights in
-    its layout (``strip`` x ``wtile``: a schedule hint, unused)."""
+    its layout."""
     _require_cuda(x)
     lib.forward_only("fused_rdb5c", x)
     if x.dim() != 4 or x.shape[3] != kw.nf:
@@ -266,7 +264,7 @@ def rdb5c_launch(
         raise ValueError(f"fused_rdb5c: weights in {w.dtype} on {w.device}, x in {x.dtype} on {x.device}")
     if f32:
         out = _rdb5c_f32(x.contiguous(), kw, kpack_conv.conv_f32_launch)
-        LAUNCHES_SIMT["f32"].count += 1
+        LAUNCHES_F32.count += 1
         return out
     nf, gc, _ = kw.instance
     n, h, w, _ = x.shape

@@ -1,7 +1,7 @@
 """The bf16 conv kernel's layouts and tiling (csrc/conv3x3.cuh), held on the CPU.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py). What surrounds it is plain index arithmetic, mirrored here in
+tests/test_torch_card_*.py). What surrounds it is plain index arithmetic, mirrored here in
 Python from the CUDA source and checked without a GPU:
 
 - the weight image that ``conv_kernel_weights`` builds decodes back to the

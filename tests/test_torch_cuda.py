@@ -1,17 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, the eval
-and serving entry points through them, and the train and Z steps, the eval
-forward and KernelGAN's iteration as CUDA graphs against the same work
-eagerly, on the card.
+and serving entry points through them, and the train and Z steps and the
+eval forward as CUDA graphs against the same work eagerly, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor esr_tpu, so that they run where
-only PyTorch is installed:
-
-    python -m pytest --noconftest tests/test_torch_cuda.py -q
+only PyTorch is installed, as ``tests/torch_card.py`` says.
 
 f32 tolerance 1e-4: up to 9 * 256 products summed in another order than
 cuDNN's (TF32 off). bf16: within twice the bf16 plain version's own error
-against the f32 plain version.
+against the f32 plain version; the RDB's band at weights where a faulty
+kernel is off by four times it.
 """
 
 import numpy as np
@@ -21,59 +19,26 @@ import torch
 from esr_tpu_torch.models.blocks import upsample_nearest
 from esr_tpu_torch.ops.cuda import kpack_conv, rdb_conv
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3, upsample2x_conv3x3_reference
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-
-def _rdb_params(nf, gc, device, seed=0):
-    g = torch.Generator().manual_seed(seed)
-    p = {}
-    for k in range(1, 6):
-        cin, cout = nf + (k - 1) * gc, nf if k == 5 else gc
-        p[f"w{k}"] = (torch.randn(3, 3, cin, cout, generator=g) * (0.2 / cin**0.5)).to(device)
-        p[f"b{k}"] = (0.1 * torch.randn(cout, generator=g)).to(device)
-    return p
-
-
-F32_TOL = 1e-4
-ALL_COUNTERS = (rdb_conv.LAUNCHES, *rdb_conv.LAUNCHES_SIMT.values(), kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP,
-                *kpack_conv.LAUNCHES_SIMT.values(), kpack_conv.LAUNCHES_F32)
-# launches of conv_f32_kernel that one call of each f32 route makes
-F32_KERNEL_LAUNCHES = {rdb_conv.LAUNCHES_SIMT["f32"]: 5, **{c: 1 for c in kpack_conv.LAUNCHES_SIMT.values()}}
-
-
-def _counts():
-    return [c.count for c in ALL_COUNTERS]
-
-
-def _launched(before, counter):
-    """Exactly one call since ``before``, on ``counter``, and the launches of
-    conv_f32_kernel that its route makes (none for a bf16 route)."""
-    want = [int(c is counter) for c in ALL_COUNTERS]
-    want[-1] = F32_KERNEL_LAUNCHES.get(counter, 0)
-    return [c.count - b for c, b in zip(ALL_COUNTERS, before)] == want
+from torch_card import (ALL_COUNTERS, COUNTERS, EXPLORE_BOX, F32_TOL, conv_band, counts, cuda, explore_session,  # noqa: F401
+                        g0_pth, gen, launched, max_err, old_layout, rdb_faults, rdb_params, rel_l2, selection_crop)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("strip,wtile", [(8, 8), (5, 7), (8, 12)])
-def test_cuda_rdb5c_matches_plain(cuda, strip, wtile):
+@pytest.mark.parametrize("shape,strip,wtile", [((2, 19, 23), 8, 8), ((2, 19, 23), 5, 7), ((2, 19, 23), 8, 12),
+                                               ((2, 37, 53), 8, 12), ((2, 37, 53), None, None),
+                                               ((16, 128, 128), None, None)])
+def test_cuda_rdb5c_matches_plain(cuda, shape, strip, wtile):
     """The f32 RDB (five f32 conv launches; the tile a hint) within F32_TOL of
-    the plain version, one launch counted on the f32 RDB counter and none on
-    any other, the conv counters included."""
-    p = _rdb_params(64, 32, cuda)
-    x = torch.randn(2, 19, 23, 64, device=cuda)
-    before = _counts()
+    the plain version, on ragged grids and at B16 x 128^2, one launch counted
+    on the f32 RDB counter and none on any other, the conv counters
+    included."""
+    p = rdb_params(100)
+    x = gen(shape + (64,), 1)
+    before = counts()
     with torch.no_grad():
         got = rdb_conv.fused_rdb5c_tiled(x, p, strip=strip, wtile=wtile)
     torch.cuda.synchronize()
-    assert _launched(before, rdb_conv.LAUNCHES_SIMT["f32"])
+    assert launched(before, rdb_conv.LAUNCHES_F32)
     torch.testing.assert_close(got, rdb_conv.rdb5c_reference(x, p), atol=F32_TOL, rtol=0)
 
 
@@ -87,17 +52,17 @@ def test_cuda_rdb5c_f32_widths_prepared(cuda, nf, gc, shape):
     and an image smaller than a tile, with and without a tile hint: within
     F32_TOL of the plain version, the same answer whatever the hint, one
     launch a block on the f32 RDB counter."""
-    p = _rdb_params(nf, gc, cuda, seed=nf + sum(shape))
+    p = rdb_params(nf + sum(shape), nf, gc)
     x = torch.randn(*shape, nf, device=cuda, generator=torch.Generator(device=cuda).manual_seed(nf))
     kw = rdb_conv.rdb5c_kernel_weights(p, torch.float32, cuda)
-    before = _counts()
+    before = counts()
     with torch.no_grad():
         got = rdb_conv.rdb5c_launch(x, kw)
     torch.cuda.synchronize()
-    assert _launched(before, rdb_conv.LAUNCHES_SIMT["f32"])
+    assert launched(before, rdb_conv.LAUNCHES_F32)
     torch.testing.assert_close(got, rdb_conv.rdb5c_reference(x, p), atol=F32_TOL, rtol=0)
     with torch.no_grad():
-        assert torch.equal(rdb_conv.rdb5c_launch(x, kw, strip=12, wtile=8), got)
+        assert torch.equal(rdb_conv.fused_rdb5c_tiled(x, p, 12, 8), got)
 
 
 @pytest.mark.cuda
@@ -106,14 +71,14 @@ def test_cuda_conv3x3_matches_plain(cuda, cin, cout, act):
     x = torch.randn(2, 21, 19, cin, device=cuda)
     w = torch.randn(3, 3, cin, cout, device=cuda) * 0.1
     b = torch.randn(cout, device=cuda)
-    before = _counts()
+    before = counts()
     got = kpack_conv.kpack_conv3x3(x, w, b, act)
-    assert _launched(before, kpack_conv.LAUNCHES_SIMT[(3, "f32")])
+    assert launched(before, kpack_conv.LAUNCHES_F32_3X3)
     ref = kpack_conv.conv3x3_reference(x, w, b, act)
     torch.testing.assert_close(got, ref, atol=F32_TOL, rtol=0)
-    before = _counts()
+    before = counts()
     up = upsample2x_conv3x3(x, w, b, act)
-    assert _launched(before, kpack_conv.LAUNCHES_SIMT[(2, "f32")])
+    assert launched(before, kpack_conv.LAUNCHES_F32_2X2)
     ref_up = kpack_conv.conv3x3_reference(upsample_nearest(x, 2), w, b, act)
     torch.testing.assert_close(up, ref_up, atol=F32_TOL, rtol=0)
 
@@ -134,14 +99,15 @@ def test_cuda_conv_f32_any_width(cuda, shape, cin, cout):
     x = torch.randn(*shape, cin, device=cuda, generator=g)
     w = torch.randn(3, 3, cin, cout, device=cuda, generator=g) * (2.0 / (9 * cin)) ** 0.5
     b = 0.1 * torch.randn(cout, device=cuda, generator=g)
-    for ksize, plain in ((3, kpack_conv.conv3x3_reference), (2, upsample2x_conv3x3_reference)):
+    for ksize, plain, counter in ((3, kpack_conv.conv3x3_reference, kpack_conv.LAUNCHES_F32_3X3),
+                                  (2, upsample2x_conv3x3_reference, kpack_conv.LAUNCHES_F32_2X2)):
         kw = kpack_conv.conv_kernel_weights(w, b, torch.float32, cuda, ksize)
         for act in (False, True):
-            before = _counts()
+            before = counts()
             with torch.no_grad():
                 got = kpack_conv.conv_launch(x, kw, act)
             torch.cuda.synchronize()
-            assert _launched(before, kpack_conv.LAUNCHES_SIMT[(ksize, "f32")]), (ksize, act)
+            assert launched(before, counter), (ksize, act)
             torch.testing.assert_close(got, plain(x, w, b, act), atol=F32_TOL, rtol=0)
 
 
@@ -170,15 +136,20 @@ def test_cuda_conv_f32_two_sources_offset_residual(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_rdb5c_bf16_any_tile_within_band(cuda):
+@pytest.mark.parametrize("shape", [(2, 21, 37), (2, 37, 53), (16, 128, 128)])
+def test_cuda_rdb5c_bf16_any_tile_within_band(cuda, shape):
     """The bf16 tensor-core kernel through both wrappers within twice the bf16
     plain version's error against the f32 plain version on the same bf16
-    inputs; another tile is a hint: the tensor-core route runs it (one launch
-    counted there) and gives the answer of its own tile bit for bit."""
-    p = _rdb_params(64, 32, cuda)
-    x = torch.randn(2, 21, 37, 64, device=cuda).bfloat16()
+    inputs, at weights where the residual branch is a third of the output; a
+    quarter of what a faulty kernel would be off by (``rdb_faults``); another
+    tile is a hint: the tensor-core route runs it (one launch counted there)
+    and gives the answer of its own tile bit for bit."""
+    p = rdb_params(100)
+    x = gen(shape + (64,), sum(shape)).bfloat16()
     ref = rdb_conv.rdb5c_reference(x.float(), p)
     plain_err = (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
+    for fault, y in rdb_faults(x.float(), p).items():
+        assert 4 * 2 * plain_err <= (y - ref).abs().max().item(), fault
     with torch.no_grad():
         for got in (rdb_conv.fused_rdb5c_tiled(x, p, strip=16, wtile=16), rdb_conv.fused_rdb5c(x, p)):
             err = (got.float() - ref).abs().max().item()
@@ -199,7 +170,7 @@ def test_cuda_rdb5c_tc_prepared_within_band(cuda, shape):
     a tile: within the bf16 band of the f32 plain version on the same bf16
     inputs, one counted launch each, deterministic from call to call."""
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
-    p = _rdb_params(64, 32, cuda, seed=sum(shape))
+    p = rdb_params(sum(shape))
     x = torch.randn(*shape, 64, device=cuda, generator=g).bfloat16()
     kw = rdb_conv.rdb5c_kernel_weights(p, torch.bfloat16, cuda)
     before = rdb_conv.LAUNCHES.count
@@ -229,7 +200,7 @@ def test_cuda_rdb5c_small_grid_runs_the_small_tile(cuda, shape):
     and counts nothing on ``rdb5c_small``."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
-    p = _rdb_params(64, 32, cuda, seed=sum(shape))
+    p = rdb_params(sum(shape))
     x = torch.randn(*shape, 64, device=cuda, generator=g).bfloat16()
     kw = rdb_conv.rdb5c_kernel_weights(p, torch.bfloat16, cuda)
     tile = rdb_conv.rdb5c_tile(64, 32, *shape, sms)
@@ -314,16 +285,17 @@ def test_cuda_prepared_kernel_weights_match_per_call(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 16, 16), (1, 5, 40)], ids=["ragged", "b1-one-tile", "b1-thin"])
-@pytest.mark.parametrize("cin,cout", [(4, 64), (64, 64), (64, 3), (16, 32)])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 16, 16), (1, 5, 40), (1, 16, 40)],
+                         ids=["ragged", "b1-one-tile", "b1-thin", "b1"])
+@pytest.mark.parametrize("cin,cout", [(4, 64), (3, 64), (64, 64), (64, 3), (16, 32)])
 @pytest.mark.parametrize("act", [False, True])
 def test_cuda_conv_tc_prepared_within_band(cuda, shape, cin, cout, act):
     """The bf16 tensor-core kernel in both modes through conv_launch with its
     weight image built once (as the forward runs it), on ragged grids and
-    batch 1, conv_first's Cin 4 (plain window loads), conv_last's Cout 3
-    (pixels as M, wgmma n8, 2-byte stores) and a Cout of 32 (written as 64
-    channels and sliced): within the bf16 band of the f32 plain version on
-    the same bf16 inputs, one counted launch each."""
+    batch 1, conv_first's Cin 4 and the SR trainer's Cin 3 (plain window
+    loads), conv_last's Cout 3 (pixels as M, wgmma n8, 2-byte stores) and a
+    Cout of 32 (written as 64 channels and sliced): within the bf16 band of
+    the f32 plain version on the same bf16 inputs, one counted launch each."""
     g = torch.Generator(device=cuda).manual_seed(sum(shape) + cin + cout)
     x = torch.randn(*shape, cin, device=cuda, generator=g).bfloat16()
     w = torch.randn(3, 3, cin, cout, device=cuda, generator=g) * (2.0 / (9 * cin)) ** 0.5
@@ -344,9 +316,6 @@ def test_cuda_conv_tc_prepared_within_band(cuda, shape, cin, cout, act):
         tol = max(2 * plain_err, 2.0**-6 * ref.abs().max().item())
         err = (got.float() - ref).abs().max().item()
         assert err <= tol, (ksize, err, tol)
-
-
-_COUNTERS = (rdb_conv.LAUNCHES, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP)
 
 
 def _nb2_options(root, **extra):
@@ -374,12 +343,12 @@ def test_cuda_eval_counts_launches_and_keeps_cem(cuda, tmp_path, eval_batch):
     opt = parse(_nb2_options(tmp_path, eval_batch=eval_batch), is_train=False)
     model = create_model(opt)
     d = opt["datasets"]["test_1"]
-    for c in _COUNTERS:
+    for c in COUNTERS:
         c.reset()
     res = eval_cli.evaluate_dataset(model, create_dataloader(create_dataset(d), d), opt)
     torch.cuda.synchronize()
     forwards = 4 if eval_batch == 0 else 2
-    assert [c.count for c in _COUNTERS] == [6 * forwards, 4 * forwards, 2 * forwards]
+    assert [c.count for c in COUNTERS] == [6 * forwards, 4 * forwards, 2 * forwards]
     assert res["cem_residual"] <= 1e-5 and np.isfinite(res["psnr"]) and res["z_diversity"] > 0
 
 
@@ -398,20 +367,16 @@ def test_cuda_servable_round_trip(cuda, tmp_path):
     rng = np.random.default_rng(0)
     lr = rng.random((1, 24, 19, 3)).astype(np.float32)
     z = rng.uniform(-1, 1, (1, 24, 19, 1)).astype(np.float32)
-    for c in _COUNTERS:
+    for c in COUNTERS:
         c.reset()
     got = sv.sr(lr, z)
     torch.cuda.synchronize()
-    assert [c.count for c in _COUNTERS] == [6, 4, 2]
+    assert [c.count for c in COUNTERS] == [6, 4, 2]
     pad = ((0, 0), (0, 8), (0, 13), (0, 0))
     lr_p = torch.from_numpy(np.pad(lr, pad, mode="edge")).to(cuda)
     out = make_eval_forward(model.g_module, model.cem)(lr_p, torch.from_numpy(np.pad(z, pad, mode="edge")).to(cuda))
     np.testing.assert_array_equal(got, out[:, :96, :76].cpu().numpy())
     assert (model.cem.downsample(out) - lr_p).abs().max().item() <= 1e-5
-
-
-def _rel_l2(a, b):
-    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
 
 
 @pytest.mark.cuda
@@ -427,7 +392,7 @@ def test_cuda_autograd_functions_match_plain_autograd(cuda, which):
     torch.backends.cudnn.deterministic = True
     try:
         if which == "rdb5c":
-            params = {k: v.requires_grad_(True) for k, v in _rdb_params(64, 32, cuda).items()}
+            params = {k: v.requires_grad_(True) for k, v in rdb_params(100).items()}
             x = torch.randn(2, 19, 23, 64, device=cuda).bfloat16().requires_grad_(True)
             counter, leaves = rdb_conv.LAUNCHES, [x, *params.values()]
             fn, plain = (lambda: fns.rdb5c_fn(x, params)), (lambda: rdb_conv.rdb5c_reference(x, params))
@@ -451,9 +416,9 @@ def test_cuda_autograd_functions_match_plain_autograd(cuda, which):
         assert counter.count == before + 1
         y_ref = plain()
         want = torch.autograd.grad(y_ref, leaves, gy)
-        assert _rel_l2(y, y_ref) <= 2e-2  # kernel vs plain forward, both bf16
+        assert rel_l2(y, y_ref) <= 2e-2  # kernel vs plain forward, both bf16
         for g, r in zip(grads, want):
-            assert g.dtype == r.dtype and _rel_l2(g, r) <= 1e-3
+            assert g.dtype == r.dtype and rel_l2(g, r) <= 1e-3
     finally:
         torch.backends.cudnn.deterministic = False
 
@@ -475,12 +440,12 @@ def test_cuda_gan_train_step_counts_launches(cuda, tmp_path):
     model = create_model(parse(opt, is_train=True))
     g0 = model.g_module.conv_first.weight.detach().clone()
     model.feed_data({"HR": (np.random.default_rng(0).random((2, 64, 64, 3)) * 255).astype(np.uint8)})
-    for c in _COUNTERS:
+    for c in COUNTERS:
         c.reset()
     model.optimize_parameters(1)
     losses = model.get_current_losses()
     torch.cuda.synchronize()
-    assert [c.count for c in _COUNTERS] == [3, 4, 2]
+    assert [c.count for c in COUNTERS] == [3, 4, 2]
     assert all(np.isfinite(v) for v in losses.values())
     assert not torch.equal(g0, model.g_module.conv_first.weight)
 
@@ -517,7 +482,8 @@ def test_cuda_load_network_rebuilds_the_layouts(cuda, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nf,gc,shape", [(8, 4, (2, 37, 53)), (16, 8, (1, 45, 30)), (12, 6, (1, 17, 9)),
-                                         (48, 24, (2, 37, 53)), (128, 64, (1, 45, 30))])
+                                         (48, 24, (2, 37, 53)), (128, 64, (1, 45, 30)), (16, 8, (2, 37, 53)),
+                                         (16, 8, (16, 128, 128)), (32, 16, (16, 128, 128)), (128, 64, (16, 128, 128))])
 def test_cuda_rdb5c_bf16_other_widths_within_band(cuda, nf, gc, shape):
     """bf16 RDBs at widths other than the flagship's run the tensor-core
     kernel, zero-padded to its narrowest instance that holds them (32 / 16,
@@ -525,11 +491,11 @@ def test_cuda_rdb5c_bf16_other_widths_within_band(cuda, nf, gc, shape):
     other, at the default tile and at another (a hint), within twice the
     bf16 plain version's error against the f32 plain version on the same
     bf16 inputs."""
-    p = _rdb_params(nf, gc, cuda, seed=nf)
+    p = rdb_params(nf, nf, gc)
     x = torch.randn(*shape, nf, device=cuda, generator=torch.Generator(device=cuda).manual_seed(nf)).bfloat16()
     ref = rdb_conv.rdb5c_reference(x.float(), p)
     tol = 2 * (rdb_conv.rdb5c_reference(x, p).float() - ref).abs().max().item()
-    before = _counts()
+    before = counts()
     with torch.no_grad():
         outs = [rdb_conv.fused_rdb5c(x, p), rdb_conv.fused_rdb5c_tiled(x, p, strip=8, wtile=12)]
     torch.cuda.synchronize()
@@ -544,13 +510,13 @@ def test_cuda_rdb5c_bf16_other_widths_within_band(cuda, nf, gc, shape):
 def test_cuda_rdb5c_bf16_past_the_limit_raises(cuda):
     """A bf16 RDB wider than the widest instance (nf 128, gc 64) raises
     ValueError on the card, naming the limit, and launches nothing."""
-    before = _counts()
+    before = counts()
     for nf, gc in ((136, 32), (64, 72)):
-        p = _rdb_params(nf, gc, cuda)
+        p = rdb_params(0, nf, gc)
         x = torch.zeros(1, 8, 8, nf, device=cuda, dtype=torch.bfloat16)
         with torch.no_grad(), pytest.raises(ValueError, match="nf up to 128 and gc up to 64"):
             rdb_conv.fused_rdb5c(x, p)
-    assert _counts() == before
+    assert counts() == before
 
 
 def _wide_conv_case(cuda, shape, cin, cout):
@@ -561,46 +527,33 @@ def _wide_conv_case(cuda, shape, cin, cout):
     return x, w, b
 
 
-def _conv_band(plain, x, w, b):
-    """The bf16 conv band against the f32 plain version on the same bf16 inputs."""
-    ref = plain(x.float(), w, b, True)
-    tol = max(2 * (plain(x, w, b, True).float() - ref).abs().max().item(), 2.0**-6 * ref.abs().max().item())
-    return ref, tol
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout", [(128, 128), (64, 96), (128, 3)])
-def test_cuda_conv_bf16_wide_on_tensor_cores_within_band(cuda, cin, cout):
+@pytest.mark.parametrize("shape,cin,cout,modes", [
+    ((2, 21, 19), 128, 128, (3, 2)), ((2, 21, 19), 64, 96, (3, 2)), ((2, 21, 19), 128, 3, (3, 2)),
+    ((2, 37, 53), 128, 128, (3, 2)), ((2, 37, 53), 128, 3, (3, 2)), ((2, 37, 53), 64, 96, (3, 2)),
+    ((2, 37, 53), 64, 576, (3,)), ((16, 128, 128), 128, 128, (3, 2))])
+def test_cuda_conv_bf16_wide_on_tensor_cores_within_band(cuda, shape, cin, cout, modes):
     """bf16 convs wider than 64 channels (Cin in K chunks, Cout in slices of
-    64) run the tensor-core kernel in both modes, one launch counted on its
-    mode's counter and none on the other, the f32 routes or the f32 kernel,
-    within the bf16 conv band."""
-    x, w, b = _wide_conv_case(cuda, (2, 21, 19), cin, cout)
-    counters = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, *kpack_conv.LAUNCHES_SIMT.values(),
+    64: 128 -> 128, 128 -> 3, 64 -> 96, SRResNet x3's 64 -> 576 in nine
+    slices) on ragged grids and at B16 x 128^2 run the tensor-core kernel in
+    both modes (its layout's route ``tc``), one launch counted on its mode's
+    counter and none on the other, the f32 routes or the f32 kernel, within
+    the bf16 conv band."""
+    x, w, b = _wide_conv_case(cuda, shape, cin, cout)
+    counters = (kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, kpack_conv.LAUNCHES_F32_3X3, kpack_conv.LAUNCHES_F32_2X2,
                 kpack_conv.LAUNCHES_F32)
-    for i, (fn, plain) in enumerate(((kpack_conv.kpack_conv3x3, kpack_conv.conv3x3_reference),
-                                     (upsample2x_conv3x3, upsample2x_conv3x3_reference))):
+    for ksize in modes:
+        plain = kpack_conv.conv3x3_reference if ksize == 3 else upsample2x_conv3x3_reference
+        kw = kpack_conv.conv_kernel_weights(w, b, torch.bfloat16, cuda, ksize)
         before = [c.count for c in counters]
         with torch.no_grad():
-            got = fn(x, w, b, True)
+            got = kpack_conv.conv_launch(x, kw, True)
         torch.cuda.synchronize()
-        assert [c.count - n for c, n in zip(counters, before)] == [int(i == j) for j in range(len(counters))]
-        ref, tol = _conv_band(plain, x, w, b)
-        assert got.shape == ref.shape and (got.float() - ref).abs().max().item() <= tol
-
-
-@pytest.mark.cuda
-def test_cuda_conv_bf16_64_to_576_within_band(cuda):
-    """SRResNet x3's upconv width, 64 -> 576 (nine Cout slices), on a ragged
-    batch-2 grid: one tensor-core launch, within the bf16 conv band."""
-    x, w, b = _wide_conv_case(cuda, (2, 37, 53), 64, 576)
-    before = kpack_conv.LAUNCHES.count
-    with torch.no_grad():
-        got = kpack_conv.kpack_conv3x3(x, w, b, True)
-    torch.cuda.synchronize()
-    assert kpack_conv.LAUNCHES.count == before + 1
-    ref, tol = _conv_band(kpack_conv.conv3x3_reference, x, w, b)
-    assert got.shape == ref.shape and (got.float() - ref).abs().max().item() <= tol
+        assert kw.route == "tc"
+        assert [c.count - n for c, n in zip(counters, before)] == [int(ksize == 3), int(ksize == 2), 0, 0, 0]
+        ref = plain(x.float(), w, b, True)
+        tol = conv_band(ref, (plain(x, w, b, True).float() - ref).abs().max().item())
+        assert got.shape == ref.shape and (got.float() - ref).abs().max().item() <= tol, (ksize, tol)
 
 
 @pytest.mark.cuda
@@ -644,50 +597,19 @@ def test_cuda_frozen_z_step_builds_no_layout(cuda):
     z = torch.zeros(1, 16, 20, 1, device=cuda, requires_grad=True)
     layouts = (rdb_conv.LAYOUTS, kpack_conv.LAYOUTS)
     builds = [c.count for c in layouts]
-    for c in _COUNTERS:
+    for c in COUNTERS:
         c.reset()
     out = g(lr, z)
-    fwd = [c.count for c in _COUNTERS]
+    fwd = [c.count for c in COUNTERS]
     (dz,) = torch.autograd.grad(out.square().mean(), z)
     torch.cuda.synchronize()
-    assert fwd == [3, 4, 2] and [c.count for c in _COUNTERS] == fwd
+    assert fwd == [3, 4, 2] and [c.count for c in COUNTERS] == fwd
     assert [c.count for c in layouts] == builds
     g.release_kernels()
     z2 = z.detach().clone().requires_grad_(True)
     (dz_per_call,) = torch.autograd.grad(g(lr, z2).square().mean(), z2)
     assert [c.count for c in layouts] != builds  # without the layouts, each call builds its own
-    assert _rel_l2(dz, dz_per_call) <= 1e-3  # the same kernels; cuDNN's recompute may pick other algorithms
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fft", "filter"])
-@pytest.mark.parametrize("kernel", ["aniso_gauss", "bicubic_2d"])
-def test_cuda_cem_nonseparable_modes_with_tf32_default(cuda, kernel, mode):
-    """CEM's fft and filter modes under a 2-D kernel on the card with cuDNN's
-    TF32 at torch's default (on): H equals the f64 CPU H to 1e-5 (TF32 is off
-    inside CEM's convs) and the projection is consistent (fft 1e-5; filter
-    at support 33, 2e-3)."""
-    from esr_tpu_torch.cem import CEMConf, make_cem
-    from esr_tpu_torch.cem.kernels import downsample_kernel_2d
-    from esr_tpu_torch.scripts.blind_bench import gaussian_kernel
-
-    k = gaussian_kernel() if kernel == "aniso_gauss" else downsample_kernel_2d(4)[0]
-    conf = CEMConf(scale=4, kernel=tuple(map(tuple, k)), inv_mode=mode, inv_filter_support=33)
-    g = torch.Generator(device=cuda).manual_seed(11)
-    raw = torch.rand(2, 160, 192, 3, device=cuda, generator=g) * 3 - 1
-    lr = torch.rand(2, 40, 48, 3, device=cuda, generator=g)
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        cem = make_cem(conf, device=cuda)
-        with torch.no_grad():
-            res = (cem.downsample(cem.project(raw, lr)) - lr).abs().max().item()
-            h = cem.downsample(raw).double().cpu()
-        assert torch.backends.cudnn.allow_tf32  # CEM restores the caller's setting
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-    h64 = make_cem(conf, device="cpu").downsample(raw.double().cpu())
-    assert cem._mode == mode and (h - h64).abs().max().item() <= 1e-5
-    assert res <= (1e-5 if mode == "fft" else 2e-3), res
+    assert rel_l2(dz, dz_per_call) <= 1e-3  # the same kernels; cuDNN's recompute may pick other algorithms
 
 
 @pytest.mark.cuda
@@ -708,41 +630,15 @@ def test_cuda_generator_variants_on_the_kernels(cuda, which):
     gen = torch.Generator().manual_seed(5)
     lr = torch.rand(1, 16, 20, 3, generator=gen)
     z = torch.rand(1, 16, 20, 1, generator=gen) * 2 - 1
-    for c in _COUNTERS:
+    for c in COUNTERS:
         c.reset()
     with torch.no_grad():
         got = g(lr.to(cuda), z.to(cuda)).cpu()
         torch.cuda.synchronize()
-        counts = [c.count for c in _COUNTERS]
+        counts = [c.count for c in COUNTERS]
         plain = {bf16: define_G(dict(opt, bf16=bf16), device="cpu", seed=5)(lr, z) for bf16 in (True, False)}
     assert counts == ([0, 10, 0] if which == "sr_resnet" else [6, 4, 2]), counts
-    assert _rel_l2(got, plain[False]) <= 2 * _rel_l2(plain[True], plain[False])
-
-
-@pytest.mark.cuda
-def test_cuda_kernelgan_effective_kernel_is_exact(cuda):
-    """KernelGAN's linear G on the card, cuDNN's TF32 at torch's default:
-    its stride-1 output is one VALID correlation with its effective kernel
-    to 1e-5, and the strided output its ::4 subsample bit for bit."""
-    import torch.nn.functional as F
-
-    from esr_tpu_torch.cem import kernelgan as kg
-
-    conf = kg.KernelGANConf()
-    g = kg.LinearKernelG(conf, seed=3).to(cuda)
-    x = torch.rand(1, 96, 96, 1, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        with torch.no_grad():
-            k = kg.effective_kernel(g, conf)
-            flat = g(x, stride=False)
-            strided = g(x)
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-    with torch.no_grad():
-        want = F.conv2d(x.permute(0, 3, 1, 2), k[None, None]).permute(0, 2, 3, 1)
-    assert tuple(k.shape) == (21, 21) and (flat - want).abs().max().item() <= 1e-5
-    assert torch.equal(strided, flat[:, ::4, ::4])
+    assert rel_l2(got, plain[False]) <= 2 * rel_l2(plain[True], plain[False])
 
 
 @pytest.fixture(scope="module")
@@ -804,22 +700,13 @@ def test_cuda_old_layout_checkpoint_loads_on_the_card(cuda, tmp_path):
     RDB convs' ``.0``) loads strictly through ``load_network`` onto the card
     and gives, through the bf16 kernels, the same SR bit for bit as the file
     with the port's keys."""
-    import re
-
     from esr_tpu_torch.models import create_model, define_G
     from esr_tpu_torch.options import parse
 
     net = {"which_model_G": "RRDB_net", "nf": 64, "nb": 2, "gc": 32, "num_latent_channels": 1}
     state = define_G({"network_G": net, "scale": 4}, device="cpu", seed=4).state_dict()
-    names = {"conv_first": "model.0", "trunk_conv": "model.1.sub.2", "upconv1": "model.3", "upconv2": "model.6",
-             "HRconv": "model.8", "conv_last": "model.10"}
-    old = {}
-    for k, v in state.items():
-        base, leaf = k.rsplit(".", 1)
-        m = re.match(r"RRDB_trunk\.(\d+)\.(.+)$", base)
-        old[(f"model.1.sub.{m[1]}.{m[2]}.0" if m else names[base]) + "." + leaf] = v
     srs = []
-    for name, st in (("new", state), ("old", old)):
+    for name, st in (("new", state), ("old", old_layout(state))):
         pth = str(tmp_path / f"{name}.pth")
         torch.save(st, pth)
         opt = parse({"model": "sr", "scale": 4, "use_cem": True, "bf16": True, "network_G": net,
@@ -880,11 +767,11 @@ def test_cuda_gan_step_graph_equals_eager(cuda, tmp_path):
             model._step_graphs.enabled = graphed
             losses, counts = [], []
             for i, b in enumerate(batches):
-                before = [c.count for c in _COUNTERS]
+                before = [c.count for c in COUNTERS]
                 model.feed_data(b)
                 model.optimize_parameters(i + 1)
                 losses.append(model.get_current_losses())
-                counts.append([c.count - n for c, n in zip(_COUNTERS, before)])
+                counts.append([c.count - n for c, n in zip(COUNTERS, before)])
             torch.cuda.synchronize()
             runs.append((model, losses, counts))
         (mg, lg, cg), (me, le, ce) = runs
@@ -901,29 +788,42 @@ def test_cuda_gan_step_graph_equals_eager(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_cuda_z_search_graph_equals_eager(cuda):
-    """A 6-step Z search through a frozen nb-1 flagship-width generator
-    (prebuilt layouts, CEM) replayed as a CUDA graph against the same search
-    eagerly: trace, Z and best Z bit for bit, 3 / 4 / 2 launches a step, one
-    ``z_steps`` count a step, and a second search on the same buffers
-    replays without capturing again."""
+@pytest.mark.parametrize("case", ["nb1", "flagship-editor"])
+def test_cuda_z_search_graph_equals_eager(cuda, tmp_path, request, case):
+    """A Z search (variance +) replayed as a CUDA graph against the same
+    search eagerly: trace, Z and best Z bit for bit, 3 nb / 4 / 2 launches a
+    step, one ``z_steps`` count a step, and a second search on the same
+    buffers replays without capturing again. Through a frozen nb-1
+    flagship-width generator (prebuilt layouts, CEM), 6 steps on an LR 16;
+    and through the flagship editor's session as the explore CLI builds it,
+    64 steps (a round's) on the 64 x 64 LR crop of a 40 x 40 selection, then
+    two variance clicks through the session's graphed search, its SR within
+    1e-5 of its LR under H."""
     from esr_tpu_torch.cem import CEMConf, make_cem
     from esr_tpu_torch.explore import objectives as PO
     from esr_tpu_torch.explore.z_optimizer import Z_STEPS, ZSearch
     from esr_tpu_torch.models import define_G
 
-    g = define_G(_nb2_options(".", network_G={"nf": 64, "nb": 1, "gc": 32, "num_latent_channels": 1}),
-                 device=cuda, seed=0).requires_grad_(False)
-    g.prepare_kernels()
-    cem = make_cem(CEMConf(scale=4), device=cuda)
+    if case == "nb1":
+        nb, n_steps = 1, 6
+        g = define_G(_nb2_options(".", network_G={"nf": 64, "nb": 1, "gc": 32, "num_latent_channels": 1}),
+                     device=cuda, seed=0).requires_grad_(False)
+        g.prepare_kernels()
+        cem = make_cem(CEMConf(scale=4), device=cuda)
 
-    def forward(lr, z):
-        return cem.project(g(lr, z), lr)
+        def forward(lr, z):
+            return cem.project(g(lr, z), lr)
 
-    rng = np.random.default_rng(0)
-    lr = torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32)).to(cuda)
-    z0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 16, 16, 1)).astype(np.float32)).to(cuda)
-    mask = torch.ones(64, 64, device=cuda)
+        rng = np.random.default_rng(0)
+        lr = torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32)).to(cuda)
+        z0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 16, 16, 1)).astype(np.float32)).to(cuda)
+        mask = torch.ones(64, 64, device=cuda)
+    else:
+        nb, n_steps = 23, 64
+        sess = explore_session(tmp_path, request.getfixturevalue("g0_pth"))
+        forward, lr_img = sess.forward, torch.from_numpy(sess.lr_img).to(cuda)
+        lr, mask = selection_crop(lr_img)
+        z0 = torch.from_numpy(np.random.default_rng(15).uniform(-0.5, 0.5, (1, 64, 64, 1)).astype(np.float32)).to(cuda)
     obj = PO.variance_objective(1.0)
     torch.backends.cudnn.deterministic = True
     try:
@@ -932,18 +832,24 @@ def test_cuda_z_search_graph_equals_eager(cuda):
             search = ZSearch(forward, lr, z0, mask, obj.fn, obj.aux)
             search.step.enabled = graphed
             search.set_round(1.0)
-            before, steps = [c.count for c in _COUNTERS], Z_STEPS.count
-            losses = search.run(6, lambda count: 0.1)
+            before, steps = [c.count for c in COUNTERS], Z_STEPS.count
+            losses = search.run(n_steps, lambda count: 0.1)
             torch.cuda.synchronize()
-            assert [c.count - n for c, n in zip(_COUNTERS, before)] == [18, 24, 12]
-            assert Z_STEPS.count - steps == 6
+            assert [c.count - n for c, n in zip(COUNTERS, before)] == [3 * nb * n_steps, 4 * n_steps, 2 * n_steps]
+            assert Z_STEPS.count - steps == n_steps
             out.append((losses.clone(), search.z.clone(), search.best_z.clone(), search))
         (lg, zg, bg, sg), (le, ze, be, _) = out
         assert torch.equal(lg, le) and torch.equal(zg, ze) and torch.equal(bg, be)
         graph = sg.step.graph
         sg.load(lr, z0, mask, obj.aux)
         sg.set_round(1.0)
-        assert torch.equal(sg.run(6, lambda count: 0.1), lg) and sg.step.graph is graph
+        assert torch.equal(sg.run(n_steps, lambda count: 0.1), lg) and sg.step.graph is graph
+        if case == "flagship-editor":
+            sess.set_search_strength(n_steps=n_steps)
+            sess.select_rect(*(v * 4 for v in EXPLORE_BOX))
+            for _ in range(2):  # the first click at this bucket captures its search, the second replays it
+                sess.increase_variance()
+            assert max_err(sess.cem.downsample(torch.from_numpy(sess.current_sr()).to(cuda)), lr_img) <= 1e-5
     finally:
         torch.backends.cudnn.deterministic = False
 
@@ -972,76 +878,54 @@ def test_cuda_graph_capture_error_raises(cuda):
         LaunchCounter.all.remove(counter)
 
 
+# the shapes the port's callers give the flagship's eval forward (LR batch, height, width, Z): the bench
+# shape, the serving buckets (1x128x128 is also the explorer's render of its LR 128 image), graft_entry's
+# B2 x LR 64, and a request's LR 96x80 unpadded
+GRAPH_SHAPES = ((16, 128, 128, "zeros"), (1, 64, 64, "random"), (1, 128, 128, "random"), (1, 96, 96, "random"),
+                (2, 64, 64, "zeros"), (1, 96, 80, None))
+
+
 @pytest.mark.cuda
-def test_cuda_eval_forward_graph_equals_eager(cuda):
+@pytest.mark.parametrize("nb,shapes", [(2, ((1, 24, 20, "random"), (2, 16, 16, None))), (23, GRAPH_SHAPES)],
+                         ids=["nb2", "flagship"])
+def test_cuda_eval_forward_graph_equals_eager(cuda, nb, shapes):
     """The eval forward as a CUDA graph per input shape against the same
-    forward eagerly, at two shapes (with Z, and Z None), cuDNN deterministic:
-    bit for bit on the capture call and on two replays each, 6 / 4 / 2
-    launches a replay, one graph per shape; after prepare_kernels (new
-    layouts) the graphs are dropped and the answer is still the eager one."""
+    forward eagerly, cuDNN deterministic: at nb 2 on two shapes (with Z, and
+    Z None), and at the flagship's nb 23 on ``GRAPH_SHAPES``: bit for bit on
+    the capture call and on two replays, each call on new inputs and the
+    shapes in turns, 3 nb / 4 / 2 launches a call, one graph per shape; after
+    prepare_kernels (new layouts) the graphs are dropped and the answer is
+    still the eager one."""
     from esr_tpu_torch.cem import CEMConf, make_cem
     from esr_tpu_torch.models import define_G, make_eval_forward
 
-    g = define_G(_nb2_options("."), device=cuda, seed=0)
+    g = define_G(_nb2_options(".", network_G={"nf": 64, "nb": nb, "gc": 32, "num_latent_channels": 1}),
+                 device=cuda, seed=0)
     cem = make_cem(CEMConf(scale=4), device=cuda)
     fwd, eager = make_eval_forward(g, cem), make_eval_forward(g, cem, graphs=False)
     rng = np.random.default_rng(1)
-    cases = [(torch.from_numpy(rng.random((1, 24, 20, 3), dtype=np.float32)).to(cuda),
-              torch.from_numpy(rng.uniform(-1, 1, (1, 24, 20, 1)).astype(np.float32)).to(cuda)),
-             (torch.from_numpy(rng.random((2, 16, 16, 3), dtype=np.float32)).to(cuda), None)]
+
+    def inputs(n, h, w, z_kind):
+        lr = torch.from_numpy(rng.random((n, h, w, 3), dtype=np.float32)).to(cuda)
+        if z_kind is None:
+            return lr, None
+        z = rng.uniform(-1, 1, (n, h, w, 1)) if z_kind == "random" else np.zeros((n, h, w, 1))
+        return lr, torch.from_numpy(z.astype(np.float32)).to(cuda)
+
     torch.backends.cudnn.deterministic = True
     try:
         for _ in range(3):
-            for lr, z in cases:
-                before = [c.count for c in _COUNTERS]
+            for shape in shapes:
+                lr, z = inputs(*shape)
+                before = [c.count for c in COUNTERS]
                 got = fwd(lr, z)
                 torch.cuda.synchronize()
-                assert [c.count - n for c, n in zip(_COUNTERS, before)] == [6, 4, 2]
-                assert torch.equal(got, eager(lr, z))
-        assert len(fwd.graphs.steps) == 2 and all(s.graph is not None for s in fwd.graphs.steps)
+                assert [c.count - n for c, n in zip(COUNTERS, before)] == [3 * nb, 4, 2], shape
+                assert torch.equal(got, eager(lr, z)), shape
+        assert len(fwd.graphs.steps) == len(shapes) and all(s.graph is not None for s in fwd.graphs.steps)
         g.prepare_kernels()
-        lr, z = cases[0]
+        lr, z = inputs(*shapes[0])
         assert torch.equal(fwd(lr, z), eager(lr, z)) and len(fwd.graphs.steps) == 1
-    finally:
-        torch.backends.cudnn.deterministic = False
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("supervised", [False, True], ids=["adversarial", "override"])
-def test_cuda_kernelgan_graph_equals_eager(cuda, supervised):
-    """150 KernelGAN iterations (chunks of 100 and 50) with each iteration a
-    replay of one CUDA graph against the same loop eagerly, cuDNN
-    deterministic: the kernel and the metrics of both chunks bit for bit."""
-    import torch.nn.functional as F
-
-    from esr_tpu_torch.cem import kernelgan
-    from esr_tpu_torch.utils.graphs import GraphedStep
-
-    img = np.random.default_rng(3).random((72, 80)).astype(np.float32)
-    conf = kernelgan.KernelGANConf(iters=150)
-
-    def loss(fake, g_in):
-        return F.mse_loss(fake, 0.5 * g_in[:, 10::4, 10::4][:, : fake.shape[1], : fake.shape[2]])
-
-    torch.backends.cudnn.deterministic = True
-    try:
-        init = GraphedStep.__init__
-
-        def eager_init(self, *args, **kwargs):
-            init(self, *args, **kwargs)
-            self.enabled = False
-
-        runs = []
-        for graphed in (True, False):
-            calls = []
-            with pytest.MonkeyPatch.context() as mp:
-                if not graphed:  # the same loop, every iteration eagerly
-                    mp.setattr(GraphedStep, "__init__", eager_init)
-                k, m = kernelgan.estimate_kernel(img, conf, progress=lambda *a: calls.append(a),
-                                                 loss_override=loss if supervised else None, device=cuda)
-            runs.append((k, m, calls))
-        (kg_, mg, cg), (ke, me, ce) = runs
-        assert np.array_equal(kg_, ke) and mg == me and cg == ce and [c[0] for c in cg] == [100, 150]
     finally:
         torch.backends.cudnn.deterministic = False
 

@@ -2,7 +2,7 @@
 and the f32 RDB composed of five of its launches (ops/cuda/rdb_conv.py).
 
 The kernel, ``conv_f32_kernel``, runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py). What surrounds it is index arithmetic, mirrored here in
+tests/test_torch_card_*.py). What surrounds it is index arithmetic, mirrored here in
 Python from the CUDA source and checked without a GPU:
 
 - the weight layout that ``conv_kernel_weights`` builds for f32 decodes back

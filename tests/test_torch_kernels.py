@@ -4,8 +4,8 @@ On the CPU each wrapper takes its plain PyTorch version, so these tests hold
 that version (and the wrapper's dispatch and layouts) against the flax block,
 the Pallas kernel in interpret mode and ``lax.conv``. f32 throughout, inputs
 from numpy seeds. The CUDA kernels themselves are held against the same
-plain versions on the card by tests/test_torch_cuda.py and by
-``chip_smoke.py``.
+plain versions on the card by tests/test_torch_cuda.py and
+tests/test_torch_card_*.py.
 """
 
 import jax

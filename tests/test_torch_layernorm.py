@@ -7,13 +7,11 @@ kernel's partition of rows into runs, warps and blocks (every row covered
 once, every run 16-byte aligned, the chunks and half chunks of a run tiling
 its elements) and of its arithmetic, against ``F.layer_norm``.
 
-Card (skip without one): the kernel against an f32 reference at the
-``swinir_eval_div2k_b4`` cell's shape and at ragged row counts, within one
-bf16 ulp of the reference's rounding, as torch's own bf16 kernel is; one
-launch counted a call; a CUDA graph's replay equal to an eager call. Run
-there with
-
-    python -m pytest --noconftest tests/test_torch_layernorm.py -q
+Card (skip without one; run as ``tests/torch_card.py`` says): the kernel
+against an f32 reference at the ``swinir_eval_div2k_b4`` cell's shape and
+at ragged row counts, within one bf16 ulp of the reference's rounding, as
+torch's own bf16 kernel is; one launch counted a call; a CUDA graph's
+replay equal to an eager call; at serving sizes no slower than torch's.
 """
 
 import math
@@ -26,17 +24,18 @@ from esr_tpu_torch.models import blocks
 from esr_tpu_torch.models.networks import define_G
 from esr_tpu_torch.ops.cuda import layernorm
 from test_torch_swinir import M, TOY, seeded_state
+from torch_card import cuda  # noqa: F401
 
 EPS = 1e-5
 
 
-def _inputs(shape, seed, device="cpu"):
-    """bf16 rows off zero and of spread scale, and weights near 1 and 0, as
-    a trained transformer's LayerNorm sees them."""
+def _inputs(shape, seed, device="cpu", spread=True):
+    """bf16 rows off zero and of spread scale (else all of scale 2), and
+    weights near 1 and 0, as a trained transformer's LayerNorm sees them."""
     g = torch.Generator(device=device).manual_seed(seed)
     c = shape[-1]
-    x = torch.randn(shape, generator=g, device=device) * (0.5 + torch.rand(shape[:-1] + (1,), generator=g,
-                                                                             device=device) * 4) + 0.3
+    x = torch.randn(shape, generator=g, device=device)
+    x = x * (0.5 + torch.rand(shape[:-1] + (1,), generator=g, device=device) * 4 if spread else 2) + 0.3
     w = 1 + 0.2 * torch.randn(c, generator=g, device=device)
     b = 0.1 * torch.randn(c, generator=g, device=device)
     return x.bfloat16(), w.bfloat16(), b.bfloat16()
@@ -260,23 +259,18 @@ def test_the_kernels_arithmetic_mirrored_is_layer_norm(shape):
 # -- on the card ------------------------------------------------------------------
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 344, 512, 180), (1, 180), (3, 180), (4097, 180), (7, 9, 60), (65, 240),
-                                   (5, 256), (3, 4)])
-def test_cuda_layer_norm_matches_the_f32_reference(cuda, shape):
-    """At the SwinIR cell's shape (704,512 tokens of 180) and at ragged row
-    counts and SwinIR's other widths: one launch counted, within one bf16
-    ulp of the f32 reference's rounding (F.layer_norm on the bf16 input and
-    weights upcast, rounded to bf16), as torch's own bf16 F.layer_norm is
-    (the ulp taken at 2^-12 at least: ``ULP_FLOOR``)."""
-    x, w, b = _inputs(shape, seed=len(shape) + shape[0], device=cuda)
+@pytest.mark.parametrize("shape,spread", [((4, 344, 512, 180), True), ((1, 180), True), ((3, 180), True),
+                                          ((4097, 180), True), ((7, 9, 60), True), ((65, 240), True),
+                                          ((5, 256), True), ((3, 4), True), ((4, 344, 512, 180), False)])
+def test_cuda_layer_norm_matches_the_f32_reference(cuda, shape, spread):
+    """At the SwinIR cell's shape (704,512 tokens of 180; rows of spread
+    scale, and all of scale 2) and at ragged row counts and SwinIR's other
+    widths: one launch counted, within one bf16 ulp of the f32 reference's
+    rounding (F.layer_norm on the bf16 input and weights upcast, rounded to
+    bf16), as torch's own bf16 F.layer_norm is (the ulp taken at 2^-12 at
+    least: ``ULP_FLOOR``)."""
+    x, w, b = _inputs(shape, seed=len(shape) + shape[0] + (not spread), device=cuda, spread=spread)
     before = layernorm.LAUNCHES.count
     with torch.no_grad():
         got = layernorm.layer_norm(x, w, b, EPS)
@@ -324,3 +318,19 @@ def test_cuda_layer_norm_replays_in_a_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, layernorm.layer_norm(x2, w, b, EPS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [64, 128])
+def test_cuda_layer_norm_no_slower_than_torchs_at_serving_sizes(cuda, side):
+    """At serving sizes (B1 x 64^2 and 128^2 tokens of 180), 50 launches in
+    a CUDA graph as a served forward runs them: the kernel's device time no
+    more than torch's bf16 F.layer_norm's (CUDA events, median of 5
+    replays)."""
+    from esr_tpu_torch.ops.cuda.conv_bench import graph_ms
+
+    x, w, b = _inputs((1, side, side, 180), seed=side, device=cuda, spread=False)
+    with torch.no_grad():
+        ms = graph_ms(lambda: layernorm.layer_norm(x, w, b, EPS), reps=50)
+        lib_ms = graph_ms(lambda: F.layer_norm(x, (180,), w, b, EPS), reps=50)
+    assert ms <= lib_ms, (ms, lib_ms)

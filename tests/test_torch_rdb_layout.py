@@ -1,7 +1,7 @@
 """The bf16 fused RDB kernel's layouts and work (csrc/rdb5c.cuh), held on the CPU.
 
 The kernel, ``rdb5c_tc_kernel<NF, GC, TILE>``, runs only on the card
-(tests/test_torch_cuda.py, chip_smoke.py). What surrounds it is index
+(tests/test_torch_cuda.py, tests/test_torch_card_*.py). What surrounds it is index
 arithmetic, mirrored here in Python from the CUDA source and checked without
 a GPU, for each of its instances (``rdb_conv.INSTANCES``: 32 / 16 / 16, 64 /
 32 / 16, 64 / 32 / 8, 128 / 64 / 8):

@@ -1,5 +1,5 @@
-"""Readers of what the port writes, shared by the CPU tests and
-``chip_smoke.py`` (which puts this directory on ``sys.path``): the
+"""Readers of what the port writes, shared by the CPU tests and the card
+tests (``test_torch_card_train.py``): the
 checkpoint files of a run, a bit-for-bit comparison of nested tensor trees,
 and the records of tensorboardX event files. Imports torch and numpy only
 (tensorboardX inside ``tb_events``), so it runs where JAX is absent."""

@@ -5,7 +5,7 @@
 #
 #     tools/conv_ab.sh PARENT_DIR [CHANGE_DIR [CONV_BENCH_ARGS...]]
 #
-# e.g. ``tools/conv_ab.sh PARENT . --forward`` for the flagship forward. Each
+# e.g. ``tools/conv_ab.sh PARENT . --f32`` for the f32 route. Each
 # tree builds its own kernels at its first run and runs its own conv_bench
 # with the arguments given. Prints the card's name and power limit, then one
 # BENCH line a run, labelled a (PARENT_DIR) or b (CHANGE_DIR, default .).
