@@ -30,7 +30,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CARD_TESTS = ["tests/test_torch_cuda.py", *sorted(f"tests/{p.name}" for p in REPO.glob("tests/test_torch_card_*.py")),
-              "tests/test_torch_swinir.py", "tests/test_torch_layernorm.py"]
+              "tests/test_torch_swinir.py", "tests/test_torch_layernorm.py", "tests/test_torch_linear.py"]
 # (path, configuration, LR batch (n, h, w), options changed): the eval cells'
 # forwards, and the flagship's on the f32 route
 PATHS = (("esr_eval", "esr_rrdb_x4_z1", (16, 128, 128), {}),

@@ -236,7 +236,8 @@ class SwinIR(_Generator):
     the card in bf16: every 3x3 conv on ``conv_tc_kernel`` (the 180-channel
     ones on its Cin 129-192 instances, the two 2x stages in its 2x2 parity
     mode, as ``RRDBNet``'s), every attention on the ``window_attn`` kernel,
-    the linears as bf16 GEMMs through torch. No Z input
+    every linear on the ``token_linear`` kernel (fc1's GELU and the blocks'
+    residual adds in its epilogue). No Z input
     (``num_latent_channels`` 0)."""
 
     MEAN = (0.4488, 0.4371, 0.4040)

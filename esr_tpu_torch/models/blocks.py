@@ -34,6 +34,8 @@ from esr_tpu_torch.ops.cuda.rdb_conv import (
     rdb5c_launch,
     rdb5c_params_from_module,
 )
+from esr_tpu_torch.ops.cuda.token_linear import SITES as TOKEN_LINEAR_SITES
+from esr_tpu_torch.ops.cuda.token_linear import token_linear, token_linear_launch, token_linear_weights
 from esr_tpu_torch.ops.cuda.window_attn import relative_bias, window_attention
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3
 
@@ -220,9 +222,14 @@ class _CastWeights(nn.Module):
         return self.weight.to(x.dtype), self.bias.to(x.dtype)
 
 
-class Linear(_CastWeights):
+class Linear(nn.Module):
     """A token-wise linear layer ``x W^T + b`` (``nn.Linear``'s keys) in the
-    input's dtype: a GEMM through torch (cuBLAS on the card), as ``Conv1x1``."""
+    input's dtype, with the epilogue its call site asks for: GELU (erf) after
+    it, or a residual added. ``token_linear``: the ``token_linear`` kernel on
+    the card, given the weight image ``prepare_kernel`` built once (else one
+    packed per call); ``F.linear``, ``F.gelu`` and ``+`` on the CPU."""
+
+    kernel_weights = None  # the kernel's weight image, from prepare_kernel
 
     def __init__(self, in_features: int, out_features: int, generator: torch.Generator | None = None):
         super().__init__()
@@ -230,8 +237,18 @@ class Linear(_CastWeights):
         self.weight = nn.Parameter(torch.randn((out_features, in_features), generator=generator) * std)
         self.bias = nn.Parameter(torch.zeros(out_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, *self._weights(x))
+    def prepare_kernel(self, dtype: torch.dtype) -> None:
+        """Pack the kernel's weight image once (on the card, in bf16, at a
+        width the kernel takes; none otherwise)."""
+        w, b = self.weight.detach(), self.bias.detach()
+        site = (w.shape[1], w.shape[0]) in TOKEN_LINEAR_SITES
+        self.kernel_weights = token_linear_weights(w, b) if w.is_cuda and dtype == torch.bfloat16 and site else None
+
+    def forward(self, x: torch.Tensor, gelu: bool = False, residual: torch.Tensor | None = None) -> torch.Tensor:
+        kw = self.kernel_weights
+        if kw is not None and x.is_cuda and not torch.is_grad_enabled():
+            return token_linear_launch(x, kw, gelu, residual)
+        return token_linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype), gelu, residual)
 
 
 class LayerNorm(_CastWeights):
@@ -273,13 +290,14 @@ class WindowAttention(nn.Module):
         table = self.relative_position_bias_table.detach()
         self.kernel_weights = relative_bias(table, self.ws) if table.is_cuda else None
 
-    def forward(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shift: int, residual: torch.Tensor | None = None) -> torch.Tensor:
         """``x``: the block's normalised tokens (B, Hp, Wp, C), Hp and Wp
         multiples of the window; the attention's output after ``proj``, at
-        the tokens' own places."""
+        the tokens' own places, plus ``residual`` (added in ``proj``'s
+        epilogue) when one is given."""
         bias = self.kernel_weights if self.kernel_weights is not None else relative_bias(
             self.relative_position_bias_table, self.ws)
-        return self.proj(window_attention(self.qkv(x), bias, self.heads, self.ws, shift))
+        return self.proj(window_attention(self.qkv(x), bias, self.heads, self.ws, shift), residual=residual)
 
 
 class _Mlp(nn.Module):
@@ -288,8 +306,10 @@ class _Mlp(nn.Module):
         self.fc1 = Linear(dim, hidden, generator)
         self.fc2 = Linear(hidden, dim, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
+        """fc2(GELU(fc1(x))) (+ ``residual``): GELU in fc1's epilogue, the
+        residual in fc2's."""
+        return self.fc2(self.fc1(x, gelu=True), residual=residual)
 
 
 class SwinBlock(nn.Module):
@@ -309,8 +329,8 @@ class SwinBlock(nn.Module):
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), generator)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
-        u = u + self.attn(self.norm1(u), self.shift)
-        return u + self.mlp(self.norm2(u))
+        u = self.attn(self.norm1(u), self.shift, residual=u)  # u + attn(LN1(u)), the add in proj's epilogue
+        return self.mlp(self.norm2(u), residual=u)
 
 
 def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -4,8 +4,9 @@ SRResNet's two 64 -> 256 upconvs and at 128 -> 128 in both modes, and the
 fused RDB kernel; in bf16, or with ``--f32`` the f32 route (the flagship's
 six sites, Cin 256 and the RDB as five f32 conv launches). The bf16 run adds
 SwinIR-M's kernels at the ``swinir_eval_div2k_b4`` cell's padded shape
-(``SWIN``): its two 180-channel convs, ``window_attn_kernel`` (shift 4) and
-``layernorm_kernel``.
+(``SWIN``): its two 180-channel convs, ``window_attn_kernel`` (shift 4),
+``layernorm_kernel`` and ``token_linear_kernel`` at a Swin block's four
+linear sites (``SWIN_LINEARS``).
 
     python -m esr_tpu_torch.ops.cuda.conv_bench [--f32 | --widths | --tiles]
 
@@ -16,7 +17,9 @@ launches, median of 5 windows, ms per launch. One row a site: the kernel's
 ms, its plain version's (``conv3x3_reference`` / ``rdb5c_reference`` in the
 kernel's dtype), the library call's (``F.conv2d`` on the channels-last
 input; 2x2 mode: ``F.conv_transpose2d`` with the folded 4x4 weight; bf16
-``F.layer_norm`` for the LayerNorm; none for the RDB and the attention) and
+``F.layer_norm`` for the LayerNorm; for a linear its plain version,
+``F.linear`` then ``F.gelu`` or the residual add; none for the RDB and the
+attention) and
 the bound (:func:`bound`), TF32 off. Then one line, ``BENCH
 [f32] card | site ms | ... | rdb5c ms``, so that kernel versions built in
 turns on one card can be compared. ``--widths`` times the bf16 RDB at the
@@ -62,6 +65,10 @@ SWIN, SWIN_C, SWIN_HEADS, SWIN_WS = (4, 344, 512), 180, 6, 8
 # (site, Cout, LeakyReLU slope or None): the RSTBs' convs and conv_after_body,
 # and conv_before_upsample
 SWIN_CONVS = (("swin_conv", 180, None), ("swin_conv_up", 64, 0.01))
+# (site, K, N, GELU, residual): a Swin block's linears, attn.qkv, attn.proj,
+# mlp.fc1 and mlp.fc2, with their epilogues
+SWIN_LINEARS = (("linear_qkv", 180, 540, False, False), ("linear_proj", 180, 180, False, True),
+                ("linear_fc1", 180, 360, True, False), ("linear_fc2", 360, 180, False, True))
 # the f32 route: the flagship's six sites and a Cin the earlier f32 kernel
 # could not hold (256 -> 64 at 128)
 F32_SITES = SITES[:6] + (("cin256", 128, 256, 64, 3),)
@@ -206,9 +213,12 @@ def bench_swinir(g: torch.Generator) -> list[dict]:
     """SwinIR-M's bf16 kernels at ``SWIN``: the Cin 129-192 conv instances
     (180 -> 180, and 180 -> 64 with LeakyReLU(0.01)), the window attention
     with the shifted windows' mask (its bound from q, k, v read and the output
-    written once, 4 x 64 x 180 FLOP a token) and the LayerNorm (each token
-    read and written once)."""
+    written once, 4 x 64 x 180 FLOP a token), the LayerNorm (each token read
+    and written once) and the linears with their epilogues (the tokens and the
+    residual read and the output written once, 2 K N FLOP a token; the
+    weights, held on chip, not counted)."""
     from esr_tpu_torch.ops.cuda.layernorm import layer_norm, layer_norm_reference
+    from esr_tpu_torch.ops.cuda.token_linear import token_linear_launch, token_linear_reference, token_linear_weights
     from esr_tpu_torch.ops.cuda.window_attn import window_attention, window_attention_reference
 
     c, px = SWIN_C, SWIN[0] * SWIN[1] * SWIN[2]
@@ -242,6 +252,20 @@ def bench_swinir(g: torch.Generator) -> list[dict]:
                          launch_ms(lambda: layer_norm_reference(x, w, b, 1e-5), reps=3, windows=3),
                          launch_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5), reps=3, windows=3),
                          bound(8.0 * c * px, 2.0 * 2 * c * px)))
+    del x
+    for site, k, n, gelu, res in SWIN_LINEARS:
+        x = torch.randn(px, k, device="cuda", generator=g).bfloat16()
+        w = (torch.randn(n, k, device="cuda", generator=g) * k**-0.5).bfloat16()
+        b = (0.1 * torch.randn(n, device="cuda", generator=g)).bfloat16()
+        r = (2 * torch.randn(px, n, device="cuda", generator=g)).bfloat16() if res else None
+        kw = token_linear_weights(w, b)
+        epi = "gelu" if gelu else "residual" if res else "bias"
+        # the plain version is the library chain the kernel replaced: one timing for both columns
+        plain_ms = launch_ms(lambda: token_linear_reference(x, w, b, gelu, r), reps=3, windows=3)
+        rows.append(measured(site, "token_linear", f"{shape} {k}->{n} {epi}",
+                             launch_ms(lambda: token_linear_launch(x, kw, gelu, r)), plain_ms, plain_ms,
+                             bound(2.0 * k * n * px, 2.0 * px * (k + n + n * res))))
+        del x, r, kw
     return rows
 
 

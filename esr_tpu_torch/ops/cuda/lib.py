@@ -51,6 +51,9 @@ _SIGNATURES = {
     "layernorm": {
         "esr_layernorm": ([_VP] * 4 + [_LL, _I, _F, _I, _VP], _I),
     },
+    "token_linear": {
+        "esr_token_linear": ([_VP] * 5 + [_LL] + [_I] * 4 + [_VP], _I),
+    },
 }
 
 _lock = threading.Lock()

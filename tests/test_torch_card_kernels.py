@@ -70,11 +70,12 @@ def test_cuda_ptxas_rdb5c_instances_spill_nothing(ptxas):
 @pytest.mark.cuda
 @pytest.mark.parametrize("library,kernel,instances,serial", [
     ("conv3x3", "conv_tc_kernel", 20, True), ("conv3x3", "conv_f32_kernel", 8, False),
-    ("layernorm", "layernorm_kernel", 1, False)])
+    ("layernorm", "layernorm_kernel", 1, False), ("token_linear", "token_linear_kernel", 4, True)])
 def test_cuda_ptxas_instances_spill_nothing(ptxas, library, kernel, instances, serial):
     """Every instance of the conv kernel's widths and modes (20), the f32
-    route's N 8 / 16 / 32 / 64 in both modes (8) and the LayerNorm kernel:
-    nothing in local memory; the tensor-core conv's wgmma pipelined."""
+    route's N 8 / 16 / 32 / 64 in both modes (8), the LayerNorm kernel and
+    the token-wise linear's four (K, NW, epilogue) instances: nothing in
+    local memory; the tensor-core kernels' wgmma pipelined."""
     report = ptxas[library]
     found = _instances(report, kernel)
     spilled = [report[i + 1].strip() for i in found if "0 bytes spill stores" not in report[i + 1]]

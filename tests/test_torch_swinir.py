@@ -26,7 +26,7 @@ from esr_bench.reference.cem import Cem
 from esr_tpu_torch.cem import CEMConf, make_cem
 from esr_tpu_torch.models import make_eval_forward
 from esr_tpu_torch.models.networks import define_G, normalize_swinir_keys
-from esr_tpu_torch.ops.cuda import kpack_conv, layernorm, window_attn
+from esr_tpu_torch.ops.cuda import kpack_conv, layernorm, token_linear, window_attn
 from torch_card import REPO, cuda  # noqa: F401
 
 TOY = {"scale": 4, "bf16": False, "network_G": {
@@ -295,7 +295,7 @@ def test_cuda_conv_cin180_on_tensor_cores(cuda, cout, act, shape):
 def test_cuda_swinir_m_eval_forward_runs_on_the_kernels(cuda, shape, seed, rel_limit, residual_limit):
     """SwinIR-M at its published widths and depth behind the CEM, as a CUDA
     graph: 36 window_attn launches a replay, 11 conv3x3, 2 parity, 74
-    layernorm and no RDB launches; the answer within 10% (relative L2, the
+    layernorm, 144 token_linear and no RDB launches; the answer within 10% (relative L2, the
     detail over the consistent upscale) of the f32 reference (TF32 off), and
     consistent to 1e-3; at the ``swinir_eval_div2k_b4`` cell's shape, B4 x LR
     339 x 510 (padded 344 x 512), within the cell's own limits."""
@@ -312,11 +312,11 @@ def test_cuda_swinir_m_eval_forward_runs_on_the_kernels(cuda, shape, seed, rel_l
     lr = torch.rand(*shape, 3, device=cuda, generator=torch.Generator(device=cuda).manual_seed(seed))
     fwd(lr)
     counters = (window_attn.LAUNCHES, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP, layernorm.LAUNCHES,
-                rdb_conv.LAUNCHES)
+                token_linear.LAUNCHES, rdb_conv.LAUNCHES)
     before = [c.count for c in counters]
     out = fwd(lr)
     torch.cuda.synchronize()
-    assert [c.count - b for c, b in zip(counters, before)] == [36, 11, 2, 74, 0]
+    assert [c.count - b for c, b in zip(counters, before)] == [36, 11, 2, 74, 144, 0]
     cem = Cem(4, cuda)
     with torch.no_grad():
         want = cem.project(ref_swinir.generator(sd, M, lr), lr)

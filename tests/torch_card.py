@@ -9,7 +9,7 @@ The card's machine has no JAX, so the card tests run there without the
 conftest (which sets JAX up for the CPU tests)::
 
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py tests/test_torch_card_*.py \\
-        tests/test_torch_swinir.py tests/test_torch_layernorm.py
+        tests/test_torch_swinir.py tests/test_torch_layernorm.py tests/test_torch_linear.py
 
 Every test skips without an NVIDIA GPU (the kernels have no CPU mode)."""
 
@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from esr_tpu_torch.models.base_model import Adam
-from esr_tpu_torch.ops.cuda import kpack_conv, rdb_conv
+from esr_tpu_torch.ops.cuda import kpack_conv, rdb_conv, token_linear
 from esr_tpu_torch.ops.cuda.kpack_conv import conv3x3_reference
 from esr_tpu_torch.ops.cuda.rdb_conv import rdb5c_params_from_module, rdb5c_reference
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3_reference
@@ -51,10 +51,12 @@ TRAIN_HR = 128  # the train crop of train_explorable_SR.json (LR 32 x 32)
 NOISE_GRADS = ("conv_last.bias",)  # zero in exact arithmetic: the CEM projection removes a constant shift
 GRAD_BAND_FLOOR = 2.0**-8  # a bf16 half-ulp: the least relative L2 band a gradient is held to
 
-# every launch counter: the bf16 and f32 routes of both kernel families, and
+# every launch counter of the RRDB paths: the bf16 and f32 routes of both conv
+# kernel families, SwinIR's linears (none on these paths), and
 # conv_f32_kernel's own (last), which counts each launch of the f32 kernel
 ALL_COUNTERS = (rdb_conv.LAUNCHES, rdb_conv.LAUNCHES_F32, kpack_conv.LAUNCHES, kpack_conv.LAUNCHES_UP,
-                kpack_conv.LAUNCHES_F32_3X3, kpack_conv.LAUNCHES_F32_2X2, kpack_conv.LAUNCHES_F32)
+                kpack_conv.LAUNCHES_F32_3X3, kpack_conv.LAUNCHES_F32_2X2, token_linear.LAUNCHES,
+                kpack_conv.LAUNCHES_F32)
 # launches of conv_f32_kernel that one call of each f32 route makes
 F32_KERNEL_LAUNCHES = {rdb_conv.LAUNCHES_F32: 5, kpack_conv.LAUNCHES_F32_3X3: 1, kpack_conv.LAUNCHES_F32_2X2: 1}
 # the bf16 kernels the main path runs, and their launches in one flagship forward
