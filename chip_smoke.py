@@ -10,8 +10,9 @@
    replay of each forward of ``PATHS`` (the configuration's generator with
    seeded weights behind the CEM, graphed by ``make_eval_forward``; its
    first call captures the graph);
-3. ``conv_bench``'s rows in bf16 and on the f32 route: each kernel at its
-   sites, ms beside its plain version, the library call and the bound.
+3. ``conv_bench``'s rows in bf16, on the f32 route and of HAT's kernels:
+   each kernel at its sites, ms beside its plain version, the library call
+   and the bound.
 
 Prints one ``{"kernels": [...], "card": ...}`` JSON line (a row a kernel:
 its launches by path and its sites), then ``{"ok": true, "device": ...}``
@@ -30,13 +31,15 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 CARD_TESTS = ["tests/test_torch_cuda.py", *sorted(f"tests/{p.name}" for p in REPO.glob("tests/test_torch_card_*.py")),
-              "tests/test_torch_swinir.py", "tests/test_torch_layernorm.py", "tests/test_torch_linear.py"]
+              "tests/test_torch_swinir.py", "tests/test_torch_layernorm.py", "tests/test_torch_linear.py",
+              "tests/test_torch_hat.py"]
 # (path, configuration, LR batch (n, h, w), options changed): the eval cells'
 # forwards, and the flagship's on the f32 route
 PATHS = (("esr_eval", "esr_rrdb_x4_z1", (16, 128, 128), {}),
          ("esr_eval_f32", "esr_rrdb_x4_z1", (16, 128, 128), {"bf16": False}),
          ("srresnet_eval", "srresnet_x4_cem", (16, 128, 128), {}),
-         ("swinir_eval", "swinir_m_x4_real", (4, 339, 510), {}))
+         ("swinir_eval", "swinir_m_x4_real", (4, 339, 510), {}),
+         ("hat_eval", "hat_srx4_imagenet", (4, 339, 510), {}))
 
 
 @torch.no_grad()
@@ -79,7 +82,7 @@ def main() -> int:
     suite = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "cuda",
                             "-q", *CARD_TESTS], cwd=REPO).returncode
     by_path = launches()
-    rows = conv_bench.table()[0] + conv_bench.table("f32")[0]
+    rows = conv_bench.table()[0] + conv_bench.table("f32")[0] + conv_bench.table("hat")[0]
     kernels = [{"kernel": k, "launches_by_path": {p: n.get(k, 0) for p, n in by_path.items()},
                 "sites": [r for r in rows if r["kernel"] == k]} for k in dict.fromkeys(r["kernel"] for r in rows)]
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)

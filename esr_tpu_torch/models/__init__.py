@@ -1,4 +1,4 @@
-from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, SRResNet, SwinIR, VGG19FeatureExtractor
+from esr_tpu_torch.models.architecture import HAT, DiscriminatorVGG128, RRDBNet, SRResNet, SwinIR, VGG19FeatureExtractor
 from esr_tpu_torch.models.base_model import BaseModel, make_eval_forward
 from esr_tpu_torch.models.networks import (
     define_D,

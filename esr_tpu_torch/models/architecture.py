@@ -14,6 +14,14 @@
   an MLP, then a 3x3 conv, + identity) -> LayerNorm -> conv_after_body
   (+residual) -> conv_before_upsample + LeakyReLU(0.01) -> two nearest-2x
   + conv stages -> HR conv -> last conv; no Z input.
+- ``HAT``: the Hybrid Attention Transformer (Chen et al. 2023) with the
+  classical x4 ``pixelshuffle`` upsampler: conv_first -> patch LayerNorm ->
+  residual hybrid attention groups (RHAG: hybrid attention blocks, each a
+  window-16 attention plus a scaled channel-attention conv branch and an
+  MLP, then an overlapping cross-attention block, then a 3x3 conv, +
+  identity) -> LayerNorm -> conv_after_body (+residual) ->
+  conv_before_upsample + LeakyReLU(0.01) -> two conv 64 -> 256 + pixel
+  shuffle stages -> last conv; no Z input.
 - ``DiscriminatorVGG128``: the VGG-style 10-conv strided stack (BatchNorm
   after all but the first conv, LeakyReLU 0.2) and two linear heads -> one
   logit.
@@ -33,6 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from esr_tpu_torch.models.blocks import (
+    CAB,
+    HAB,
+    OCAB,
     RRDB,
     Conv1x1,
     ConvLRelu,
@@ -44,7 +55,7 @@ from esr_tpu_torch.models.blocks import (
     upsample_nearest,
 )
 
-__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "RRDBNet", "SRResNet", "SwinIR", "VGG19FeatureExtractor"]
+__all__ = ["DiscriminatorVGG128", "FlaxBatchNorm2d", "HAT", "RRDBNet", "SRResNet", "SwinIR", "VGG19FeatureExtractor"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -293,6 +304,109 @@ class SwinIR(_Generator):
         fea = self.conv_after_body(self.norm(t)) + fea
         y = self.conv_up2(self.conv_up1(self.conv_before_upsample[0](fea)))
         out = self.conv_last(self.conv_hr(y)).float() / self.img_range + self.mean
+        s = self.scale
+        return out if out.shape[1:3] == (s * h, s * w) else out[:, : s * h, : s * w].contiguous()
+
+
+class _RHAG(nn.Module):
+    """HAT's residual hybrid attention group (``resi_connection='1conv'``):
+    ``conv(ocab(blocks(t))) + t``, the HABs at shifts 0, ws / 2, 0, ...; keys
+    ``residual_group.blocks.{i}.*``, ``residual_group.overlap_attn.*`` and
+    ``conv``."""
+
+    def __init__(self, dim: int, depth: int, heads: int, ws: int, cfg: dict, generator: torch.Generator):
+        super().__init__()
+        self.residual_group = nn.Module()
+        self.residual_group.blocks = nn.ModuleList(
+            HAB(dim, heads, ws, 0 if i % 2 == 0 else ws // 2, cfg["compress_ratio"], cfg["squeeze_factor"],
+                cfg["conv_scale"], cfg["mlp_ratio"], generator) for i in range(depth))
+        self.residual_group.overlap_attn = OCAB(dim, heads, ws, cfg["overlap_ratio"], cfg["mlp_ratio"], generator)
+        self.conv = ConvLRelu(dim, dim, act=False, generator=generator)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        u = t
+        for blk in self.residual_group.blocks:
+            u = blk(u)
+        return self.conv(self.residual_group.overlap_attn(u)) + t
+
+
+class HAT(_Generator):
+    """NHWC HAT generator (``which_model_G: HAT``), the released classical
+    x4 layout (``upsampler='pixelshuffle'``, ``resi_connection='1conv'``) and
+    keys (``conv_first``, ``patch_embed.norm``, ``layers.{l}.residual_group.
+    blocks.{i}.{norm1, conv_block.cab.{0,2}, conv_block.cab.3.attention.{1,3},
+    attn.relative_position_bias_table, attn.qkv, attn.proj, norm2, mlp.fc1,
+    mlp.fc2}``, ``layers.{l}.residual_group.overlap_attn.*``,
+    ``layers.{l}.conv``, ``norm``, ``conv_after_body``,
+    ``conv_before_upsample.0``, ``upsample.{0,2}``, ``conv_last``;
+    ``networks.normalize_swinir_keys`` reads a released file).
+
+    The LR is reflect-padded to multiples of the window and the output
+    cropped back; tokens stay NHWC in ``dtype``, the residual stream too;
+    LayerNorm statistics, the softmax and the channel attention's squeeze
+    are f32. On the card in bf16: every 3x3 conv on the conv kernels
+    (``conv_tc_kernel``, the CABs' first on ``conv_tc_kernel_gelu``), every
+    attention on the ``hat_attn`` kernel, every channel attention on the
+    ``channel_attn`` kernels, every linear on ``token_linear`` and every
+    LayerNorm on ``layernorm``. No Z input (``num_latent_channels`` 0)."""
+
+    MEAN = (0.4488, 0.4371, 0.4040)
+    NUM_FEAT = 64
+
+    def __init__(self, in_chans: int = 3, embed_dim: int = 180, depths=(6,) * 6, num_heads=(6,) * 6,
+                 window_size: int = 16, compress_ratio: int = 3, squeeze_factor: int = 30, conv_scale: float = 0.01,
+                 overlap_ratio: float = 0.5, mlp_ratio: float = 2.0, upscale: int = 4, img_range: float = 1.0,
+                 upsampler: str = "pixelshuffle", resi_connection: str = "1conv",
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        if upsampler != "pixelshuffle" or resi_connection != "1conv" or upscale != 4:
+            raise NotImplementedError(f"HAT: upsampler {upsampler!r}, resi_connection {resi_connection!r}, x"
+                                      f"{upscale}; the port has the classical x4 'pixelshuffle' / '1conv' model")
+        self.num_latent_channels = 0
+        self.scale = upscale
+        self.dtype = dtype
+        self.window_size = window_size
+        self.img_range = float(img_range)
+        self.register_buffer("mean", torch.tensor(self.MEAN if in_chans == 3 else (0.0,) * in_chans),
+                             persistent=False)
+        g = torch.Generator().manual_seed(seed)
+        nf = self.NUM_FEAT
+        cfg = {"compress_ratio": compress_ratio, "squeeze_factor": squeeze_factor, "conv_scale": conv_scale,
+               "overlap_ratio": overlap_ratio, "mlp_ratio": mlp_ratio}
+        self.conv_first = ConvLRelu(in_chans, embed_dim, act=False, generator=g)
+        self.patch_embed = nn.Module()
+        self.patch_embed.norm = LayerNorm(embed_dim)
+        self.layers = nn.ModuleList(
+            _RHAG(embed_dim, d, h, window_size, cfg, g) for d, h in zip(depths, num_heads))
+        self.norm = LayerNorm(embed_dim)
+        self.conv_after_body = ConvLRelu(embed_dim, embed_dim, act=False, generator=g)
+        self.conv_before_upsample = nn.ModuleList([ConvLRelu(embed_dim, nf, act=True, slope=0.01, generator=g)])
+        self.upsample = nn.ModuleList([ConvLRelu(nf, 4 * nf, act=False, generator=g), nn.PixelShuffle(2),
+                                       ConvLRelu(nf, 4 * nf, act=False, generator=g), nn.PixelShuffle(2)])
+        self.conv_last = ConvLRelu(nf, in_chans, act=False, generator=g)
+
+    def _kernel_modules(self) -> list[nn.Module]:
+        """The convs (the CABs' inside their ``CAB``, which pads them), the
+        attentions, the CABs and the linears and norms."""
+        inner = {id(c) for m in self.modules() if isinstance(m, CAB) for c in m.convs()}
+        return [m for m in self.modules() if m is not self and hasattr(m, "prepare_kernel") and id(m) not in inner]
+
+    def forward(self, lr: torch.Tensor, z: torch.Tensor | None = None) -> torch.Tensor:
+        """lr: (N, H, W, in_chans) in [0, 1] -> (N, 4H, 4W, in_chans) f32."""
+        if z is not None:
+            raise ValueError("HAT takes no Z map")
+        _, h, w, _ = lr.shape
+        ws = self.window_size
+        x = F.pad(lr.permute(0, 3, 1, 2), (0, (ws - w % ws) % ws, 0, (ws - h % ws) % ws), mode="reflect")
+        x = ((x.permute(0, 2, 3, 1) - self.mean) * self.img_range).to(self.dtype)
+        fea = self.conv_first(x)
+        t = self.patch_embed.norm(fea)
+        for layer in self.layers:
+            t = layer(t)
+        fea = self.conv_after_body(self.norm(t)) + fea
+        y = self.conv_before_upsample[0](fea)
+        y = pixel_shuffle(self.upsample[2](pixel_shuffle(self.upsample[0](y), 2)), 2)
+        out = self.conv_last(y).float() / self.img_range + self.mean
         s = self.scale
         return out if out.shape[1:3] == (s * h, s * w) else out[:, : s * h, : s * w].contiguous()
 

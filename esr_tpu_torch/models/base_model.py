@@ -36,7 +36,7 @@ from torch import nn
 
 import esr_tpu_torch.parallel as P
 from esr_tpu_torch.data.util import parse_size
-from esr_tpu_torch.models.architecture import RRDBNet, SwinIR
+from esr_tpu_torch.models.architecture import HAT, RRDBNet, SwinIR
 from esr_tpu_torch.models.networks import normalize_rrdb_keys, normalize_swinir_keys
 from esr_tpu_torch.ops.color import tensor2img, to_uint8
 from esr_tpu_torch.ops.ensemble import make_self_ensemble
@@ -603,7 +603,7 @@ class BaseModel:
         into the generator, strictly: the file this port's ``save_network``
         or ``esr_tpu/scripts/export_torch_weights.py`` writes, or a released
         reference ``*_G.pth`` in either of its key layouts
-        (``networks.normalize_rrdb_keys``; a SwinIR file through
+        (``networks.normalize_rrdb_keys``; a SwinIR or HAT file through
         ``normalize_swinir_keys``). The kernels' weight layouts built
         from the old weights are dropped, and an eval forward is rebuilt on
         the new ones, and so are the train step's CUDA graphs."""
@@ -613,7 +613,7 @@ class BaseModel:
                 "torch .pth state dict — convert it with `python -m esr_tpu.scripts.export_torch_weights "
                 f"--kind rrdb --ckpt {path} --out G.pth`")
         self.wait_for_checkpoints()
-        normalize = normalize_swinir_keys if isinstance(self.g_module, SwinIR) else normalize_rrdb_keys
+        normalize = normalize_swinir_keys if isinstance(self.g_module, (SwinIR, HAT)) else normalize_rrdb_keys
         state = normalize(torch.load(path, map_location=self.device, weights_only=True))
         self._drop_step_graphs()
         self._load_state(self.g_module, state)

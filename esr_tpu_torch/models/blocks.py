@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from esr_tpu_torch.ops.cuda.autograd import conv3x3_fn, rdb5c_fn, upsample2x_conv3x3_fn
+from esr_tpu_torch.ops.cuda.channel_attn import channel_attention
+from esr_tpu_torch.ops.cuda.hat_attn import hab_attention, kernel_table, oca_attention
 from esr_tpu_torch.ops.cuda.kpack_conv import conv_kernel_weights, conv_launch, kpack_conv3x3
 from esr_tpu_torch.ops.cuda.layernorm import layer_norm
 from esr_tpu_torch.ops.cuda.rdb_conv import (
@@ -40,11 +42,16 @@ from esr_tpu_torch.ops.cuda.window_attn import relative_bias, window_attention
 from esr_tpu_torch.ops.fused import upsample2x_conv3x3
 
 __all__ = [
+    "CAB",
+    "ChannelAttention",
     "Conv1x1",
     "ConvLRelu",
     "FusedUpsampleConvLRelu",
+    "HAB",
+    "HabAttention",
     "LayerNorm",
     "Linear",
+    "OCAB",
     "RRDB",
     "ResidualBlockNoBN",
     "ResidualDenseBlock5C",
@@ -330,6 +337,151 @@ class SwinBlock(nn.Module):
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         u = self.attn(self.norm1(u), self.shift, residual=u)  # u + attn(LN1(u)), the add in proj's epilogue
+        return self.mlp(self.norm2(u), residual=u)
+
+
+class HabAttention(WindowAttention):
+    """HAT's ``WindowAttention`` of a HAB (window 16; the released keys
+    ``relative_position_bias_table``, ``qkv``, ``proj``): the attention is
+    ``hab_attention`` (the ``hat_attn`` kernel on the card), given the table
+    transposed, (heads, T^2) f32: built once by ``prepare_kernel``, else at
+    each call."""
+
+    def prepare_kernel(self, dtype: torch.dtype) -> None:  # noqa: ARG002 (the table stays f32)
+        """The kernel's table, once (on the card; none on the CPU)."""
+        table = self.relative_position_bias_table.detach()
+        self.kernel_weights = kernel_table(table) if table.is_cuda else None
+
+    def forward(self, x: torch.Tensor, shift: int, residual: torch.Tensor | None = None) -> torch.Tensor:
+        table_t = self.kernel_weights if self.kernel_weights is not None else kernel_table(
+            self.relative_position_bias_table)
+        return self.proj(hab_attention(self.qkv(x), table_t, self.heads, self.ws, shift), residual=residual)
+
+
+class ChannelAttention(nn.Module):
+    """HAT's ``ChannelAttention`` (a squeeze-excitation: pool, 1x1 C ->
+    C / squeeze, ReLU, 1x1 back, sigmoid) as parameters, under the released
+    keys ``attention.1`` and ``attention.3``; ``CAB`` computes it, with the
+    residual it feeds (``channel_attention``)."""
+
+    def __init__(self, dim: int, squeeze_factor: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.attention = nn.ModuleList([nn.AdaptiveAvgPool2d(1), Conv1x1(dim, dim // squeeze_factor, generator),
+                                        nn.ReLU(), Conv1x1(dim // squeeze_factor, dim, generator), nn.Sigmoid()])
+
+    def squeeze(self) -> tuple[torch.Tensor, ...]:
+        """(W1 (hidden, C), b1, W2 (C, hidden), b2), f32."""
+        a = self.attention
+        return a[1].weight[:, :, 0, 0].float(), a[1].bias.float(), a[3].weight[:, :, 0, 0].float(), a[3].bias.float()
+
+
+class CAB(nn.Module):
+    """HAT's channel attention block (released keys ``cab.0``, ``cab.2``,
+    ``cab.3.attention.{1,3}``): conv 3x3 C -> C / compress, GELU (erf), conv
+    back, channel attention. :meth:`residual` returns ``u + scale CAB(h)``,
+    the HAB residual that its attention's proj adds. On the card in bf16
+    (the layouts ``prepare_kernel`` built): the first conv on
+    ``conv_tc_kernel_gelu`` with its Cout padded to a slice of 64 (the
+    padded channels are GELU(0) = 0), the second on ``conv_tc_kernel`` with
+    that Cin and its Cout padded to whole slices, and ``channel_attention``'s
+    kernels reading its first C channels; elsewhere the plain convs."""
+
+    kernel_weights = None  # the two convs' layouts and the squeeze, from prepare_kernel
+
+    def __init__(self, dim: int, compress_ratio: int, squeeze_factor: int, generator: torch.Generator | None = None):
+        super().__init__()
+        mid = dim // compress_ratio
+        self.cab = nn.ModuleList([ConvLRelu(dim, mid, act=False, generator=generator), nn.GELU(),
+                                  ConvLRelu(mid, dim, act=False, generator=generator),
+                                  ChannelAttention(dim, squeeze_factor, generator)])
+
+    def convs(self) -> tuple[ConvLRelu, ConvLRelu]:
+        return self.cab[0], self.cab[2]
+
+    def prepare_kernel(self, dtype: torch.dtype) -> None:
+        """The convs' layouts, their widths padded to whole slices of 64, and
+        the squeeze in f32, once (on the card in bf16; none otherwise)."""
+        c1, c2 = self.convs()
+        if not (c1.weight.is_cuda and dtype == torch.bfloat16):
+            self.kernel_weights = None
+            return
+        mid, dim = c1.weight.shape[0], c2.weight.shape[0]
+        mid_pad, dim_pad = -(-mid // 64) * 64, -(-dim // 64) * 64
+        w1, b1 = F.pad(c1.hwio().detach(), (0, mid_pad - mid)), F.pad(c1.bias.detach(), (0, mid_pad - mid))
+        w2 = F.pad(c2.hwio().detach(), (0, dim_pad - dim, 0, mid_pad - mid))
+        b2 = F.pad(c2.bias.detach(), (0, dim_pad - dim))
+        dev = c1.weight.device
+        self.kernel_weights = (conv_kernel_weights(w1, b1, dtype, dev), conv_kernel_weights(w2, b2, dtype, dev),
+                               tuple(t.detach().contiguous() for t in self.cab[3].squeeze()))
+
+    def residual(self, h: torch.Tensor, u: torch.Tensor, scale: float) -> torch.Tensor:
+        """``u + scale * CAB(h)``."""
+        kw = self.kernel_weights
+        if kw is not None and h.is_cuda and not torch.is_grad_enabled():
+            cx = conv_launch(conv_launch(h, kw[0], False, gelu=True), kw[1], False)
+            squeeze = kw[2]
+        else:
+            c1, c2 = self.convs()
+            cx, squeeze = c2(F.gelu(c1(h))), self.cab[3].squeeze()
+        return channel_attention(cx, u, *squeeze, scale)
+
+
+class HAB(nn.Module):
+    """HAT's hybrid attention block (``HAB``, test time: no dropout or
+    drop-path) on (B, Hp, Wp, C) tokens: ``u + attn(LN1(u)) + conv_scale
+    CAB(LN1(u))`` with the window attention at cyclic shift ``shift``, then
+    ``+ mlp(LN2(.))`` (fc1, GELU with erf, fc2). Keys ``norm1``,
+    ``conv_block.*``, ``attn.*``, ``norm2``, ``mlp.fc1``, ``mlp.fc2``."""
+
+    def __init__(self, dim: int, heads: int, ws: int, shift: int, compress_ratio: int, squeeze_factor: int,
+                 conv_scale: float, mlp_ratio: float, generator: torch.Generator | None = None):
+        super().__init__()
+        self.shift, self.conv_scale = shift, conv_scale
+        self.norm1 = LayerNorm(dim)
+        self.conv_block = CAB(dim, compress_ratio, squeeze_factor, generator)
+        self.attn = HabAttention(dim, heads, ws, generator)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = _Mlp(dim, int(dim * mlp_ratio), generator)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(u)
+        r = self.conv_block.residual(h, u, self.conv_scale)  # u + 0.01 CAB(h), proj adds attn(h) to it
+        u = self.attn(h, self.shift, residual=r)
+        return self.mlp(self.norm2(u), residual=u)
+
+
+class OCAB(nn.Module):
+    """HAT's overlapping cross-attention block (``OCAB``, keys ``norm1``,
+    ``qkv``, ``relative_position_bias_table``, ``proj``, ``norm2``,
+    ``mlp.fc1``, ``mlp.fc2``): ``u + proj(oca(LN1(u)))``, then ``+
+    mlp(LN2(.))``. The attention is ``oca_attention`` (the ``hat_attn``
+    kernel on the card): each ws x ws window's queries against the wse x wse
+    window centred on it, wse = ws + overlap_ratio ws, given the table
+    transposed (``prepare_kernel``, else at each call)."""
+
+    kernel_weights = None  # the kernel's table, from prepare_kernel
+
+    def __init__(self, dim: int, heads: int, ws: int, overlap_ratio: float, mlp_ratio: float,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.heads, self.ws, self.wse = heads, ws, int(ws * overlap_ratio) + ws
+        self.norm1 = LayerNorm(dim)
+        self.qkv = Linear(dim, 3 * dim, generator)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.randn(((ws + self.wse - 1) ** 2, heads), generator=generator) * 0.02)
+        self.proj = Linear(dim, dim, generator)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = _Mlp(dim, int(dim * mlp_ratio), generator)
+
+    def prepare_kernel(self, dtype: torch.dtype) -> None:  # noqa: ARG002 (the table stays f32)
+        """The kernel's table, once (on the card; none on the CPU)."""
+        table = self.relative_position_bias_table.detach()
+        self.kernel_weights = kernel_table(table) if table.is_cuda else None
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        table_t = self.kernel_weights if self.kernel_weights is not None else kernel_table(
+            self.relative_position_bias_table)
+        u = self.proj(oca_attention(self.qkv(self.norm1(u)), table_t, self.heads, self.ws, self.wse), residual=u)
         return self.mlp(self.norm2(u), residual=u)
 
 

@@ -1,13 +1,13 @@
 """Network factories and the JAX -> port weight bridges (port of
 esr_tpu/models/networks.py): ``define_G`` / ``define_D`` / ``define_F`` build
-the generator (RRDBNet, SRResNet or SwinIR), the discriminator and the frozen VGG19
+the generator (RRDBNet, SRResNet, SwinIR or HAT), the discriminator and the frozen VGG19
 feature extractor from the reference options dict; ``state_dict_from_jax``,
 ``srresnet_state_dict_from_jax``, ``discriminator_state_dict_from_jax``,
 ``vgg_state_dict_from_jax`` and ``kernelgan_state_dict_from_jax`` turn the
 JAX package's param trees into the port's state_dicts (the reference torch
 keys where there are any); ``normalize_rrdb_keys`` reads the reference's
 released generator files (both of its key layouts), ``normalize_swinir_keys``
-the released SwinIR files."""
+the released SwinIR and HAT files."""
 
 from __future__ import annotations
 
@@ -19,7 +19,14 @@ import torch
 
 from esr_tpu_torch.device import resolve_device
 from esr_tpu_torch.data.util import parse_size
-from esr_tpu_torch.models.architecture import DiscriminatorVGG128, RRDBNet, SRResNet, SwinIR, VGG19FeatureExtractor
+from esr_tpu_torch.models.architecture import (
+    HAT,
+    DiscriminatorVGG128,
+    RRDBNet,
+    SRResNet,
+    SwinIR,
+    VGG19FeatureExtractor,
+)
 
 __all__ = [
     "define_D",
@@ -36,14 +43,17 @@ __all__ = [
 ]
 
 
-def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> RRDBNet | SRResNet | SwinIR:
+def define_G(opt: dict, device: str | torch.device = "cuda",
+             seed: int = 0) -> RRDBNet | SRResNet | SwinIR | HAT:
     """The generator from the reference options dict (``network_G`` block:
-    ``which_model_G`` (``RRDB_net``, ``sr_resnet`` or ``SwinIR``), ``nf``,
-    ``nb``, ``in_nc``, ``out_nc``, ``gc``, ``latent_input``,
+    ``which_model_G`` (``RRDB_net``, ``sr_resnet``, ``SwinIR`` or ``HAT``),
+    ``nf``, ``nb``, ``in_nc``, ``out_nc``, ``gc``, ``latent_input``,
     ``num_latent_channels``; SwinIR takes its released constructor's keys
     (``in_chans``, ``embed_dim``, ``depths``, ``num_heads``, ``window_size``,
     ``mlp_ratio``, ``upscale``, ``img_range``, ``upsampler``,
-    ``resi_connection``; ``img_size`` is accepted and changes nothing);
+    ``resi_connection``; ``img_size`` is accepted and changes nothing), HAT
+    the same and ``compress_ratio``, ``squeeze_factor``, ``conv_scale`` and
+    ``overlap_ratio``;
     top-level ``scale`` and ``bf16``), in eval mode on ``device`` with seeded
     weights. ``fold`` and ``packed`` are accepted and change nothing:
     per-image math is identical."""
@@ -64,6 +74,29 @@ def define_G(opt: dict, device: str | torch.device = "cuda", seed: int = 0) -> R
             upscale=scale,
             img_range=float(o.get("img_range") or 1.0),
             upsampler=o.get("upsampler") or "nearest+conv",
+            resi_connection=o.get("resi_connection") or "1conv",
+            dtype=_dtype(opt),
+            seed=seed,
+        )
+        return g.to(dev).eval()
+    if which == "hat":
+        scale = int(o.get("upscale") or opt.get("scale") or 4)
+        if opt.get("scale") and int(opt["scale"]) != scale:
+            raise ValueError(f"HAT: network_G.upscale {scale} and scale {opt['scale']} differ")
+        g = HAT(
+            in_chans=int(o.get("in_chans") or 3),
+            embed_dim=int(o.get("embed_dim") or 180),
+            depths=tuple(o.get("depths") or (6,) * 6),
+            num_heads=tuple(o.get("num_heads") or (6,) * 6),
+            window_size=int(o.get("window_size") or 16),
+            compress_ratio=int(o.get("compress_ratio") or 3),
+            squeeze_factor=int(o.get("squeeze_factor") or 30),
+            conv_scale=float(o.get("conv_scale") or 0.01),
+            overlap_ratio=float(o.get("overlap_ratio") or 0.5),
+            mlp_ratio=float(o.get("mlp_ratio") or 2.0),
+            upscale=scale,
+            img_range=float(o.get("img_range") or 1.0),
+            upsampler=o.get("upsampler") or "pixelshuffle",
             resi_connection=o.get("resi_connection") or "1conv",
             dtype=_dtype(opt),
             seed=seed,
@@ -168,17 +201,20 @@ def normalize_rrdb_keys(state: dict) -> dict:
 
 
 def normalize_swinir_keys(state: dict) -> dict:
-    """A released SwinIR state dict (``main_test_swinir.py``'s files) in the
-    keys the port's ``SwinIR`` loads: the ``params`` / ``params_ema`` wrapper
-    unwrapped (``params_ema`` first, as the released script takes it), the
-    buffers the port does not keep (``relative_position_index``, each
-    shifted block's ``attn_mask``) dropped. Other keys pass as they are."""
+    """A released SwinIR or HAT state dict (``main_test_swinir.py``'s files,
+    HAT's ``HAT_SRx4*.pth``) in the keys the port's ``SwinIR`` and ``HAT``
+    load: the ``params`` / ``params_ema`` wrapper unwrapped (``params_ema``
+    first, as the released scripts take it), the buffers the port does not
+    keep (SwinIR's ``relative_position_index`` and each shifted block's
+    ``attn_mask``, HAT's ``relative_position_index_SA`` / ``_OCA``) dropped.
+    Other keys pass as they are."""
     for key in ("params_ema", "params"):
         if isinstance(state.get(key), dict):
             state = state[key]
             break
     return {k: v for k, v in state.items()
-            if not k.endswith(("attn.relative_position_index", ".attn_mask"))}
+            if not k.endswith(("attn.relative_position_index", ".attn_mask"))
+            and not k.startswith("relative_position_index_")}
 
 
 def rrdb_options_from_state(state: dict) -> dict:

@@ -8,7 +8,7 @@ SwinIR-M's kernels at the ``swinir_eval_div2k_b4`` cell's padded shape
 ``layernorm_kernel`` and ``token_linear_kernel`` at a Swin block's four
 linear sites (``SWIN_LINEARS``).
 
-    python -m esr_tpu_torch.ops.cuda.conv_bench [--f32 | --widths | --tiles]
+    python -m esr_tpu_torch.ops.cuda.conv_bench [--f32 | --widths | --tiles | --hat]
 
 Each conv site (B16) runs through ``conv_launch``, the RDB (B16 x 128 x 128
 x 64, nf 64, gc 32) through ``rdb5c_launch``, each with its weight layout
@@ -29,7 +29,12 @@ work. ``--tiles`` times each nf 64 / gc 32 tile of the bf16 RDB at the grids
 of ``TILE_SHAPES`` (20 launches captured in a CUDA graph, as the graphed
 forwards and Z steps run them, so that no host time between launches
 counts; median of 5 replays) beside the tile ``rdb5c_tile`` picks and the
-bound. Needs an NVIDIA GPU.
+bound. ``--hat`` times the kernels HAT adds at the ``hat_eval_div2k_b4``
+cell's padded shape (``HAT``): the CAB's two convs (180 -> 60 with GELU on
+``conv_tc_kernel_gelu``, 60 -> 180), the channel attention (its pool and
+scale), ``hat_attn_kernel`` as the HAB's shifted window-16 attention and as
+the OCAB's overlapping one, each beside its plain version and its bound.
+Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -269,6 +274,58 @@ def bench_swinir(g: torch.Generator) -> list[dict]:
     return rows
 
 
+HAT = (4, 352, 512)  # the hat_eval_div2k_b4 cell's padded LR batch
+
+
+def bench_hat(g: torch.Generator) -> tuple[list[dict], list[str]]:
+    """HAT's bf16 kernels at ``HAT`` (C 180, 6 heads, window 16): the CAB's
+    convs (Cout 60 padded to 64 with GELU, then Cin 64 to Cout 192), the
+    channel attention (bound by the CAB's output and the block's input read
+    once and the residual written once; the kernels read the CAB's output
+    twice), the HAB attention at shift 8 and the OCAB
+    attention (q, k, v read and the output written once, 4 N C FLOP a
+    token, N = 256 or 576)."""
+    from esr_tpu_torch.ops.cuda import channel_attn, hat_attn
+
+    c, px = SWIN_C, HAT[0] * HAT[1] * HAT[2]
+    shape = "B{} {}x{}".format(*HAT)
+    rows, fields = [], []
+    x = torch.randn(*HAT, c, device="cuda", generator=g).bfloat16()
+    w1 = torch.randn(3, 3, c, 60, device="cuda", generator=g) * (2.0 / (9 * c)) ** 0.5
+    w2 = torch.randn(3, 3, 60, c, device="cuda", generator=g) * (2.0 / (9 * 60)) ** 0.5
+    kw1 = conv_kernel_weights(F.pad(w1, (0, 4)), torch.zeros(64, device="cuda"), torch.bfloat16, x.device)
+    kw2 = conv_kernel_weights(F.pad(w2, (0, 12, 0, 4)), torch.zeros(192, device="cuda"), torch.bfloat16, x.device)
+    y1 = conv_launch(x, kw1, False, gelu=True)
+    y2 = conv_launch(y1, kw2, False)
+    for site, xin, kw, w, gelu, cin, cout in (("cab_conv1", x, kw1, w1, True, c, 60),
+                                               ("cab_conv2", y1[..., :60], kw2, w2, False, 60, c)):
+        xk = y1 if site == "cab_conv2" else x
+        rows.append(measured(site, "conv3x3", f"{shape} {cin}->{cout}" + " gelu" * gelu,
+                             launch_ms(lambda: conv_launch(xk, kw, False, gelu=gelu)),
+                             launch_ms(lambda: conv3x3_reference(xin, w, None, gelu=gelu), reps=3, windows=3), None,
+                             conv_bound(px, cin, cout, 3, 2, PEAK_BF16_FLOPS)))
+    u = torch.randn(*HAT, c, device="cuda", generator=g).bfloat16()
+    sq = (0.1 * torch.randn(6, c, device="cuda", generator=g), torch.zeros(6, device="cuda"),
+          torch.randn(c, 6, device="cuda", generator=g), torch.zeros(c, device="cuda"))
+    rows.append(measured("channel_attn", "channel_attn", f"cx {shape} 192 u {c}",
+                         launch_ms(lambda: channel_attn.channel_attention(y2, u, *sq, 0.01)),
+                         launch_ms(lambda: channel_attn.channel_attention_reference(y2, u, *sq, 0.01), reps=3,
+                                   windows=3), None, bound(3.0 * c * px, 2.0 * 3 * c * px)))
+    del x, y1, y2, u, kw1, kw2
+    qkv = torch.randn(*HAT, 3 * c, device="cuda", generator=g).bfloat16()
+    for site, keys in (("hab_attn", 16), ("oca_attn", 24)):
+        table = torch.randn(6, (16 + keys - 1) ** 2, device="cuda", generator=g)
+        if keys == 16:
+            args, fn, plain = (qkv, table, 6, 16, 8), hat_attn.hab_attention, hat_attn.hab_attention_reference
+        else:
+            args, fn, plain = (qkv, table, 6, 16, 24), hat_attn.oca_attention, hat_attn.oca_attention_reference
+        rows.append(measured(site, site, f"qkv {shape} {3 * c} keys {keys}x{keys}", launch_ms(lambda: fn(*args)),
+                             launch_ms(lambda: plain(*args), reps=2, windows=3), None,
+                             bound(4.0 * keys * keys * c * px, 2.0 * 4 * c * px)))
+    fields += [f"{r['name']} {r['ms']:.4f}" for r in rows]
+    return rows, fields
+
+
 def bench_tiles(g: torch.Generator) -> tuple[list[dict], list[str]]:
     """ms a launch of each nf 64 / gc 32 tile at each grid, and the rule's tile."""
     from esr_tpu_torch.ops.cuda import rdb_conv
@@ -321,7 +378,7 @@ def bench_widths(g: torch.Generator) -> tuple[list[dict], list[str]]:
 @torch.no_grad()
 def table(mode: str = "") -> tuple[list[dict], list[str]]:
     """The rows and BENCH fields of a run: ``mode`` "" (bf16), "f32",
-    "widths" or "tiles"; TF32 off, inputs and weights from seed 0."""
+    "widths", "tiles" or "hat"; TF32 off, inputs and weights from seed 0."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator("cuda").manual_seed(0)
@@ -329,6 +386,8 @@ def table(mode: str = "") -> tuple[list[dict], list[str]]:
         return bench_widths(g)
     if mode == "tiles":
         return bench_tiles(g)
+    if mode == "hat":
+        return bench_hat(g)
     return bench_sites(g, mode == "f32")
 
 
@@ -338,10 +397,11 @@ def main() -> None:
     what.add_argument("--f32", action="store_true", help="time the f32 route instead of the bf16 kernels")
     what.add_argument("--widths", action="store_true", help="time the bf16 RDB at the widths of WIDTHS")
     what.add_argument("--tiles", action="store_true", help="time each nf 64 / gc 32 RDB tile at small grids")
+    what.add_argument("--hat", action="store_true", help="time the kernels HAT adds at its cell's shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_bench: needs an NVIDIA GPU")
-    rows, fields = table("f32" * args.f32 or "widths" * args.widths or "tiles" * args.tiles)
+    rows, fields = table("f32" * args.f32 or "widths" * args.widths or "tiles" * args.tiles or "hat" * args.hat)
     print(*map(text, rows), sep="\n", flush=True)
     print(f"BENCH {'f32 ' * args.f32}{torch.cuda.get_device_name(0)} | " + " | ".join(fields), flush=True)
 

@@ -33,9 +33,11 @@ int launch_f32(const esr::ConvF32Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int N, int KS, bool UP, int KC, bool SLICED>
+// GELU: conv_tc_kernel_gelu, else conv_tc_kernel.
+template <int N, int KS, bool UP, int KC, bool SLICED, bool GELU = false>
 int launch_tc(const esr::ConvTcArgs& a, cudaStream_t stream) {
-  const auto kernel = esr::conv_tc_kernel<N, KS, UP, KC, SLICED>;
+  auto kernel = esr::conv_tc_kernel<N, KS, UP, KC, SLICED>;
+  if constexpr (GELU) kernel = esr::conv_tc_kernel_gelu<N, KS, UP, KC, SLICED>;
   CUtensorMap xmap, omap;
   memset(&xmap, 0, sizeof(xmap));
   memset(&omap, 0, sizeof(omap));
@@ -91,6 +93,11 @@ int launch_bf16_tc(const void* x, const void* wt, const void* bias, void* out, i
   const bool n64 = cout_pad % 64 == 0 && cout == cout_pad && a.slices <= esr::kTcMaxSlices;
   if (!(n64 || (cout_pad == 8 && cout <= 8)) || cin > 64 * esr::kTcMaxChunks) return kErrShape;
   if (act == 2 && kc != 3) return kErrShape;  // lrelu_0.01: the Cin 129-192 instances alone
+  if (act == 3) {  // GELU: Cin 129-192 (a multiple of 4), 3x3, one Cout slice of 64
+    if (n64 && !up && !sliced && kc == 3 && cin_pad == 192 && cin % 4 == 0)
+      return launch_tc<64, 4, false, 3, false, true>(a, stream);
+    return kErrShape;
+  }
 #define ESR_CONV_TC(NN, KK, CC, SL)                                                          \
   if ((NN == 64 ? n64 : cout_pad == 8) && cin_pad == (KK == 1 ? 16 : 64 * CC) && kc == CC && \
       sliced == SL)                                                                          \
@@ -120,7 +127,8 @@ extern "C" {
 // the weight image of conv_kernel_weights, cin_pad 16 (cin <= 16), 64, 128 or
 // 192 (64 per K chunk; 192: 3x3, cout a multiple of 64, cin a multiple of 4),
 // cout_pad 8 (cout <= 8) or cout itself, a multiple of 64 up to 1024; act 0
-// (none), 1 (lrelu_0.2) or 2 (lrelu_0.01, cin_pad 192 only). Returns 0, a
+// (none), 1 (lrelu_0.2), 2 (lrelu_0.01, cin_pad 192 only) or 3 (GELU with
+// erf, cin_pad 192 and cout 64 only). Returns 0, a
 // cudaError_t of the launch, or one of the negative codes above.
 int esr_conv(const void* x, const void* wt, const void* bias, void* out, int n, int h, int w,
              int cin, int cin_pad, int cout, int cout_pad, int ksize, int act, void* stream) {
@@ -181,7 +189,8 @@ const char* esr_error_string(int err) {
   if (err == kErrShape)
     return "the tensor-core kernel takes cin up to 128 (cin_pad 16, 64 or 128) and cout <= 8 "
            "(cout_pad 8) or cout == cout_pad, a multiple of 64 up to 1024; or, in 3x3 mode, cin 129-192 "
-           "(a multiple of 4, cin_pad 192) and cout a multiple of 64; act 2 (lrelu_0.01) with cin_pad 192 only";
+           "(a multiple of 4, cin_pad 192) and cout a multiple of 64; act 2 (lrelu_0.01) with cin_pad 192 only, "
+           "act 3 (GELU) with cin_pad 192 and cout 64 only";
   if (err == kErrF32Shape)
     return "the f32 kernel takes n_width 8, 16, 32 or 64, ksize 3 or 2 (a residual in 3x3 mode only), "
            "cout >= 1, cin >= 1 and fewer than 2^31 blocks";

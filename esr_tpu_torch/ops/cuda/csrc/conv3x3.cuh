@@ -27,6 +27,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "gelu.cuh"
 #include "hopper.cuh"
 
 namespace esr {
@@ -105,7 +106,10 @@ __device__ __forceinline__ size_t conv_out_pixel(int n, int h, int w, int gy, in
 //   take) loads its windows with 8-byte cp.async copies that zero-fill
 //   outside the image and beyond Cin (Cin a multiple of 4). These instances
 //   also take lrelu_0.01 (act 2: SwinIR's conv_before_upsample), which the
-//   others do not, so that their code stays as it was.
+//   others do not, so that their code stays as it was; and, as
+//   conv_tc_kernel_gelu<64, 4, false, 3, false>, GELU with erf (act 3: HAT's
+//   CAB conv 180 -> 60, its Cout padded to 64), a kernel of its own for the
+//   same reason.
 // Slices, K chunks and the stage count are template parameters: the 64 -> 64
 // instances (S = 1, one chunk, two stages) are the kernel without them.
 // ---------------------------------------------------------------------------
@@ -208,6 +212,33 @@ __device__ __forceinline__ void conv_tn_stage(const float (&acc)[kVirt / 2], con
     stmatrix_x4_trans(col < kTile ? stg_s + slot * 128 + ((chunk ^ (slot & 7)) << 4)
                                   : dump_s + (chunk << 4),
                       r[0], r[1], r[2], r[3]);
+  }
+}
+
+// GELU with erf, in place, of a warpgroup's staged 8 x 16 pixels x 64
+// channels (bf16, the bias already added): each of its 128 threads takes 8
+// of the tile's 16-byte chunks, in f32. Applied to the staged tile and not
+// to the accumulators, whose 72 registers a thread leave no room for GELU's
+// chains beside them under the kernel's 168-register budget (ptxas spilled
+// 172 bytes when it ran in conv_tn_stage); the value is rounded to bf16
+// before GELU and again after, as a bf16 conv followed by a bf16 GELU is.
+__device__ __forceinline__ void conv_tn_gelu(unsigned char* stg) {
+  const int t = threadIdx.x & 127;
+#pragma unroll 1
+  for (uint32_t k = 0; k < kOutStg / 16 / 128; ++k) {
+    uint4* p = reinterpret_cast<uint4*>(stg + (k * 128 + t) * 16);
+    uint4 w = *p;
+    uint32_t u[4] = {w.x, w.y, w.z, w.w};
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+    gelu_erf(v);
+    *p = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                    pack_bf16x2(v[6], v[7]));
   }
 }
 
@@ -340,10 +371,10 @@ __device__ __forceinline__ uint32_t ring_phase(int w) { return (STAGES == 1 ? w 
 // channels; SLICED: Cout_pad = 64 a.slices with a.slices > 1 (N = 64).
 // omap: the output's tensor map (N = 64): 5-D (channels, x, parity row, y,
 // image), boxes of 64 channels x 16 x 1 x 8 x 1.
-template <int N, int KS, bool UP, int KC, bool SLICED>
-__global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
-    conv_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap omap,
-                   const ConvTcArgs a) {
+// GELU: the epilogue is GELU with erf (conv_tc_kernel_gelu), else bias and
+// the act a.act names (conv_tc_kernel).
+template <int N, int KS, bool UP, int KC, bool SLICED, bool GELU>
+__device__ __forceinline__ void conv_tc_body(const CUtensorMap* xmap, const CUtensorMap* omap, const ConvTcArgs& a) {
   constexpr int kKH = UP ? 2 : 3, kPar = UP ? 2 : 1;  // parities per block: (pa, 0), (pa, 1)
   constexpr int kTaps = kKH * kKH;
   constexpr uint32_t kWBytes = conv_tc_wbytes(N, UP, KC);
@@ -417,7 +448,7 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
         for (uint32_t off = 0; off < kWBytes; off += 16384)
           bulk_copy_g2s(wsm + off, src + off, min(16384u, kWBytes - off), &bars[0]);
       }
-      if (a.use_tma) prefetch_tensor_map(&xmap);
+      if (a.use_tma) prefetch_tensor_map(xmap);
     }
     const int live = KC == 1 ? (a.cin + 7) / 8 : 8;
     int wi = 0;
@@ -442,7 +473,7 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
         if (a.use_tma) {
           if (lane == 0) {
             mbar_expect_tx(&full[s], kWinBytes);
-            tma_load_4d(win + s * kWinStride, &xmap, c0, x0 - 1, y0 - 1, n, &full[s]);
+            tma_load_4d(win + s * kWinStride, xmap, c0, x0 - 1, y0 - 1, n, &full[s]);
           }
         } else {
           if constexpr (kStream)
@@ -508,11 +539,15 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
       }
       if (issuer) bulk_wait_read<0>();  // the previous TMA store has read the staging tile
       named_barrier(1 + g, 128);
-      conv_tn_stage(acc, bv, a.act, kStream && a.act == 2 ? 0.01f : 0.2f, stg_s, dump_s);
+      conv_tn_stage(acc, bv, GELU ? 0 : a.act, kStream && a.act == 2 ? 0.01f : 0.2f, stg_s, dump_s);
+      if constexpr (GELU) {
+        named_barrier(1 + g, 128);  // the warpgroup's tile is staged
+        conv_tn_gelu(stg_all + g * kOutStg);
+      }
       fence_proxy_async();  // the TMA store reads the staging tile through the async proxy
       named_barrier(1 + g, 128);
       if (issuer) {
-        tma_store_5d(&omap, stg_s, (UP ? pb * 64 * n_slices : 0) + 64 * slice, (r % a.tiles_x) * kTile,
+        tma_store_5d(omap, stg_s, (UP ? pb * 64 * n_slices : 0) + 64 * slice, (r % a.tiles_x) * kTile,
                      UP ? pa : 0, (r / a.tiles_x) * kTile + g * (kTile / 2), t / tiles_img);
         bulk_commit();
       }
@@ -556,6 +591,24 @@ __global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
                                (r % a.tiles_x) * kTile, pa, pb);
     }
   }
+}
+
+template <int N, int KS, bool UP, int KC, bool SLICED>
+__global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
+    conv_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap omap,
+                   const ConvTcArgs a) {
+  conv_tc_body<N, KS, UP, KC, SLICED, false>(&xmap, &omap, a);
+}
+
+// The GELU epilogue (HAT's CAB conv 180 -> 60, Cout padded to 64: the
+// <64, 4, false, 3, false> instance alone), beside conv_tc_kernel so that
+// the latter's instances stay as they were.
+template <int N, int KS, bool UP, int KC, bool SLICED>
+__global__ void __launch_bounds__(kTcThreads, N == 64 ? 1 : 2)
+    conv_tc_kernel_gelu(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap omap,
+                        const ConvTcArgs a) {
+  static_assert(N == 64, "the GELU epilogue is the Cout-slice path's");
+  conv_tc_body<N, KS, UP, KC, SLICED, true>(&xmap, &omap, a);
 }
 
 }  // namespace esr

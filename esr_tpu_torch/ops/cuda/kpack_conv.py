@@ -5,7 +5,8 @@ the fused nearest-2x upsample (``esr_tpu_torch/ops/fused.py``).
 Port of ``esr_tpu/ops/pallas/kpack_conv.py::kpack_conv3x3`` (NHWC x HWIO,
 f32 accumulation), with a fused bias + LeakyReLU(0.2) epilogue that the plain
 version computes too (and LeakyReLU(0.01) where Cin is 129-192, SwinIR's
-conv_before_upsample). A CPU tensor takes the plain version; a CUDA tensor
+conv_before_upsample, and GELU with erf at Cin 129-192 and Cout 64, HAT's
+CAB conv 180 -> 60 with its Cout padded to 64). A CPU tensor takes the plain version; a CUDA tensor
 launches a kernel or raises. Two routes, by dtype: bf16 runs the
 tensor-core kernel (``csrc/conv3x3.cuh``; Cin up to 128, Cout up to 1024,
 and 3x3 convs of Cin 129-192, a multiple of 4, with Cout above 8; a wider
@@ -70,8 +71,9 @@ _DTYPES = (torch.bfloat16, torch.float32)
 # slices of 64)
 _TC_MAX_CIN, _TC_MAX_CIN_STREAMED, _TC_MAX_COUT = 128, 192, 1024
 # the epilogue's LeakyReLU slopes, by the kernel's act code (0.01: the
-# streamed instances alone)
+# streamed instances alone), and GELU's code (conv_tc_kernel_gelu)
 _SLOPES = {0.2: 1, 0.01: 2}
+_GELU = 3
 # the f32 kernel: input channels per K chunk, and the Cout slice widths of its
 # instances (a Cout of at most 8, 16 or 32 takes that width; wider ones
 # slices of 64)
@@ -79,20 +81,23 @@ _F32_KC = 8
 _F32_WIDTHS = (8, 16, 32, 64)
 
 
-def _epilogue(y: torch.Tensor, act: bool, slope: float = 0.2) -> torch.Tensor:
+def _epilogue(y: torch.Tensor, act: bool, slope: float = 0.2, gelu: bool = False) -> torch.Tensor:
+    if gelu:
+        return F.gelu(y)
     return F.leaky_relu(y, slope) if act else y
 
 
 def conv3x3_reference(
     x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None, act: bool = False,
-    slope: float = 0.2,
+    slope: float = 0.2, gelu: bool = False,
 ) -> torch.Tensor:
     """``F.conv2d`` SAME 3x3: x (B, H, W, Cin), kernel HWIO (3, 3, Cin, Cout),
-    computed in ``x.dtype``; optional bias, then optional LeakyReLU of ``slope``."""
+    computed in ``x.dtype``; optional bias, then optional LeakyReLU of
+    ``slope`` (``gelu``: GELU with erf instead)."""
     dt = x.dtype
     b = None if bias is None else bias.to(dt)
     y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1).to(dt), b, padding=1)
-    return _epilogue(y, act, slope).permute(0, 2, 3, 1)
+    return _epilogue(y, act, slope, gelu).permute(0, 2, 3, 1)
 
 
 def _collapse(w: torch.Tensor, parity: int, axis: int) -> torch.Tensor:
@@ -245,10 +250,19 @@ def _fuses_slope(kw: ConvKernelWeights, slope: float) -> bool:
     return slope == 0.2 or (slope == 0.01 and kw.route == "tc" and kw.cin_pad == 192)
 
 
-def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool, slope: float = 0.2) -> torch.Tensor:
+def _fuses_gelu(kw: ConvKernelWeights) -> bool:
+    """Whether the kernel's epilogue computes GELU for weights ``kw``: the
+    tensor-core 3x3 conv of Cin 129-192 and one Cout slice of 64
+    (``conv_tc_kernel_gelu``) alone."""
+    return kw.route == "tc" and kw.ksize == 3 and kw.cin_pad == 192 and kw.cout_pad == kw.cout == 64
+
+
+def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool, slope: float = 0.2,
+                gelu: bool = False) -> torch.Tensor:
     """Launch the kernel on CUDA tensor ``x`` (N, H, W, Cin) with weights in
     its layout: (N, H, W, Cout) for ``kw.ksize`` 3, (N, 2H, 2W, Cout) for 2;
-    with ``act``, LeakyReLU(``slope``) where :func:`_fuses_slope` (else raises)."""
+    with ``act``, LeakyReLU(``slope``) where :func:`_fuses_slope`; with
+    ``gelu``, GELU with erf where :func:`_fuses_gelu` (else raises)."""
     what = "kpack_conv3x3" if kw.ksize == 3 else "upsample2x_conv3x3"
     _require_cuda(x, what)
     lib.forward_only(what, x)
@@ -260,6 +274,9 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool, slope: float 
     if act and not _fuses_slope(kw, slope):
         raise ValueError(f"{what}: the epilogue takes LeakyReLU(0.2), and LeakyReLU(0.01) on the tensor-core "
                          f"route at Cin 129-192 only; got slope {slope} at Cin {kw.cin} on route {kw.route}")
+    if gelu and (act or not _fuses_gelu(kw)):
+        raise ValueError(f"{what}: the epilogue takes GELU alone, on the tensor-core route at Cin 129-192 and Cout "
+                         f"64 only; got Cin {kw.cin}, Cout {kw.cout} on route {kw.route}{' with act' * act}")
     if kw.route == "f32":
         out = conv_f32_launch(x.contiguous(), kw, act)
         (LAUNCHES_F32_3X3 if kw.ksize == 3 else LAUNCHES_F32_2X2).count += 1
@@ -275,7 +292,8 @@ def conv_launch(x: torch.Tensor, kw: ConvKernelWeights, act: bool, slope: float 
     x = lib.aligned16(x)
     err = so.esr_conv(
         lib.ptr(x), lib.ptr(kw.wt), lib.ptr(kw.bias), lib.ptr(out),
-        n, h, w, cin, kw.cin_pad, cout, kw.cout_pad, kw.ksize, _SLOPES[slope] if act else 0, lib.stream(x),
+        n, h, w, cin, kw.cin_pad, cout, kw.cout_pad, kw.ksize, _GELU if gelu else _SLOPES[slope] if act else 0,
+        lib.stream(x),
     )
     lib.check(so, err, f"{what} launch")
     (LAUNCHES if kw.ksize == 3 else LAUNCHES_UP).count += 1

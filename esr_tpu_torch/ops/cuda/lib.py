@@ -54,6 +54,12 @@ _SIGNATURES = {
     "token_linear": {
         "esr_token_linear": ([_VP] * 5 + [_LL] + [_I] * 4 + [_VP], _I),
     },
+    "hat_attn": {
+        "esr_hat_attn": ([_VP] * 3 + [_I] * 7 + [_F, _VP], _I),
+    },
+    "channel_attn": {
+        "esr_channel_attn": ([_VP] * 10 + [_I] * 7 + [_F, _VP], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -69,13 +69,16 @@ def test_cuda_ptxas_rdb5c_instances_spill_nothing(ptxas):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("library,kernel,instances,serial", [
-    ("conv3x3", "conv_tc_kernel", 20, True), ("conv3x3", "conv_f32_kernel", 8, False),
-    ("layernorm", "layernorm_kernel", 1, False), ("token_linear", "token_linear_kernel", 4, True)])
+    ("conv3x3", "conv_tc_kernel", 21, True), ("conv3x3", "conv_f32_kernel", 8, False),
+    ("layernorm", "layernorm_kernel", 1, False), ("token_linear", "token_linear_kernel", 4, True),
+    ("hat_attn", "hat_attn_kernel", 2, False), ("channel_attn", "ca_", 2, False)])
 def test_cuda_ptxas_instances_spill_nothing(ptxas, library, kernel, instances, serial):
-    """Every instance of the conv kernel's widths and modes (20), the f32
-    route's N 8 / 16 / 32 / 64 in both modes (8), the LayerNorm kernel and
-    the token-wise linear's four (K, NW, epilogue) instances: nothing in
-    local memory; the tensor-core kernels' wgmma pipelined."""
+    """Every instance of the conv kernel's widths and modes (20, and the
+    GELU epilogue's conv_tc_kernel_gelu), the f32 route's N 8 / 16 / 32 / 64
+    in both modes (8), the LayerNorm kernel, the token-wise linear's four
+    (K, NW, epilogue) instances, HAT's attention at key windows 16 and 24
+    and its channel attention's pool and scale: nothing in local memory;
+    the tensor-core kernels' wgmma pipelined."""
     report = ptxas[library]
     found = _instances(report, kernel)
     spilled = [report[i + 1].strip() for i in found if "0 bytes spill stores" not in report[i + 1]]

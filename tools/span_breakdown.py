@@ -41,12 +41,14 @@ from esr_bench import harness, program  # noqa: E402
 
 # a cell kind's roots, each with the harness span that calls it; the first is one a unit
 ROOTS = {"eval": [("eval.forward", "forward")], "images": [("eval.forward", "forward")],
+         "hat": [("eval.forward", "forward")],
          "train": [("train.step", "optimize_parameters"), ("train.losses", "log")],
          "clicks": [("explore.tool", "tool."), ("explore.render", "render")]}
 OCCASIONAL = {"train.losses"}  # not every unit has one: the losses are fetched every print_freq steps
 KERNELS = {"rdb5c_tc_kernel": ("rdb5c",), "conv_tc_kernel": ("conv3x3", "upsample2x_conv3x3"),
            "window_attn_kernel": ("window_attn",), "layernorm_kernel": ("layernorm",),
-           "token_linear_kernel": ("token_linear",)}  # name: counters
+           "token_linear_kernel": ("token_linear",), "hat_attn_kernel<16>": ("hab_attn",),
+           "hat_attn_kernel<24>": ("oca_attn",), "ca_pool_kernel": ("channel_attn",)}  # name: counters
 
 
 def split(kind: str, recorded: list, units: int) -> tuple[dict, dict]:
